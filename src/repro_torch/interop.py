@@ -1,0 +1,62 @@
+"""Carry data and engine state between the JAX package and this port.
+
+Both sides meet in numpy: the JAX package's arrays convert with
+``np.asarray`` and this port's tensors with :func:`to_numpy`, so nothing
+here imports JAX.  A ``Mailbox`` or ``CostAccum`` of the JAX package, read
+into numpy, becomes this port's with :func:`mailbox_from_numpy` and
+:func:`accum_from_numpy`, and goes back with :func:`to_numpy`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._tree import tree_map
+from .core.costmodel import CostAccum
+from .core.mrmodel import Mailbox
+
+_ACCUM_DTYPES = {"rounds": torch.int32, "communication": torch.float32,
+                 "internal_time": torch.float32, "max_reducer_io": torch.int32,
+                 "dropped": torch.int32}
+
+
+def tree_from_numpy(tree, device="cpu"):
+    """Every array-like leaf as a tensor on ``device``, dtype kept."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def mailbox_from_numpy(payload, valid, device="cpu") -> Mailbox:
+    """A :class:`Mailbox` on ``device`` from a numpy payload nest and mask."""
+    return Mailbox(payload=tree_from_numpy(payload, device),
+                   valid=torch.from_numpy(np.array(valid, dtype=bool))
+                   .to(device))
+
+
+def accum_from_numpy(fields, device="cpu") -> CostAccum:
+    """A :class:`CostAccum` from its five fields: a sequence in field order
+    (the JAX package's ``CostAccum`` is one) or a dict by name.  Each field
+    takes the port's dtype; the values must already be exact in it."""
+    if isinstance(fields, dict):
+        values = [fields[k] for k in CostAccum._fields]
+    else:
+        values = list(fields)
+    if len(values) != len(CostAccum._fields):
+        raise ValueError(f"CostAccum has {len(CostAccum._fields)} fields, "
+                         f"got {len(values)}")
+    return CostAccum(*[
+        torch.tensor(np.asarray(v).item(), dtype=_ACCUM_DTYPES[k],
+                     device=device)
+        for k, v in zip(CostAccum._fields, values)])
+
+
+def as_numpy(x) -> np.ndarray:
+    """One tensor (on any device) or array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def to_numpy(obj):
+    """Tensors in any nest (Mailbox, CostAccum, dicts, ...) as numpy
+    arrays, the nest's structure kept."""
+    return tree_map(as_numpy, obj)

@@ -1,0 +1,93 @@
+"""Row-wise key-value sort — the tile-local sort of the multi-tile radix
+shuffle (:mod:`repro_torch.core.kshuffle`).
+
+``bitonic_sort(keys, values)`` sorts each row of a (rows, n) int32 or
+float32 key matrix ascending and permutes a same-shape 4-byte value matrix
+along.  Rows are padded to a power of two n_pad with the key type's maximum;
+a row with n_pad above 2^18 raises, as the JAX package's kernel does.
+
+:func:`bitonic_sort_cuda` launches the hand-written bitonic network of
+``csrc/bitonic_sort.cu``; :func:`bitonic_sort_plain` is the plain PyTorch
+version (stable argsort plus gather) for the CPU and as the kernel's
+yardstick on the card.  The network is not stable, so the two agree exactly
+on rows of unique keys, which is what the shuffle sorts (segmented keys
+``dest * tile + local_src``).  :func:`repro_torch.kernels.ops.bitonic_sort`
+picks one by device.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel since the last reset (ops.reset_launches)
+launches = 0
+
+#: widest padded row the function accepts (the JAX kernel's per-grid-step
+#: VMEM budget, kept as the contract)
+_ROW_BLOCK_ELEMS = 1 << 18
+_KEY_DTYPES = (torch.int32, torch.float32)
+
+
+def _check_pair(keys: torch.Tensor, values: torch.Tensor) -> None:
+    if keys.shape != values.shape or keys.ndim != 2:
+        raise ValueError("bitonic_sort expects matching (rows, n) arrays")
+
+
+def _padded_width(n: int) -> int:
+    n_pad = 1
+    while n_pad < n:
+        n_pad *= 2
+    if n_pad > _ROW_BLOCK_ELEMS:
+        raise ValueError(
+            f"bitonic_sort: one row of n={n} (padded {n_pad}) exceeds the "
+            f"single-VMEM-tile budget ({_ROW_BLOCK_ELEMS}); split the row "
+            f"into tiles first (see repro_torch.core.kshuffle)")
+    return n_pad
+
+
+def bitonic_sort_plain(keys: torch.Tensor, values: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: stable argsort of each row, then gather."""
+    _check_pair(keys, values)
+    if keys.numel() == 0:
+        return keys, values
+    _padded_width(keys.shape[1])
+    order = torch.argsort(keys, dim=-1, stable=True)
+    return keys.gather(-1, order), values.gather(-1, order)
+
+
+def bitonic_sort_cuda(keys: torch.Tensor, values: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/bitonic_sort.cu`` on CUDA tensors; raises on any
+    failure to build or launch."""
+    global launches
+    _check_pair(keys, values)
+    if keys.device.type != "cuda" or values.device != keys.device:
+        raise ValueError("bitonic_sort_cuda takes CUDA tensors on one device")
+    if keys.dtype not in _KEY_DTYPES or values.element_size() != 4:
+        raise ValueError(f"bitonic_sort_cuda takes int32 or float32 keys and "
+                         f"4-byte values, got {keys.dtype} and {values.dtype}")
+    rows, n = keys.shape
+    if rows == 0 or n == 0:
+        return keys, values
+    n_pad = _padded_width(n)
+    keys, values = keys.contiguous(), values.contiguous()
+    out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
+    lib = _build.library()
+    work_k = work_v = None
+    if n_pad > lib.repro_bitonic_smem_width():
+        work_k = torch.empty((rows, n_pad), dtype=keys.dtype, device=keys.device)
+        work_v = torch.empty((rows, n_pad), dtype=values.dtype,
+                             device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = lib.repro_bitonic_sort(
+        keys.data_ptr(), values.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
+        None if work_k is None else work_k.data_ptr(),
+        None if work_v is None else work_v.data_ptr(),
+        rows, n, n_pad, int(keys.dtype == torch.float32), stream)
+    _build.check(err, "bitonic_sort")
+    launches += 1
+    return out_k, out_v

@@ -1,0 +1,26 @@
+"""Plain oracles of the ported kernels (the correctness ground truth).
+
+Each mirrors its kernel's public contract exactly and is written as simply as
+the function allows, independently of the kernel module's own plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def bincount_tiles_ref(tiles: torch.Tensor, n_buckets: int):
+    """Per-tile histogram + the two exclusive scans, one tile at a time."""
+    T = tiles.shape[0]
+    rows = [torch.bincount(row[(row >= 0) & (row < n_buckets)].long(),
+                           minlength=n_buckets)[:n_buckets] for row in tiles]
+    C = (torch.stack(rows) if T else
+         torch.zeros((0, n_buckets), dtype=torch.int64)).to(torch.int32)
+    P = torch.cumsum(C, 0, dtype=torch.int32) - C     # cross-tile exclusive
+    F = torch.cumsum(C, 1, dtype=torch.int32) - C     # in-tile bucket offsets
+    return C, P, F
+
+
+def bitonic_sort_ref(keys: torch.Tensor, values: torch.Tensor):
+    """Rows sorted ascending by key (stable), values moved along."""
+    sorted_keys, order = torch.sort(keys, dim=-1, stable=True)
+    return sorted_keys, values.gather(-1, order)

@@ -1,0 +1,70 @@
+"""The port stands alone: it imports no JAX and nothing of ``repro``, and
+its entry points run on the card unless asked for the CPU."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s+import)\b)",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_imports(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path.name} imports {hits}"
+
+
+def test_sorts_on_cpu_with_jax_blocked():
+    """In a fresh interpreter where ``import jax`` and ``import repro``
+    fail, the port imports and sorts on the CPU through the kernel engine."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np, torch
+        import repro_torch, repro_torch.core, repro_torch.kernels.ops
+        import repro_torch.interop, repro_torch.testing
+        from repro_torch.core import get_engine, sort_plan
+        eng = get_engine("kernel", device="cpu")
+        x = np.random.default_rng(0).normal(size=500).astype(np.float32)
+        res = eng.compile(sort_plan(500, 16, levels=2))(x, key=1)
+        assert torch.equal(res.values, torch.sort(torch.from_numpy(x)).values)
+        assert int(res.stats.dropped) == 0
+        assert eng.route_log.snapshot() == (3, 0)
+        assert not [m for m, mod in sys.modules.items() if mod is not None
+                    and (m in ("jax", "repro")
+                         or m.startswith(("jax.", "repro.")))]
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch.core import LocalEngine, compile_plan, sort_plan
+    from repro_torch.core.engine import default_engine
+    if torch.cuda.is_available():
+        assert LocalEngine().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalEngine()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalEngine(shuffle_impl="kernel", device="cuda:0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compile_plan(sort_plan(64, 8))
+    default_engine.cache_clear()

@@ -1,0 +1,116 @@
+"""Port kernels vs the JAX package's Pallas kernels (interpret mode).
+
+On the CPU the port's wrappers take each kernel's plain PyTorch version;
+the same seeded numpy inputs go through the JAX kernel in interpret mode and
+through the port, and must agree exactly (all-integer outputs; a sort
+permutes its inputs).  ``test_torch_cuda.py`` holds the hand-written
+kernels against the plain versions on the card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bincount import bincount as jax_bincount
+from repro.kernels.bincount import bincount_tiles as jax_bincount_tiles
+from repro.kernels.bitonic_sort import bitonic_sort as jax_bitonic_sort
+from repro_torch.kernels import bincount, bitonic_sort, ops, ref
+
+RNG = np.random.default_rng(1234)
+
+
+def _unique_keys(rows, n, dtype=np.int32):
+    base = RNG.permutation(max(rows * n, 1) * 4)[:rows * n]
+    return base.reshape(rows, n).astype(dtype)
+
+
+@pytest.mark.parametrize("T,tile_n,n_buckets", [
+    (1, 32, 8),          # single tile: prefix must be all-zero
+    (5, 16, 8),          # multi-tile prefix
+    (3, 7, 100),         # n_buckets > items per tile
+    (4, 8, 1),           # single bucket
+    (0, 16, 8),          # no tiles
+    (2, 0, 8),           # empty tiles
+    (6, 40, 13),         # (every case draws ids up to n_buckets + 1)
+])
+def test_bincount_tiles_matches_jax(T, tile_n, n_buckets):
+    tiles = RNG.integers(-1, n_buckets + 2, (T, tile_n)).astype(np.int32)
+    want = jax_bincount_tiles(tiles, n_buckets, interpret=True)
+    got = ops.bincount_tiles(torch.from_numpy(tiles), n_buckets)
+    oracle = ref.bincount_tiles_ref(torch.from_numpy(tiles), n_buckets)
+    for w, g, o, name in zip(want, got, oracle, ("counts", "tile_prefix",
+                                                 "bucket_offsets")):
+        assert g.dtype == torch.int32 and g.shape == (T, n_buckets), name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        np.testing.assert_array_equal(o.numpy(), np.asarray(w), err_msg=name)
+
+
+def test_bincount_tiles_totals_match_jax_bincount():
+    """tile_prefix[-1] + counts[-1] is the global histogram."""
+    tiles = RNG.integers(-1, 13, (6, 32)).astype(np.int32)
+    C, P, _ = ops.bincount_tiles(torch.from_numpy(tiles), 13)
+    want = jax_bincount(tiles.reshape(-1), 13, block_t=64, interpret=True)
+    np.testing.assert_array_equal((P[-1] + C[-1]).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rows,n,dtype", [
+    (1, 8, np.int32), (2, 64, np.int32), (3, 100, np.int32), (1, 7, np.int32),
+    (4, 256, np.int32), (10, 12, np.int32),
+    (1, 7, np.float32), (3, 100, np.float32),
+])
+def test_bitonic_sort_matches_jax(rows, n, dtype):
+    if dtype == np.int32:
+        k = _unique_keys(rows, n)       # unique: the permutation is defined
+    else:
+        k = RNG.normal(size=(rows, n)).astype(dtype)
+    v = RNG.normal(size=(rows, n)).astype(np.float32)
+    wk, wv = jax_bitonic_sort(k, v, interpret=True)
+    gk, gv = ops.bitonic_sort(torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    rk, rv = ref.bitonic_sort_ref(torch.from_numpy(k), torch.from_numpy(v))
+    assert torch.equal(rk, gk) and torch.equal(rv, gv)
+
+
+@pytest.mark.parametrize("rows,n", [
+    (1, 0),              # empty row
+    (2, 1),              # single element
+    (1, 5),              # non-power-of-two (padding path)
+    (3, 33),             # just past a power of two
+])
+def test_bitonic_sort_awkward_matches_jax(rows, n):
+    k = _unique_keys(rows, n)
+    v = RNG.integers(0, 1 << 20, (rows, n)).astype(np.int32)
+    wk, wv = jax_bitonic_sort(k, v, interpret=True)
+    gk, gv = ops.bitonic_sort(torch.from_numpy(k), torch.from_numpy(v))
+    assert gk.shape == (rows, n) and gv.dtype == torch.int32
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def test_bitonic_sort_width_guard_matches_jax():
+    """Both packages refuse one row past 2^18 padded, with one message."""
+    n = (1 << 18) + 1
+    k = np.zeros((1, n), np.int32)
+    with pytest.raises(ValueError, match="single-VMEM-tile"):
+        jax_bitonic_sort(k, k, interpret=True)
+    with pytest.raises(ValueError, match="single-VMEM-tile"):
+        ops.bitonic_sort(torch.from_numpy(k), torch.from_numpy(k))
+    with pytest.raises(ValueError, match="matching"):
+        ops.bitonic_sort(torch.zeros(2, 3), torch.zeros(2, 4))
+
+
+def test_cpu_tensors_never_launch():
+    """A CPU tensor takes the plain version: no kernel launch is counted,
+    and nothing is built."""
+    ops.reset_launches()
+    ops.bincount_tiles(torch.zeros((2, 4), dtype=torch.int32), 3)
+    ops.bitonic_sort(torch.zeros((2, 4), dtype=torch.int32),
+                     torch.zeros((2, 4), dtype=torch.int32))
+    assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0}
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        bincount.bincount_tiles_cuda(torch.zeros((2, 4), dtype=torch.int32), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitonic_sort.bitonic_sort_cuda(torch.zeros((2, 4)), torch.zeros((2, 4)))
