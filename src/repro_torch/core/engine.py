@@ -180,16 +180,13 @@ class MREngine:
     def run_rounds(self, f: RoundFn, box: Mailbox, n_rounds: int,
                    capacity: Optional[int] = None,
                    accum: Optional[CostAccum] = None,
-                   n_nodes: Optional[int] = None,
-                   early_dests: bool = False
+                   n_nodes: Optional[int] = None
                    ) -> Tuple[Mailbox, CostAccum]:
         """Drive R rounds, returning the final mailbox and accumulated cost.
 
         Every round runs at (n_nodes, capacity), so a first round whose
         target differs from the entry box is a shape-change round and the
-        rest are shape-uniform.  ``early_dests`` is a stage's declared
-        scheduling bit (destinations depend only on node ids and the static
-        schedule); no backend here overlaps rounds, so it is ignored."""
+        rest are shape-uniform."""
         acc = accum if accum is not None else CostAccum.zero(self.device)
         for r in range(n_rounds):
             box, stats = self.run_round(f, box, r, capacity, n_nodes=n_nodes)
@@ -207,9 +204,8 @@ class MREngine:
                    accum: Optional[CostAccum] = None
                    ) -> Tuple[Mailbox, CostAccum]:
         """Drive a heterogeneous round schedule: ``stages`` is a sequence of
-        ``(round_fn, capacity)`` pairs, ``(round_fn, capacity, n_nodes)``
-        triples or ``(round_fn, capacity, n_nodes, early_dests)``
-        quadruples, each executed as one round."""
+        ``(round_fn, capacity)`` pairs or ``(round_fn, capacity, n_nodes)``
+        triples, each executed as one round."""
         acc = accum if accum is not None else CostAccum.zero(self.device)
         for r, stage in enumerate(stages):
             fn, cap = stage[0], stage[1]

@@ -34,8 +34,6 @@ from .costmodel import RoundStats
 from .mrmodel import Mailbox, Payload, materialize_mailbox
 
 _INT32_MAX = 2**31 - 1
-#: widest single row the row sort takes (its contract, not a guard here)
-_MAX_SORT_N = 1 << 18
 #: default within-tile sort width (one bitonic network per tile)
 _TILE_N = 4096
 #: below this derived tile width the per-tile sort degenerates — bail dense

@@ -47,9 +47,6 @@ class PlanStage(NamedTuple):
     #: whether the stage physically shuffles (accounting-only and compute
     #: stages set False so footprint metrics skip them)
     shuffles: bool = True
-    #: declared overlap legality: destinations depend only on node ids and
-    #: the static schedule (a scheduling hint; results never change)
-    early_dests: bool = False
 
 
 class PlanState(NamedTuple):
@@ -252,8 +249,7 @@ def entry_stage(name: str, n_nodes: int, capacity: int,
 
 def round_stage(name: str, make_fn: Callable, n_rounds: int,
                 capacity: Optional[int] = None,
-                n_nodes: Optional[int] = None,
-                early_dests: bool = False) -> PlanStage:
+                n_nodes: Optional[int] = None) -> PlanStage:
     """``n_rounds`` applications of one round function over the current
     mailbox.  ``make_fn(carry) -> RoundFn`` binds the carry at execute time.
     ``n_nodes`` declares the stage's target footprint V_r (a shape-change
@@ -263,12 +259,10 @@ def round_stage(name: str, make_fn: Callable, n_rounds: int,
         V = None if n_nodes is None else engine.aligned_nodes(n_nodes)
         box, accum = engine.run_rounds(make_fn(state.carry), state.box,
                                        n_rounds, capacity=capacity,
-                                       accum=state.accum, n_nodes=V,
-                                       early_dests=early_dests)
+                                       accum=state.accum, n_nodes=V)
         return state._replace(box=box, accum=accum)
 
-    return PlanStage(name, n_rounds, capacity, apply, n_nodes,
-                     early_dests=early_dests)
+    return PlanStage(name, n_rounds, capacity, apply, n_nodes)
 
 
 def compute_stage(name: str, fn: Callable) -> PlanStage:
@@ -284,13 +278,11 @@ def compute_stage(name: str, fn: Callable) -> PlanStage:
 
 def custom_stage(name: str, rounds: int, capacity: Optional[int],
                  apply: Callable,
-                 n_nodes: Optional[int] = None,
-                 early_dests: bool = False) -> PlanStage:
+                 n_nodes: Optional[int] = None) -> PlanStage:
     """Escape hatch for stages that drive the engine directly;
     ``apply(engine, state) -> state`` must account exactly ``rounds``
     rounds."""
-    return PlanStage(name, rounds, capacity, apply, n_nodes,
-                     early_dests=early_dests)
+    return PlanStage(name, rounds, capacity, apply, n_nodes)
 
 
 __all__ = [

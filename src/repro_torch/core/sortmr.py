@@ -231,8 +231,7 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
             return refine
         stages.append(round_stage(f"refine-{d}", make_refine, 1,
                                   capacity=group_cap(d),
-                                  n_nodes=group_nodes(d) if shape else None,
-                                  early_dests=True))
+                                  n_nodes=group_nodes(d) if shape else None))
 
     big = _dtype_max(dtype)
 
@@ -247,8 +246,7 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
             return dest, svals
         return local_sort
 
-    stages.append(round_stage("local-sort", make_local_sort, 1,
-                              early_dests=True))   # keep-at-self dests
+    stages.append(round_stage("local-sort", make_local_sort, 1))
     stages.append(account_stage("output", ((n, 1),)))   # leaves -> output
 
     def epilogue(state):

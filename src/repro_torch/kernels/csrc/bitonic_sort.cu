@@ -9,10 +9,13 @@
 // inside the kernel; the padding is never written out.  Not stable: ties
 // keep whatever order the network leaves them in, exactly as on the TPU.
 //
-// What bounds it on an H100: bytes at the widths the shuffle uses.  A row of
-// n_pad = 4096 is 78 compare-exchange stages over 2048 pairs, about 1.6e5
-// comparisons per 32 KB of keys and values read and written once; the card's
-// int32 rate clears that long before its memory rate does.
+// What bounds it on an H100: the floor is bytes.  A row of n_pad = 4096 is
+// 78 compare-exchange stages over 2048 pairs, about 1.6e5 comparisons per
+// 32 KB of keys and values read and written once, and the card's int32 rate
+// would clear those comparisons before its memory rate moves the bytes.  As
+// measured (chip_smoke.py, H100 SXM), the kernel runs at about 14 times
+// that byte floor and slower than a stable argsort plus gather; what holds
+// it there is not yet known (PERF.md, open questions).
 //
 // Design: a row of n_pad <= kSmemN keys and values lives in shared memory
 // (kSmemN * 8 bytes = 128 KB), one block per row, and every stage runs there

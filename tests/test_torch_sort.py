@@ -35,8 +35,8 @@ def _port_engines():
 
 
 @pytest.mark.parametrize("seed,n,M,levels", [
-    (0, 300, 16, 1), (1, 500, 32, 1), (2, 1000, 32, 2), (3, 2000, 16, 2),
-    (4, 777, 8, 1), (5, 1500, 64, 2),
+    (0, 300, 16, 1), (1, 500, 32, 1), (2, 1000, 32, 2), (4, 777, 8, 1),
+    (5, 1500, 64, 2),
 ])
 def test_sort_plan_matches_jax_local(seed, n, M, levels):
     x = np.random.default_rng(seed).normal(size=n).astype(np.float32)
@@ -54,8 +54,11 @@ def test_sort_plan_matches_jax_local(seed, n, M, levels):
         assert_same_accum(want.stats, got.stats, ctx=eng.name)
 
 
-@pytest.mark.parametrize("seed,n,M,levels", [(6, 400, 16, 1),
-                                             (7, 900, 32, 2)])
+# One levels=2 query (entry, refine and local-sort shuffles): each JAX query
+# on the Pallas engine compiles its kernels in interpret mode, about 10 s on
+# one CPU core, so levels=1 is held to the JAX package through its dense
+# engine above.
+@pytest.mark.parametrize("seed,n,M,levels", [(7, 900, 32, 2)])
 def test_sort_plan_matches_jax_pallas(seed, n, M, levels):
     x = np.random.default_rng(seed).normal(size=n).astype(np.float32)
     key, idx = _jax_draw(seed, n)
