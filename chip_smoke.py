@@ -19,7 +19,21 @@ exits non-zero:
               kernels launched; then a levels=2 query and exe.batch(4);
 6. timings  — CUDA-event medians of each kernel, its plain version and its
               library yardstick at the main path's inputs, beside the bound;
-              and host-clock medians of whole sort queries.
+              and host-clock medians of whole sort queries;
+7. lm-kernels — ``flash_attention`` against its plain version at TinyLlama's
+              prefill shape (b 8, hq 32, hkv 4, s 2048, d 64, causal) in
+              bfloat16 and float32 and at the edge shapes of
+              tests/test_kernels.py, within 2e-4 (f32) and 2e-2 (bf16);
+8. lm-prefill — the dense serving path at TinyLlama-1.1B's full width and
+              depth, params from a seeded generator: prefill of 8 prompts of
+              2048 tokens (22 kernel launches), 32 greedy decode steps, then
+              the ServeEngine draining 16 requests (phase lm-serve); with the
+              launch counts reset just before and read just after.  Then
+              float32 prefill against token-by-token decode, and the bf16
+              flash path against the plain attention path;
+9. lm-timings — host-clock medians of prefill, a decode step and a serve
+              drain; CUDA-event medians of flash_attention, its plain version
+              and torch's SDPA at the prefill shape, beside the bound.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -45,6 +59,17 @@ MEM_RATES = (("PCIe", 2.0e12), ("NVL", 3.9e12), ("H100", 3.35e12))
 #: float32 rate outside the tensor cores (FLOP/s), the H100 SXM data sheet;
 #: used for the comparisons of the sort network (int32 or float32 keys)
 ALU_RATE = 67e12
+#: dense bf16 tensor-core rate (FLOP/s), the H100 SXM data sheet
+BF16_RATE = 989e12
+LM_ARCH = "tinyllama-1.1b"
+LM_B, LM_S, LM_DECODE = 8, 2048, 32       # prefill batch and length, steps
+#: flash_attention shapes (b, hq, hkv, s_q, s_k, d, causal): TinyLlama's
+#: prefill, then the edge shapes of tests/test_kernels.py and one query
+#: against a 512-key cache
+FLASH_MAIN = (LM_B, 32, 4, LM_S, LM_S, 64, True)
+FLASH_EDGE = ((2, 4, 2, 128, 128, 64, True), (1, 2, 2, 200, 200, 32, False),
+              (1, 8, 2, 256, 256, 64, True), (1, 2, 1, 100, 100, 48, True),
+              (2, 4, 4, 64, 64, 128, False), (2, 4, 4, 1, 512, 64, False))
 
 
 def emit(**rec) -> None:
@@ -108,6 +133,225 @@ class Recorder:
     def bitonic_sort(self, keys, values):
         self.calls.append(("bitonic_sort", keys, values))
         return self.ops.bitonic_sort(keys, values)
+
+
+def rel_close(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol * |want| everywhere (rtol = atol = tol)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def flash_inputs(torch, dev, shape, dtype, seed):
+    b, hq, hkv, sq, sk, d, _ = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn(b, hq, sq, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(b, hkv, sk, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b, hkv, sk, d, device=dev, generator=gen).to(dtype)
+    return q, k, v
+
+
+def lm_phases(torch, dev, mem_rate) -> dict:
+    """Phases 7-9: the dense serving path of TinyLlama-1.1B.  Returns the
+    flash_attention row of the kernels summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 7. flash_attention against its plain version -----------------------
+    max_abs = 0.0
+    checked = []
+    for i, shape in enumerate((FLASH_MAIN,) + FLASH_EDGE):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-4)):
+            q, k, v = flash_inputs(torch, dev, shape, dtype, 100 + i)
+            got = flash.flash_attention_cuda(q, k, v, shape[-1])
+            torch.cuda.synchronize()
+            want = flash.flash_attention_plain(q, k, v, shape[-1])
+            check(got.dtype == dtype and got.shape == want.shape,
+                  f"flash_attention {shape}: {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            max_abs = max(max_abs, err)
+            check(rel_close(got, want, tol), f"flash_attention {shape} "
+                  f"{dtype}: max abs err {err} over tolerance {tol}")
+            checked.append([*shape[:-1], int(shape[-1]), str(dtype), err])
+            del q, k, v, got, want
+    emit(phase="lm-kernels", checked=checked, max_abs_err=max_abs,
+         columns="b hq hkv s_q s_k d causal dtype max_abs_err")
+
+    # -- 8. the main path: prefill, greedy decode, serve --------------------
+    cfg = get_config(LM_ARCH, attn_impl="flash")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = np.random.default_rng(0)
+    prompt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (LM_B, LM_S))
+                              .astype(np.int32)).to(dev)
+    requests = [(uid, gen.integers(0, cfg.vocab_size,
+                                   int(gen.integers(16, 65))).astype(np.int32))
+                for uid in range(16)]
+
+    class FifoEngine(ServeEngine):
+        """Records the order in which requests leave the queue."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.admitted = []
+
+        def _admit(self):
+            waiting = [r.uid for r in self.queue]
+            super()._admit()
+            self.admitted += waiting[:len(waiting) - len(self.queue)]
+
+    def serve(clock=time.perf_counter):
+        eng = FifoEngine(model, ServeConfig(max_batch=8, max_len=256),
+                         clock=clock)
+        for uid, p in requests:
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=32))
+        eng.run_until_drained()
+        return eng
+
+    ops.reset_launches()
+    per_prefill = []
+    logits, state = model.prefill(prompt, max_len=LM_S + LM_DECODE)
+    torch.cuda.synchronize()
+    per_prefill.append(ops.launches()["flash_attention"])
+    tokens = [logits.argmax(-1)]
+    for _ in range(LM_DECODE):
+        logits, state = model.decode_step(tokens[-1], state)
+        tokens.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_finite = bool(torch.isfinite(logits.float()).all())
+    eng = serve()
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    check(per_prefill == [cfg.n_layers] and
+          launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launches {per_prefill}, {launches}: expected "
+          f"{cfg.n_layers} per prefill and none in decode")
+    check(launches["bincount_tiles"] == launches["bitonic_sort"] == 0,
+          f"sort kernels launched on the LM path: {launches}")
+    check(decode_finite, "decode logits not finite")
+    check(state.pos.tolist() == [LM_S + LM_DECODE] * LM_B,
+          f"decode pos {state.pos.tolist()}")
+    st = eng.stats()
+    check(st["requests"] == 16 and len(eng.finished) == 16,
+          f"serve finished {st['requests']} of 16")
+    check(all(len(r.output) == 32 for r in eng.finished), "serve outputs")
+    check(eng.cost.max_reducer_io <= 8,
+          f"max_reducer_io {eng.cost.max_reducer_io} > 8")
+    check(eng.admitted == list(range(16)), f"admission {eng.admitted}")
+    emit(phase="lm-serve", stats=st, cost=dataclasses.asdict(eng.cost),
+         admitted=eng.admitted,
+         finished=[r.uid for r in eng.finished][:8])
+
+    # checks: logits finite; f32 prefill equals decode; flash vs plain
+    logits, _ = model.prefill(prompt, max_len=LM_S)
+    check(bool(torch.isfinite(logits.float()).all()), "prefill logits")
+    params = model.param_tree()
+    m32 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32"),
+                    params)
+    short = prompt[:, :64]
+    lp, sp = m32.prefill(short, max_len=64)
+    sd = m32.init_decode_state(LM_B, 64)
+    for i in range(64):
+        ld, sd = m32.decode_step(short[:, i], sd)
+    f32_err = (lp - ld).abs().max().item()
+    f32_cache_err = (sp.k - sd.k).abs().max().item()
+    check(rel_close(ld, lp, 2e-3) and rel_close(sd.k, sp.k, 2e-3),
+          f"f32 prefill vs decode: logits {f32_err}, cache {f32_cache_err}")
+    del sp, sd
+    m_xla = DecoderLM(dataclasses.replace(cfg, attn_impl="xla"), params)
+    lx, _ = m_xla.prefill(prompt, max_len=LM_S)
+    del m_xla
+    m_ref = DecoderLM(dataclasses.replace(cfg, attn_impl="xla",
+                                          compute_dtype="float32"), params)
+    lr, _ = m_ref.prefill(prompt, max_len=LM_S)
+    del m_ref
+    torch.cuda.synchronize()
+    err_fx = (logits.float() - lx.float()).abs().max().item()
+    err_f = (logits.float() - lr).abs().max().item()
+    err_x = (lx.float() - lr).abs().max().item()
+    rms_f = (logits.float() - lr).pow(2).mean().sqrt().item()
+    rms_x = (lx.float() - lr).pow(2).mean().sqrt().item()
+    # Both bf16 paths round the same function, which the float32 model
+    # computes.  Tolerance: the two may differ by twice the plain path's
+    # own bf16 error against the float32 model (max abs over all logits),
+    # and the kernel path's rms error may exceed the plain path's by 25 %.
+    check(err_fx <= 2 * err_x and rms_f <= 1.25 * rms_x,
+          f"bf16 flash vs plain path: max {err_fx} (tolerance {2 * err_x}); "
+          f"rms error vs the f32 model {rms_f}, plain {rms_x}")
+    emit(phase="lm-prefill", arch=LM_ARCH, batch=LM_B, seq=LM_S,
+         decode_steps=LM_DECODE, build_s=build_s,
+         launches_per_prefill=per_prefill[0], main_path_launches=launches,
+         greedy_tokens_slot0=[int(t[0]) for t in tokens[:8]],
+         f32_prefill_vs_decode_max_abs=f32_err,
+         f32_cache_max_abs=f32_cache_err,
+         bf16_flash_vs_plain_max_abs=err_fx,
+         bf16_vs_f32_model={"flash_max": err_f, "plain_max": err_x,
+                            "flash_rms": rms_f, "plain_rms": rms_x},
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    del lx, lr, m32
+
+    # -- 9. timings ---------------------------------------------------------
+    prefill_ms = host_ms(lambda: model.prefill(prompt, max_len=LM_S), torch)
+    _, state = model.prefill(prompt[:, :LM_S - 1], max_len=LM_S)
+    tok = prompt[:, -1]
+    decode_ms = host_ms(lambda: model.decode_step(tok, state), torch, reps=9)
+    drains = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        e = serve()
+        torch.cuda.synchronize()
+        drains.append((time.perf_counter() - t0, e.stats()))
+    drain_s, drain_stats = sorted(drains, key=lambda d: d[0])[1]
+    q, k, v = flash_inputs(torch, dev, FLASH_MAIN, torch.bfloat16, 7)
+    kern_ms = event_ms(lambda: flash.flash_attention_cuda(q, k, v, True),
+                       torch)
+    plain_ms = event_ms(lambda: flash.flash_attention_plain(q, k, v, True),
+                        torch)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    check(rel_close(flash.flash_attention_cuda(q, k, v, True), sdpa(), 2e-2),
+          "SDPA yardstick disagrees with the kernel")
+    sdpa_ms = event_ms(sdpa, torch)
+    q32, k32, v32 = (a.float() for a in (q, k, v))
+    kern32_ms = event_ms(lambda: flash.flash_attention_cuda(q32, k32, v32,
+                                                            True), torch)
+    b, hq, hkv, s, _, d, _ = FLASH_MAIN
+    flops = 4 * b * hq * d * s * (s + 1) // 2     # unmasked pairs only
+    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    bytes_ms = nbytes / mem_rate * 1e3
+    ops_ms = flops / BF16_RATE * 1e3
+    emit(phase="lm-timings", arch=LM_ARCH,
+         prefill_ms=prefill_ms, prefill_tokens_per_s=LM_B * LM_S
+         / (prefill_ms / 1e3), decode_step_ms=decode_ms, decode_batch=LM_B,
+         serve_drain_s=drain_s, serve_tokens_per_s=drain_stats["tokens"]
+         / drain_s, serve_mean_ttft_s=drain_stats["mean_ttft_s"],
+         serve_mean_latency_s=drain_stats["mean_latency_s"],
+         serve_rounds=drain_stats["rounds"],
+         flash_ms=kern_ms, flash_f32_ms=kern32_ms, plain_ms=plain_ms,
+         sdpa_ms=sdpa_ms, flops=flops, bytes=nbytes, bytes_ms=bytes_ms,
+         flops_ms_bf16=ops_ms, flops_ms_f32=flops / ALU_RATE * 1e3,
+         flash_share_of_prefill=cfg.n_layers * kern_ms / prefill_ms)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:93",
+            "launches": launches["flash_attention"], "max_abs_err": max_abs,
+            "ms": kern_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": sdpa_ms}
 
 
 def main() -> int:
@@ -246,9 +490,9 @@ def main() -> int:
     launches = ops.launches()
     route = engine.route_log.snapshot()
     check(route == (2 * len(SEEDS), 0), f"main path routes {route}")
-    for name, count in launches.items():
-        check(count == 2 * len(SEEDS), f"{name} launched {count} times on "
-                                       f"the main path")
+    for name in ("bincount_tiles", "bitonic_sort"):
+        check(launches[name] == 2 * len(SEEDS),
+              f"{name} launched {launches[name]} times on the main path")
     want = torch.sort(x).values
     queries = []
     for seed, res in zip(SEEDS, results):
@@ -272,7 +516,7 @@ def main() -> int:
     check(int(res2.stats.dropped) == 0, "levels=2: dropped")
     for name, a, b in zip(res2.stats._fields, res2.stats, ref2.stats):
         check(torch.equal(a, b), f"levels=2: CostAccum.{name} {a} vs {b}")
-    grew = {k: ops.launches()[k] - before[k] for k in before}
+    grew = {k: ops.launches()[k] - before[k] for k in max_err}
     check(all(v == 3 for v in grew.values()), f"levels=2 launches {grew}")
     emit(phase="main-levels2", schedule=[list(r) for r in plan2.schedule()],
          launches=grew, stats={k: float(v) for k, v in
@@ -365,6 +609,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"]})
+
+    summary.append(lm_phases(torch, dev, mem_rate))
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

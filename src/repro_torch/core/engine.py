@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import as_device
 from .._tree import tree_flatten, tree_map, tree_unflatten
 from ..obs import NULL_TRACER, round_event as _round_event
 from .costmodel import CostAccum, RoundStats
@@ -63,15 +64,6 @@ class RoundProgram(NamedTuple):
     capacity: Optional[int] = None
     #: target mailbox node count per round (None = inherit the entry shape)
     n_nodes: Optional[int] = None
-
-
-def _as_device(device) -> torch.device:
-    d = torch.device(device)
-    if d.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"engine device {d} requested but CUDA is not available; pass "
-            f"device='cpu' to run on the CPU")
-    return d
 
 
 class MREngine:
@@ -322,7 +314,7 @@ class LocalEngine(MREngine):
         if shuffle_impl not in ("dense", "kernel"):
             raise ValueError(f"shuffle_impl must be 'dense' or 'kernel', "
                              f"got {shuffle_impl!r}")
-        self.device = _as_device(device)
+        self.device = as_device(device, "engine")
         self.shuffle_impl = shuffle_impl
         from .kshuffle import RouteLog
         self.route_log = RouteLog()

@@ -4,7 +4,10 @@ Both sides meet in numpy: the JAX package's arrays convert with
 ``np.asarray`` and this port's tensors with :func:`to_numpy`, so nothing
 here imports JAX.  A ``Mailbox`` or ``CostAccum`` of the JAX package, read
 into numpy, becomes this port's with :func:`mailbox_from_numpy` and
-:func:`accum_from_numpy`, and goes back with :func:`to_numpy`.
+:func:`accum_from_numpy`, and goes back with :func:`to_numpy`.  An LM's
+params nest (``model.init`` of the JAX package, read into numpy) becomes a
+:class:`~repro_torch.models.DecoderLM` with :func:`lm_params_from_numpy`
+and goes back with :func:`lm_params_to_numpy`.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from ._tree import tree_map
 from .core.costmodel import CostAccum
 from .core.mrmodel import Mailbox
+from .models.transformer import DecoderLM
 
 _ACCUM_DTYPES = {"rounds": torch.int32, "communication": torch.float32,
                  "internal_time": torch.float32, "max_reducer_io": torch.int32,
@@ -60,3 +64,15 @@ def to_numpy(obj):
     """Tensors in any nest (Mailbox, CostAccum, dicts, ...) as numpy
     arrays, the nest's structure kept."""
     return tree_map(as_numpy, obj)
+
+
+def lm_params_from_numpy(tree, cfg, device="cpu") -> DecoderLM:
+    """A :class:`DecoderLM` for ``cfg`` holding the params nest ``tree``
+    (numpy arrays under the JAX package's names), copied to ``device``."""
+    return DecoderLM(cfg, tree_from_numpy(tree, device))
+
+
+def lm_params_to_numpy(model: DecoderLM):
+    """The model's params nest as numpy arrays, the JAX package's names and
+    shapes kept: the inverse of :func:`lm_params_from_numpy`."""
+    return to_numpy(model.param_tree())

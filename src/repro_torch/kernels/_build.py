@@ -45,6 +45,9 @@ _SIGNATURES = {
     "repro_bitonic_smem_width": ([], _I64),
     "repro_bitonic_sort": ([_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
                             _I64, ctypes.c_int, _PTR], ctypes.c_int),
+    "repro_flash_attention": ([_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64,
+                               _I64, _I64, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_float, _PTR], ctypes.c_int),
 }
 
 

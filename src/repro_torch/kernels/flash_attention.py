@@ -1,0 +1,93 @@
+"""Blocked (flash) attention forward — the prefill attention of every
+attention model (:func:`repro_torch.models.layers.sdpa` with
+``attn_impl="flash"``).
+
+``flash_attention(q, k, v, causal)`` takes q (b, hq, s_q, d) and k, v
+(b, hkv, s_k, d) with hq % hkv == 0 (GQA: query head h reads KV head
+h // (hq / hkv)) and returns (b, hq, s_q, d) in q's dtype: softmax attention
+with scale 1/sqrt(d), scores and softmax in float32, and, when ``causal``,
+key j masked for query i where j > i (absolute indices from 0 on both axes).
+Masked scores are the finite ``NEG_INF`` of the JAX kernel, not -inf.
+
+:func:`flash_attention_cuda` launches the hand-written kernel of
+``csrc/flash_attention.cu`` (float32 or bfloat16, head dims 32, 48, 64 and
+128); :func:`flash_attention_plain` is plain PyTorch, for the CPU and as the
+kernel's yardstick on the card.
+:func:`repro_torch.kernels.ops.flash_attention` picks one by device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel since the last reset (ops.reset_launches)
+launches = 0
+
+NEG_INF = -1e30
+#: head dims the kernel is compiled for
+HEAD_DIMS = (32, 48, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention expects q (b, hq, s, d) and k, v "
+                         f"(b, hkv, s, d); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in batch or head dim")
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"GQA requires hq % hkv == 0, got {q.shape[1]} % "
+                         f"{k.shape[1]}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch: float32 einsum over the GQA groups, mask, softmax."""
+    _check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    s = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) / math.sqrt(d)
+    if causal:
+        keep = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngqk,bnkd->bngqd", p, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on CUDA tensors; raises on an
+    unsupported dtype or head dim and on any failure to build or launch."""
+    global launches
+    _check(q, k, v)
+    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+        raise ValueError("flash_attention_cuda takes CUDA tensors, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("flash_attention_cuda takes float32 or bfloat16 "
+                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
+        sq, sk, d, int(bool(causal)), _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        stream)
+    _build.check(err, "flash_attention")
+    launches += 1
+    return out

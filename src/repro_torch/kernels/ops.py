@@ -12,6 +12,7 @@ import torch
 
 from . import bincount as _bincount
 from . import bitonic_sort as _bitonic
+from . import flash_attention as _flash
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -38,12 +39,23 @@ def bitonic_sort(keys: torch.Tensor, values: torch.Tensor):
     return _bitonic.bitonic_sort_plain(keys, values)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention of q (b, hq, s, d) over k, v (b, hkv, s, d), hq a
+    multiple of hkv (GQA); returns (b, hq, s, d) in q's dtype."""
+    if _route(q, "flash_attention"):
+        return _flash.flash_attention_cuda(q, k, v, causal)
+    return _flash.flash_attention_plain(q, k, v, causal)
+
+
 def launches() -> Dict[str, int]:
     """CUDA launches of each kernel since the last :func:`reset_launches`."""
     return {"bincount_tiles": _bincount.launches,
-            "bitonic_sort": _bitonic.launches}
+            "bitonic_sort": _bitonic.launches,
+            "flash_attention": _flash.launches}
 
 
 def reset_launches() -> None:
     _bincount.launches = 0
     _bitonic.launches = 0
+    _flash.launches = 0

@@ -5,6 +5,8 @@ the function allows, independently of the kernel module's own plain version.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -24,3 +26,16 @@ def bitonic_sort_ref(keys: torch.Tensor, values: torch.Tensor):
     """Rows sorted ascending by key (stable), values moved along."""
     sorted_keys, order = torch.sort(keys, dim=-1, stable=True)
     return sorted_keys, values.gather(-1, order)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """(bh, s, d) softmax attention in float32, heads already matched."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        s = s.masked_fill(~mask.to(s.device), -math.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

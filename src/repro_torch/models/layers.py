@@ -1,0 +1,309 @@
+"""Shared neural layers: norms, rotary, GQA attention, MLP, embeddings.
+
+The port of ``repro.models.layers`` for one device.  Functional style as
+there: ``init_*`` draws a params dict from a ``torch.Generator``, the
+apply-style functions read one (a dict of tensors, or the model's parameter
+nest, which indexes the same way).  Params are stored in
+``cfg.param_dtype``; every product runs in ``cfg.compute_dtype``, each
+weight cast at its use as the JAX package does (a cast to the dtype a
+tensor already has is free, so a caller may pass weights already cast).
+Norms, rotary angles and attention softmax compute in float32 and cast back.
+
+Attention has the JAX package's three execution paths, picked by
+:func:`sdpa`: plain einsum, query-chunked softmax for long sequences, and
+the flash kernel (``attn_impl="flash"``, more than one query), which is the
+hand-written CUDA kernel on the card (:mod:`repro_torch.kernels.ops`).
+The JAX package's sharding constraints are identities on one device and
+are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels import ops as kops
+
+Params = Dict[str, Any]
+NEG_INF = -1e30
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def cdtype(cfg: ArchConfig) -> torch.dtype:
+    return _dtype(cfg.compute_dtype)
+
+
+def pdtype(cfg: ArchConfig) -> torch.dtype:
+    return _dtype(cfg.param_dtype)
+
+
+def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
+                scale: Optional[float] = None, lead: Tuple[int, ...] = ()):
+    """Normal(0, 1) * scale (default 1/sqrt(fan_in)), cast to ``dtype``;
+    ``lead`` prepends stacked-layer axes."""
+    s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    x = torch.randn(*lead, *shape, generator=gen, device=gen.device) * s
+    return x.to(dtype)
+
+
+def _full(value: float, shape, cfg, gen, lead=()):
+    return torch.full((*lead, *shape), value, dtype=pdtype(cfg),
+                      device=gen.device)
+
+
+# ----------------------------------------------------------------- norms
+def init_norm(gen, cfg: ArchConfig, kind: Optional[str] = None,
+              lead: Tuple[int, ...] = ()) -> Params:
+    kind = kind or cfg.norm
+    d = cfg.d_model
+    if kind == "rmsnorm":
+        return {"scale": _full(1.0, (d,), cfg, gen, lead)}
+    if kind == "layernorm":
+        return {"scale": _full(1.0, (d,), cfg, gen, lead),
+                "bias": _full(0.0, (d,), cfg, gen, lead)}
+    if kind == "nonparam_ln":          # OLMo: no affine parameters
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(p: Params, cfg: ArchConfig, x: torch.Tensor,
+               kind: Optional[str] = None) -> torch.Tensor:
+    kind = kind or cfg.norm
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6)
+        return (y * p["scale"].float()).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    if kind == "layernorm":
+        y = y * p["scale"].float() + p["bias"].float()
+    elif kind != "nonparam_ln":
+        raise ValueError(kind)
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------- rotary
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, hd); positions: (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs        # (..., s, half)
+    cos = torch.cos(angles)[..., None, :]                # (..., s, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- embeddings
+def init_embed(gen, cfg: ArchConfig) -> Params:
+    # padded_vocab rows: no token id reaches them, and their logits are
+    # masked in apply_lm_head
+    return {"table": _dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                 pdtype(cfg), scale=0.02)}
+
+
+def apply_embed(p: Params, cfg: ArchConfig, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"].to(cdtype(cfg))[ids.long()]
+
+
+def init_lm_head(gen, cfg: ArchConfig) -> Params:
+    return {"w": _dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                             pdtype(cfg))}
+
+
+def apply_lm_head(p: Optional[Params], cfg: ArchConfig, x: torch.Tensor,
+                  embed: Optional[Params] = None) -> torch.Tensor:
+    """Logits over ``padded_vocab``, the padding tail masked to -1e30 (so a
+    softmax or argmax sees exactly the real vocabulary)."""
+    if cfg.tie_embeddings and embed is not None:
+        w = embed["table"].to(cdtype(cfg)).T
+    else:
+        w = p["w"].to(cdtype(cfg))
+    logits = x @ w
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+    return logits
+
+
+# -------------------------------------------------------------------- MLP
+def init_mlp(gen, cfg: ArchConfig, d_ff: Optional[int] = None,
+             bias: bool = False, lead: Tuple[int, ...] = ()) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"w_up": _dense_init(gen, (d, f), pdtype(cfg), lead=lead),
+         "w_down": _dense_init(gen, (f, d), pdtype(cfg), lead=lead)}
+    if cfg.act == "silu":
+        p["w_gate"] = _dense_init(gen, (d, f), pdtype(cfg), lead=lead)
+    if bias:
+        p["b_up"] = _full(0.0, (f,), cfg, gen, lead)
+        p["b_down"] = _full(0.0, (d,), cfg, gen, lead)
+    return p
+
+
+def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = cdtype(cfg)
+    up = x @ p["w_up"].to(dt)
+    if "b_up" in p:
+        up = up + p["b_up"].to(dt)
+    if cfg.act == "silu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")        # jax.nn.gelu's default
+    out = h @ p["w_down"].to(dt)
+    if "b_down" in p:
+        out = out + p["b_down"].to(dt)
+    return out
+
+
+# -------------------------------------------------------------- attention
+def init_attention(gen, cfg: ArchConfig,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": _dense_init(gen, (d, h * hd), pdtype(cfg), lead=lead),
+         "wk": _dense_init(gen, (d, kvh * hd), pdtype(cfg), lead=lead),
+         "wv": _dense_init(gen, (d, kvh * hd), pdtype(cfg), lead=lead),
+         "wo": _dense_init(gen, (h * hd, d), pdtype(cfg), lead=lead)}
+    if cfg.qkv_bias:
+        p["bq"] = _full(0.0, (h * hd,), cfg, gen, lead)
+        p["bk"] = _full(0.0, (kvh * hd,), cfg, gen, lead)
+        p["bv"] = _full(0.0, (kvh * hd,), cfg, gen, lead)
+    return p
+
+
+def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    dt = cdtype(cfg)
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """Broadcast GQA KV heads (axis 2) to the full head count: query head i
+    reads KV head i // (h / kvh)."""
+    kvh = k.shape[2]
+    if kvh == h:
+        return k
+    return torch.repeat_interleave(k, h // kvh, dim=2)
+
+
+def _sdpa_einsum(q, k, v, causal: bool, q_offset: int = 0):
+    """(b, s, h, hd) x (b, t, kvh, hd) full-materialisation attention."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(hd)
+    if causal:
+        qi = torch.arange(s, device=q.device)[:, None] + q_offset
+        ki = torch.arange(t, device=q.device)[None, :]
+        scores = scores.masked_fill(qi < ki, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", w, v.float())
+    return out.to(q.dtype)
+
+
+def _sdpa_chunked(q, k, v, causal: bool, chunk: int = 1024,
+                  q_offset: int = 0):
+    """Query-chunked attention: O(chunk * T) live score memory."""
+    b, s, h, hd = q.shape
+    if s % chunk != 0:
+        pad = chunk - s % chunk
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        return _sdpa_chunked(q, k, v, causal, chunk, q_offset)[:, :s]
+    t = k.shape[1]
+    k = _repeat_kv(k, h).float()
+    v = _repeat_kv(v, h).float()
+    kpos = torch.arange(t, device=q.device)[None, :]
+    outs = []
+    for ci in range(q.shape[1] // chunk):
+        qi_block = q[:, ci * chunk:(ci + 1) * chunk]
+        scores = torch.einsum("bshd,bthd->bhst", qi_block.float(),
+                              k) / math.sqrt(hd)
+        if causal:
+            qpos = (ci * chunk + torch.arange(chunk, device=q.device)[:, None]
+                    + q_offset)
+            scores = scores.masked_fill(qpos < kpos, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bhst,bthd->bshd", w, v).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def sdpa(cfg: ArchConfig, q, k, v, causal: bool, q_offset: int = 0):
+    """Attention of q (b, s, h, hd) over k, v (b, t, kvh, hd)."""
+    s, t = q.shape[1], k.shape[1]
+    if cfg.attn_impl == "flash" and s > 1:
+        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
+    if s * t > 2048 * 4096 and s > 1:
+        return _sdpa_chunked(q, k, v, causal, chunk=2048, q_offset=q_offset)
+    return _sdpa_einsum(q, k, v, causal, q_offset=q_offset)
+
+
+def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor):
+    """Returns (y, (k, v)) — k and v in (b, s, kvh, hd)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = sdpa(cfg, q, k, v, causal=True)
+    y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
+    return y, (k, v)
+
+
+def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos: torch.Tensor):
+    """One-token decode.  x: (b, 1, d); caches: (b, T_max, kvh, hd);
+    pos: (b,) tokens already in the cache.
+
+    Attends the new token to cache[0:pos] and itself, and writes its K/V
+    at ``pos`` — **in place**, into ``cache_k`` and ``cache_v``, which are
+    returned.  A position past the end writes the last slot, as JAX's
+    ``dynamic_update_slice`` clamps its start."""
+    b = x.shape[0]
+    dt = cdtype(cfg)
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    t = cache_k.shape[1]
+    rows = torch.arange(b, device=x.device)
+    slot = pos.long().clamp(0, t - 1)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    # the GQA broadcast as a grouped einsum: query head i = n * (h / kvh) + j
+    # reads KV head n, as _repeat_kv maps it, without copying the cache
+    qg = q.float().reshape(b, 1, kvh, h // kvh, hd)
+    scores = torch.einsum("bsngd,btnd->bngst", qg,
+                          cache_k.float()) / math.sqrt(hd)
+    keep = torch.arange(t, device=x.device)[None, :] <= pos[:, None]  # (b, t)
+    scores = scores.masked_fill(~keep[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngst,btnd->bsngd", w, cache_v.float())
+    out = out.reshape(b, 1, h * hd).to(dt)
+    return out @ p["wo"].to(dt), cache_k, cache_v

@@ -27,7 +27,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_sorts_on_cpu_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` and ``import repro``
-    fail, the port imports and sorts on the CPU through the kernel engine."""
+    fail, the port imports and sorts on the CPU through the kernel engine,
+    and prefills and serves a reduced TinyLlama."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -35,6 +36,7 @@ def test_sorts_on_cpu_with_jax_blocked():
         import numpy as np, torch
         import repro_torch, repro_torch.core, repro_torch.kernels.ops
         import repro_torch.interop, repro_torch.testing
+        import repro_torch.launch.serve
         from repro_torch.core import get_engine, sort_plan
         eng = get_engine("kernel", device="cpu")
         x = np.random.default_rng(0).normal(size=500).astype(np.float32)
@@ -42,6 +44,22 @@ def test_sorts_on_cpu_with_jax_blocked():
         assert torch.equal(res.values, torch.sort(torch.from_numpy(x)).values)
         assert int(res.stats.dropped) == 0
         assert eng.route_log.snapshot() == (3, 0)
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+        from repro_torch.serve import Request, ServeConfig, ServeEngine
+        cfg = get_config("tinyllama-1.1b", reduced=True, attn_impl="flash")
+        model = build_model(cfg, device="cpu", seed=0)
+        logits, state = model.prefill(torch.zeros((2, 5), dtype=torch.int32),
+                                      max_len=8)
+        assert logits.shape == (2, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
+        assert state.pos.tolist() == [5, 5]
+        serve = ServeEngine(model, ServeConfig(max_batch=2, max_len=16))
+        for i in range(3):
+            serve.submit(Request(uid=i, prompt=np.arange(1, 4 + i,
+                                                         dtype=np.int32),
+                                 max_new_tokens=3))
+        assert len(serve.run_until_drained()) == 3
         assert not [m for m, mod in sys.modules.items() if mod is not None
                     and (m in ("jax", "repro")
                          or m.startswith(("jax.", "repro.")))]
@@ -58,8 +76,13 @@ def test_sorts_on_cpu_with_jax_blocked():
 def test_entry_points_default_to_the_card():
     from repro_torch.core import LocalEngine, compile_plan, sort_plan
     from repro_torch.core.engine import default_engine
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
     if torch.cuda.is_available():
         assert LocalEngine().device.type == "cuda"
+        assert build_model(get_config("tinyllama-1.1b", reduced=True)
+                           ).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalEngine()
@@ -68,3 +91,8 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compile_plan(sort_plan(64, 8))
     default_engine.cache_clear()
+    cfg = get_config("tinyllama-1.1b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_main(["--arch", "tinyllama-1.1b", "--reduced"])

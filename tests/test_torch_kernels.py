@@ -13,7 +13,8 @@ import torch
 from repro.kernels.bincount import bincount as jax_bincount
 from repro.kernels.bincount import bincount_tiles as jax_bincount_tiles
 from repro.kernels.bitonic_sort import bitonic_sort as jax_bitonic_sort
-from repro_torch.kernels import bincount, bitonic_sort, ops, ref
+from repro_torch.kernels import (bincount, bitonic_sort, flash_attention, ops,
+                                 ref)
 
 RNG = np.random.default_rng(1234)
 
@@ -106,7 +107,10 @@ def test_cpu_tensors_never_launch():
     ops.bincount_tiles(torch.zeros((2, 4), dtype=torch.int32), 3)
     ops.bitonic_sort(torch.zeros((2, 4), dtype=torch.int32),
                      torch.zeros((2, 4), dtype=torch.int32))
-    assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0}
+    ops.flash_attention(torch.zeros((1, 2, 4, 8)), torch.zeros((1, 1, 4, 8)),
+                        torch.zeros((1, 1, 4, 8)))
+    assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0,
+                              "flash_attention": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -114,3 +118,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bincount.bincount_tiles_cuda(torch.zeros((2, 4), dtype=torch.int32), 3)
     with pytest.raises(ValueError, match="CUDA"):
         bitonic_sort.bitonic_sort_cuda(torch.zeros((2, 4)), torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_cuda(*[torch.zeros((1, 2, 4, 64))] * 3)
