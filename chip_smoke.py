@@ -33,7 +33,10 @@ exits non-zero:
               flash path against the plain attention path;
 9. lm-timings — host-clock medians of prefill, a decode step and a serve
               drain; CUDA-event medians of flash_attention, its plain version
-              and torch's SDPA at the prefill shape, beside the bound.
+              and torch's SDPA at the prefill shape, beside the bound; then
+              a prefill and 5 decode steps under torch.profiler (device time
+              by kernel, launches, the device's busy share), and the decode
+              step timed again after the profiler.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -63,6 +66,7 @@ ALU_RATE = 67e12
 BF16_RATE = 989e12
 LM_ARCH = "tinyllama-1.1b"
 LM_B, LM_S, LM_DECODE = 8, 2048, 32       # prefill batch and length, steps
+DECODE_WINDOW = 5                          # decode steps in a profiled window
 #: flash_attention shapes (b, hq, hkv, s_q, s_k, d, causal): TinyLlama's
 #: prefill, then the edge shapes of tests/test_kernels.py and one query
 #: against a 512-key cache
@@ -105,8 +109,8 @@ def event_ms(fn, torch, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, torch, reps: int = 5) -> float:
-    """Median wall time of fn() ending in a synchronize, in ms."""
+def host_times(fn, torch, reps: int = 5) -> list:
+    """Wall times of fn() ending in a synchronize, in ms, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -115,7 +119,36 @@ def host_ms(fn, torch, reps: int = 5) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return times
+
+
+def host_ms(fn, torch, reps: int = 5) -> float:
+    """Median wall time of fn() ending in a synchronize, in ms."""
+    return statistics.median(host_times(fn, torch, reps))
+
+
+def profiled(fn, torch, top: int = 10) -> dict:
+    """One run of fn() under torch.profiler: its wall ms, and the device
+    time (ms) and count of the kernels it ran, with the costliest ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: the CPU ops that launched them report the
+    # same device time again
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall_ms,
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "launches": sum(e.count for e in kernels),
+            "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
+                     / 1e3, "calls": e.count} for e in kernels[:top]]}
 
 
 class Recorder:
@@ -304,10 +337,22 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     del lx, lr, m32
 
     # -- 9. timings ---------------------------------------------------------
-    prefill_ms = host_ms(lambda: model.prefill(prompt, max_len=LM_S), torch)
+    # Host-clock timings first: a profiler session may leave overhead
+    # behind, so the profiled windows come after them, and the decode step
+    # is timed again after the windows to show whether it does.
+    def prefill():
+        return model.prefill(prompt, max_len=LM_S)
+
+    prefill_runs = host_times(prefill, torch)
+    prefill_ms = statistics.median(prefill_runs)
     _, state = model.prefill(prompt[:, :LM_S - 1], max_len=LM_S)
     tok = prompt[:, -1]
-    decode_ms = host_ms(lambda: model.decode_step(tok, state), torch, reps=9)
+
+    def decode():              # one step, its K/V written to slot LM_S - 1
+        return model.decode_step(tok, state)
+
+    decode_runs = host_times(decode, torch, reps=15)
+    decode_ms = statistics.median(decode_runs)
     drains = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -328,14 +373,27 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     q32, k32, v32 = (a.float() for a in (q, k, v))
     kern32_ms = event_ms(lambda: flash.flash_attention_cuda(q32, k32, v32,
                                                             True), torch)
+    del q32, k32, v32
+    prof_prefill = profiled(prefill, torch)
+    prof_decode = profiled(lambda: [decode() for _ in range(DECODE_WINDOW)],
+                           torch)
+    for key in ("wall_ms", "device_ms", "launches"):
+        prof_decode[key] /= DECODE_WINDOW
+    prof_prefill["busy_share"] = prof_prefill["device_ms"] / prefill_ms
+    prof_decode["busy_share"] = prof_decode["device_ms"] / decode_ms
+    decode_after = host_times(decode, torch, reps=15)
     b, hq, hkv, s, _, d, _ = FLASH_MAIN
     flops = 4 * b * hq * d * s * (s + 1) // 2     # unmasked pairs only
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = flops / BF16_RATE * 1e3
     emit(phase="lm-timings", arch=LM_ARCH,
-         prefill_ms=prefill_ms, prefill_tokens_per_s=LM_B * LM_S
-         / (prefill_ms / 1e3), decode_step_ms=decode_ms, decode_batch=LM_B,
+         prefill_ms=prefill_ms, prefill_ms_runs=prefill_runs,
+         prefill_tokens_per_s=LM_B * LM_S / (prefill_ms / 1e3),
+         decode_step_ms=decode_ms, decode_step_ms_runs=decode_runs,
+         decode_step_ms_after_profiler=statistics.median(decode_after),
+         decode_step_ms_runs_after_profiler=decode_after,
+         decode_batch=LM_B,
          serve_drain_s=drain_s, serve_tokens_per_s=drain_stats["tokens"]
          / drain_s, serve_mean_ttft_s=drain_stats["mean_ttft_s"],
          serve_mean_latency_s=drain_stats["mean_latency_s"],
@@ -343,7 +401,12 @@ def lm_phases(torch, dev, mem_rate) -> dict:
          flash_ms=kern_ms, flash_f32_ms=kern32_ms, plain_ms=plain_ms,
          sdpa_ms=sdpa_ms, flops=flops, bytes=nbytes, bytes_ms=bytes_ms,
          flops_ms_bf16=ops_ms, flops_ms_f32=flops / ALU_RATE * 1e3,
-         flash_share_of_prefill=cfg.n_layers * kern_ms / prefill_ms)
+         flash_share_of_prefill=cfg.n_layers * kern_ms / prefill_ms,
+         profile={"prefill": prof_prefill, "decode_step": prof_decode,
+                  "note": f"torch.profiler, one prefill and a window of "
+                          f"{DECODE_WINDOW} decode steps (per step); "
+                          f"busy_share = device ms over the unprofiled "
+                          f"median wall ms"})
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:93",

@@ -1,2 +1,2 @@
-from .base import ArchConfig, ShapeConfig, SHAPES, get_shape, shape_applicable
+from .base import ArchConfig
 from .registry import ARCH_IDS, get_config

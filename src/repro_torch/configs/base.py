@@ -9,7 +9,7 @@ these modules.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,52 +133,3 @@ class ArchConfig:
             dec = self.n_layers * (2 * attn() + 2 * d * self.d_ff + 3 * d)
             p += enc + dec
         return p
-
-    def n_active_params(self) -> int:
-        """Active params per token (= N_active for MoE MODEL_FLOPS)."""
-        if not self.is_moe:
-            return self.n_params()
-        d = self.d_model
-        eff = self.moe_d_ff or self.d_ff
-        dense_per = (d * self.n_heads * self.hd
-                     + 2 * d * self.n_kv_heads * self.hd
-                     + self.n_heads * self.hd * d
-                     + d * self.n_experts + 2 * d)
-        act_ffn = self.top_k * 3 * d * eff
-        if self.shared_expert:
-            act_ffn += 3 * d * eff
-        p = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return p + self.n_layers * (dense_per + act_ffn)
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeConfig:
-    """One assigned input-shape cell."""
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str                         # train | prefill | decode
-
-
-SHAPES: Tuple[ShapeConfig, ...] = (
-    ShapeConfig("train_4k", 4096, 256, "train"),
-    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
-    ShapeConfig("decode_32k", 32768, 128, "decode"),
-    ShapeConfig("long_500k", 524288, 1, "decode"),
-)
-
-
-def get_shape(name: str) -> ShapeConfig:
-    for s in SHAPES:
-        if s.name == name:
-            return s
-    raise KeyError(name)
-
-
-def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
-    """Whether the (arch, shape) cell runs; reason when skipped
-    (DESIGN.md §4)."""
-    if shape.name == "long_500k" and not cfg.subquadratic:
-        return False, ("full quadratic attention: 524k-token decode needs "
-                       "sub-quadratic attention (run for SSM/hybrid only)")
-    return True, ""

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import as_device
 from ._tree import tree_map
 from .core.costmodel import CostAccum
 from .core.mrmodel import Mailbox
@@ -66,10 +67,11 @@ def to_numpy(obj):
     return tree_map(as_numpy, obj)
 
 
-def lm_params_from_numpy(tree, cfg, device="cpu") -> DecoderLM:
+def lm_params_from_numpy(tree, cfg, device="cuda") -> DecoderLM:
     """A :class:`DecoderLM` for ``cfg`` holding the params nest ``tree``
-    (numpy arrays under the JAX package's names), copied to ``device``."""
-    return DecoderLM(cfg, tree_from_numpy(tree, device))
+    (numpy arrays under the JAX package's names), copied to ``device``: the
+    card unless the caller passes ``device="cpu"``, as ``build_model``."""
+    return DecoderLM(cfg, tree_from_numpy(tree, as_device(device, "model")))
 
 
 def lm_params_to_numpy(model: DecoderLM):

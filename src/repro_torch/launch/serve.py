@@ -31,9 +31,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    if cfg.family == "encdec":
-        raise SystemExit("enc-dec serving needs the frames feed; use the "
-                         "decoder-only archs for this driver")
     model = build_model(cfg, device=args.device, seed=args.seed)
     eng = ServeEngine(model, ServeConfig(max_batch=args.max_batch,
                                          max_len=args.max_len))

@@ -13,8 +13,11 @@ stacked on axis 0 as ``jax.vmap`` init makes them, stored in
 ``cfg.param_dtype``.  Products run in ``cfg.compute_dtype`` from one copy
 of the weights cast at first use (norm params stay float32, which is what
 the norms read): the same bits as a cast at every use, without moving the
-float32 weights each step.  The copy is not refreshed when the parameters
-change in place.  Prefill attention goes through
+float32 weights each step.  The copy is made again when a parameter has
+changed since: ``load_state_dict``, an in-place update such as an
+optimizer's step, or ``model.to(...)``.  Writes through ``param.data``
+bypass PyTorch's version counter and are not seen: update parameters in
+place under ``torch.no_grad()`` instead.  Prefill attention goes through
 :func:`repro_torch.kernels.ops.flash_attention` when
 ``cfg.attn_impl == "flash"``.
 
@@ -141,18 +144,27 @@ class DecoderLM(ParamNest):
         super().__init__(params)
         self.cfg = cfg
         self._compute: Optional[Tuple[Params, List[Params]]] = None
+        self._compute_key: Optional[Tuple] = None
 
     @property
     def device(self) -> torch.device:
         return self["embed"]["table"].device
 
+    def _params_key(self) -> Tuple:
+        # storage, version counter, dtype and device of every parameter:
+        # changes when one is replaced, moved or updated in place
+        return tuple((p.data_ptr(), p._version, p.dtype, p.device)
+                     for p in self.parameters())
+
     def compute_params(self) -> Tuple[Params, List[Params]]:
-        """(whole nest, per-layer nests) in the compute dtype, made once."""
-        if self._compute is None:
+        """(whole nest, per-layer nests) in the compute dtype, made at first
+        use and again whenever a parameter has changed since."""
+        key = self._params_key()
+        if key != self._compute_key:
             tree = _cast_weights(self.param_tree(), cdtype(self.cfg))
             layers = [tree_map(lambda a, i=i: a[i], tree["layers"])
                       for i in range(self.cfg.n_layers)]
-            self._compute = (tree, layers)
+            self._compute, self._compute_key = (tree, layers), key
         return self._compute
 
     def init_decode_state(self, batch_size: int,

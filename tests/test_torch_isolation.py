@@ -77,12 +77,15 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core import LocalEngine, compile_plan, sort_plan
     from repro_torch.core.engine import default_engine
     from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_from_numpy, to_numpy
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import build_model
     if torch.cuda.is_available():
         assert LocalEngine().device.type == "cuda"
-        assert build_model(get_config("tinyllama-1.1b", reduced=True)
-                           ).device.type == "cuda"
+        cfg = get_config("tinyllama-1.1b", reduced=True)
+        assert build_model(cfg).device.type == "cuda"
+        assert lm_params_from_numpy(to_numpy(build_model(cfg).param_tree()),
+                                    cfg).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalEngine()
@@ -96,3 +99,6 @@ def test_entry_points_default_to_the_card():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_main(["--arch", "tinyllama-1.1b", "--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_params_from_numpy(to_numpy(build_model(cfg, device="cpu")
+                                      .param_tree()), cfg)

@@ -25,7 +25,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.interop import (lm_params_from_numpy, lm_params_to_numpy,
                                  tree_from_numpy)
 from repro_torch.kernels import ops, ref
-from repro_torch.models import build_model, layers as tl
+from repro_torch._tree import tree_map
+from repro_torch.models import DecoderLM, build_model, layers as tl
 
 RNG = np.random.default_rng(2024)
 TOL = 2e-4
@@ -232,7 +233,7 @@ def test_sdpa_paths_match_jax(impl):
 def test_lm_params_round_trip_and_names():
     jcfg, tcfg = _cfg()
     tree = _jax_params_np(jcfg)
-    model = lm_params_from_numpy(tree, tcfg)
+    model = lm_params_from_numpy(tree, tcfg, device="cpu")
     back = lm_params_to_numpy(model)
     flat_j = jax.tree_util.tree_leaves_with_path(tree)
     names = {".".join(e.key for e in path) for path, _ in flat_j}
@@ -269,7 +270,7 @@ def test_prefill_and_decode_match_jax(arch, impl):
     jmodel = jax_build_model(jcfg)
     tree = _jax_params_np(jcfg)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
-    tmodel = lm_params_from_numpy(tree, tcfg)
+    tmodel = lm_params_from_numpy(tree, tcfg, device="cpu")
     B, S, max_len = 2, 8, 16
     prompt = RNG.integers(0, tcfg.vocab_size, (B, S)).astype(np.int32)
     jl_, jst = jax.jit(lambda p, tok: jmodel.prefill(
@@ -301,6 +302,35 @@ def test_port_prefill_equals_token_by_token_decode():
         logits_d, state = model.decode_step(prompt[:, t], state)
     _close(logits_p, logits_d, 2e-3)
     _close(state_p.k, state.k, 2e-3)
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in_place",
+                                    "to_dtype"])
+def test_compute_copy_follows_parameter_changes(change):
+    """The compute-dtype copy of the weights is made again after the
+    parameters change: prefill then equals a model built from the new
+    weights.  In bfloat16, where the copy does not alias the float32
+    parameters."""
+    cfg = get_config("tinyllama-1.1b", reduced=True, compute_dtype="bfloat16")
+    model = build_model(cfg, device="cpu", seed=1)
+    prompt = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 6)))
+    before, _ = model.prefill(prompt)
+    if change == "load_state_dict":
+        sd = model.state_dict()
+        sd["layers.mlp.w_down"] = sd["layers.mlp.w_down"] * 2.0
+        model.load_state_dict(sd)
+    elif change == "in_place":                  # as an optimizer step does
+        model["layers"]["mlp"]["w_down"].mul_(2.0)
+    else:
+        model.double()
+        assert model.compute_params()[0]["final_norm"]["scale"].dtype == \
+            torch.float64
+    fresh = DecoderLM(cfg, tree_map(lambda a: a.clone(), model.param_tree()))
+    after, _ = model.prefill(prompt)
+    want, _ = fresh.prefill(prompt)
+    assert torch.equal(after, want)
+    if change != "to_dtype":
+        assert not torch.allclose(after, before)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b",

@@ -66,7 +66,7 @@ def test_serve_engine_matches_jax(arch, max_batch, max_len, n, plen, new,
     cfg = get_config(arch, reduced=True)
     jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
     model = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
-                                 cfg)
+                                 cfg, device="cpu")
     jeng = JServeEngine(jcfg, jparams, JServeConfig(max_batch=max_batch,
                                                     max_len=max_len),
                         clock=_counter())
