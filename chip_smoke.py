@@ -36,7 +36,28 @@ exits non-zero:
               and torch's SDPA at the prefill shape, beside the bound; then
               a prefill and 5 decode steps under torch.profiler (device time
               by kernel, launches, the device's busy share), and the decode
-              step timed again after the profiler.
+              step timed again after the profiler;
+10. ssm-kernels — ``ssm_scan`` against its plain version at the zamba2 and
+              RWKV6 prefill shapes and the edge shapes of
+              tests/test_kernels.py, within 2e-4; ``prefix_scan`` (int32
+              exactly; float32 against a float64 cumsum, within twice
+              ``torch.cumsum``'s own error) and ``bincount`` (exactly) at
+              the sort's shapes and the awkward ones; then one call of
+              ``ops.prefix_scan`` and ``ops.bincount`` each, their main path;
+11. hybrid-serve / hybrid-prefill — zamba2-1.2b at full width and depth
+              (bf16 compute, ``attn_impl="flash"``): prefill of 8 x 2048
+              tokens (38 ``ssm_scan`` and 7 ``flash_attention`` launches),
+              32 greedy decode steps and a 16-request ServeEngine drain
+              (none), launch counts reset just before and read just after;
+              then float32 prefill of 8 x 64 tokens against 64 decode
+              steps, logits and every state field within 2e-3; then
+              host-clock timings, a profiled prefill and a profiled
+              window of 5 decode steps;
+12. rwkv-serve / rwkv-prefill — the same for rwkv6-1.6b (24 ``ssm_scan``
+              launches per prefill, no attention);
+13. ssm-timings — CUDA-event medians of ``ssm_scan``, ``prefix_scan`` and
+              ``bincount``, their plain versions and yardsticks, beside the
+              bound, and the two models' timings and profiles.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -44,6 +65,7 @@ the rest of the repository beside it, the script fails before any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -74,6 +96,24 @@ FLASH_MAIN = (LM_B, 32, 4, LM_S, LM_S, 64, True)
 FLASH_EDGE = ((2, 4, 2, 128, 128, 64, True), (1, 2, 2, 200, 200, 32, False),
               (1, 8, 2, 256, 256, 64, True), (1, 2, 1, 100, 100, 48, True),
               (2, 4, 4, 64, 64, 128, False), (2, 4, 4, 1, 512, 64, False))
+#: the sub-quadratic LMs: (arch, phase tag)
+SSM_ARCHS = (("zamba2-1.2b", "hybrid"), ("rwkv6-1.6b", "rwkv"))
+#: ssm_scan (b, t, d) of one prefill call: zamba2-1.2b (2048 / 128 chunks,
+#: 64 heads x 64 x 64 channels), rwkv6-1.6b (2048 / 64 chunks, 32 x 64 x
+#: 64); then the edge shapes of tests/test_kernels.py
+SSM_MAIN = ((LM_B, 16, 262144), (LM_B, 32, 131072))
+SSM_EDGE = ((2, 100, 16), (1, 513, 8), (3, 64, 32), (1, 16, 4))
+#: prefix_scan (rows, n, dtype, exclusive): the local-sort count scan
+#: (V rows x T tiles), a long float32 scan; then the awkward shapes of
+#: tests/test_kernels.py in both dtypes and both modes
+SCAN_MAIN = ((2048, 12288, "int32", True), (16, 1 << 20, "float32", False))
+SCAN_EDGE = tuple((r, n, dt, ex) for r, n in ((2, 0), (1, 1), (3, 13),
+                                             (2, 700))
+                  for dt in ("int32", "float32") for ex in (False, True))
+#: bincount (n, n_buckets): the sort's destinations; then the awkward
+#: shapes of tests/test_kernels.py, and a histogram above shared memory
+BINCOUNT_MAIN = (1 << 24, 2048)
+BINCOUNT_EDGE = ((0, 8), (13, 64), (31, 5), (6, 100), (1 << 20, 100000))
 
 
 def emit(**rec) -> None:
@@ -127,9 +167,11 @@ def host_ms(fn, torch, reps: int = 5) -> float:
     return statistics.median(host_times(fn, torch, reps))
 
 
-def profiled(fn, torch, top: int = 10) -> dict:
+def profiled(fn, torch, top: int = 10, named=None) -> dict:
     """One run of fn() under torch.profiler: its wall ms, and the device
-    time (ms) and count of the kernels it ran, with the costliest ones."""
+    time (ms) and count of the kernels it ran, with the costliest ones; and
+    for each ``label: part`` of ``named``, the device ms and calls of the
+    kernels whose name holds ``part``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -144,11 +186,96 @@ def profiled(fn, torch, top: int = 10) -> dict:
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
-    return {"wall_ms": wall_ms,
-            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
-            "launches": sum(e.count for e in kernels),
-            "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
-                     / 1e3, "calls": e.count} for e in kernels[:top]]}
+    out = {"wall_ms": wall_ms,
+           "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+           "launches": sum(e.count for e in kernels),
+           "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
+                    / 1e3, "calls": e.count} for e in kernels[:top]]}
+    for label, part in (named or {}).items():
+        hits = [e for e in kernels if part in e.key]
+        out[label] = {"ms": sum(e.self_device_time_total for e in hits) / 1e3,
+                      "calls": sum(e.count for e in hits)}
+    return out
+
+
+def serve_requests(gen, vocab_size: int) -> list:
+    """16 (uid, prompt) pairs, prompts of 16-64 tokens, from the numpy
+    generator ``gen``."""
+    return [(uid, gen.integers(0, vocab_size,
+                               int(gen.integers(16, 65))).astype("int32"))
+            for uid in range(16)]
+
+
+def serve_drain(model, requests, clock=time.perf_counter):
+    """A ServeEngine (max_batch 8, max_len 256) that drained ``requests``,
+    32 new tokens each; ``eng.admitted`` holds the order in which they left
+    the queue."""
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    eng = ServeEngine(model, ServeConfig(max_batch=8, max_len=256),
+                      clock=clock)
+    eng.admitted = []
+    admit = eng._admit
+
+    def recording_admit():
+        waiting = [r.uid for r in eng.queue]
+        admit()
+        eng.admitted += waiting[:len(waiting) - len(eng.queue)]
+
+    eng._admit = recording_admit
+    for uid, p in requests:
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=32))
+    eng.run_until_drained()
+    return eng
+
+
+def check_drain(eng, n: int) -> dict:
+    """Every request finished with 32 tokens, at most 8 in a round, in
+    FIFO order; returns the engine's stats."""
+    st = eng.stats()
+    check(st["requests"] == n and len(eng.finished) == n,
+          f"serve finished {st['requests']} of {n}")
+    check(all(len(r.output) == 32 for r in eng.finished), "serve outputs")
+    check(eng.cost.max_reducer_io <= 8,
+          f"max_reducer_io {eng.cost.max_reducer_io} > 8")
+    check(eng.admitted == list(range(n)), f"admission {eng.admitted}")
+    return st
+
+
+def lm_host_timings(torch, model, prompt, requests, prefill_reps: int = 5):
+    """Host-clock timings of a served LM: prefill of ``prompt`` (median of
+    ``prefill_reps``), one decode step against LM_S - 1 cached tokens (15
+    reps; each step starts from the same state) and a serve drain (the
+    middle of three).  Returns them with the prefill and decode closures."""
+    def prefill():
+        return model.prefill(prompt, max_len=LM_S)
+
+    prefill_runs = host_times(prefill, torch, reps=prefill_reps)
+    prefill_ms = statistics.median(prefill_runs)
+    _, state = model.prefill(prompt[:, :LM_S - 1], max_len=LM_S)
+    tok = prompt[:, -1]
+
+    def decode():
+        return model.decode_step(tok, state)
+
+    decode_runs = host_times(decode, torch, reps=15)
+    drains = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stats = serve_drain(model, requests).stats()
+        torch.cuda.synchronize()
+        drains.append((time.perf_counter() - t0, stats))
+    drain_s, drain_stats = sorted(drains, key=lambda d: d[0])[1]
+    timings = {
+        "prefill_ms": prefill_ms, "prefill_ms_runs": prefill_runs,
+        "prefill_tokens_per_s": prompt.numel() / (prefill_ms / 1e3),
+        "decode_step_ms": statistics.median(decode_runs),
+        "decode_step_ms_runs": decode_runs, "decode_batch": prompt.shape[0],
+        "serve_drain_s": drain_s,
+        "serve_tokens_per_s": drain_stats["tokens"] / drain_s,
+        "serve_mean_ttft_s": drain_stats["mean_ttft_s"],
+        "serve_mean_latency_s": drain_stats["mean_latency_s"],
+        "serve_rounds": drain_stats["rounds"]}
+    return timings, prefill, decode
 
 
 class Recorder:
@@ -195,7 +322,6 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops
     from repro_torch.models import DecoderLM, build_model
-    from repro_torch.serve import Request, ServeConfig, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
@@ -230,29 +356,7 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     gen = np.random.default_rng(0)
     prompt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (LM_B, LM_S))
                               .astype(np.int32)).to(dev)
-    requests = [(uid, gen.integers(0, cfg.vocab_size,
-                                   int(gen.integers(16, 65))).astype(np.int32))
-                for uid in range(16)]
-
-    class FifoEngine(ServeEngine):
-        """Records the order in which requests leave the queue."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.admitted = []
-
-        def _admit(self):
-            waiting = [r.uid for r in self.queue]
-            super()._admit()
-            self.admitted += waiting[:len(waiting) - len(self.queue)]
-
-    def serve(clock=time.perf_counter):
-        eng = FifoEngine(model, ServeConfig(max_batch=8, max_len=256),
-                         clock=clock)
-        for uid, p in requests:
-            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=32))
-        eng.run_until_drained()
-        return eng
+    requests = serve_requests(gen, cfg.vocab_size)
 
     ops.reset_launches()
     per_prefill = []
@@ -265,7 +369,7 @@ def lm_phases(torch, dev, mem_rate) -> dict:
         tokens.append(logits.argmax(-1))
     torch.cuda.synchronize()
     decode_finite = bool(torch.isfinite(logits.float()).all())
-    eng = serve()
+    eng = serve_drain(model, requests)
     torch.cuda.synchronize()
     launches = ops.launches()
     check(per_prefill == [cfg.n_layers] and
@@ -277,13 +381,7 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     check(decode_finite, "decode logits not finite")
     check(state.pos.tolist() == [LM_S + LM_DECODE] * LM_B,
           f"decode pos {state.pos.tolist()}")
-    st = eng.stats()
-    check(st["requests"] == 16 and len(eng.finished) == 16,
-          f"serve finished {st['requests']} of 16")
-    check(all(len(r.output) == 32 for r in eng.finished), "serve outputs")
-    check(eng.cost.max_reducer_io <= 8,
-          f"max_reducer_io {eng.cost.max_reducer_io} > 8")
-    check(eng.admitted == list(range(16)), f"admission {eng.admitted}")
+    st = check_drain(eng, len(requests))
     emit(phase="lm-serve", stats=st, cost=dataclasses.asdict(eng.cost),
          admitted=eng.admitted,
          finished=[r.uid for r in eng.finished][:8])
@@ -340,26 +438,9 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     # Host-clock timings first: a profiler session may leave overhead
     # behind, so the profiled windows come after them, and the decode step
     # is timed again after the windows to show whether it does.
-    def prefill():
-        return model.prefill(prompt, max_len=LM_S)
-
-    prefill_runs = host_times(prefill, torch)
-    prefill_ms = statistics.median(prefill_runs)
-    _, state = model.prefill(prompt[:, :LM_S - 1], max_len=LM_S)
-    tok = prompt[:, -1]
-
-    def decode():              # one step, its K/V written to slot LM_S - 1
-        return model.decode_step(tok, state)
-
-    decode_runs = host_times(decode, torch, reps=15)
-    decode_ms = statistics.median(decode_runs)
-    drains = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        e = serve()
-        torch.cuda.synchronize()
-        drains.append((time.perf_counter() - t0, e.stats()))
-    drain_s, drain_stats = sorted(drains, key=lambda d: d[0])[1]
+    timings, prefill, decode = lm_host_timings(torch, model, prompt,
+                                               requests)
+    prefill_ms, decode_ms = timings["prefill_ms"], timings["decode_step_ms"]
     q, k, v = flash_inputs(torch, dev, FLASH_MAIN, torch.bfloat16, 7)
     kern_ms = event_ms(lambda: flash.flash_attention_cuda(q, k, v, True),
                        torch)
@@ -387,17 +468,9 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = flops / BF16_RATE * 1e3
-    emit(phase="lm-timings", arch=LM_ARCH,
-         prefill_ms=prefill_ms, prefill_ms_runs=prefill_runs,
-         prefill_tokens_per_s=LM_B * LM_S / (prefill_ms / 1e3),
-         decode_step_ms=decode_ms, decode_step_ms_runs=decode_runs,
+    emit(phase="lm-timings", arch=LM_ARCH, **timings,
          decode_step_ms_after_profiler=statistics.median(decode_after),
          decode_step_ms_runs_after_profiler=decode_after,
-         decode_batch=LM_B,
-         serve_drain_s=drain_s, serve_tokens_per_s=drain_stats["tokens"]
-         / drain_s, serve_mean_ttft_s=drain_stats["mean_ttft_s"],
-         serve_mean_latency_s=drain_stats["mean_latency_s"],
-         serve_rounds=drain_stats["rounds"],
          flash_ms=kern_ms, flash_f32_ms=kern32_ms, plain_ms=plain_ms,
          sdpa_ms=sdpa_ms, flops=flops, bytes=nbytes, bytes_ms=bytes_ms,
          flops_ms_bf16=ops_ms, flops_ms_f32=flops / ALU_RATE * 1e3,
@@ -415,6 +488,266 @@ def lm_phases(torch, dev, mem_rate) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": sdpa_ms}
+
+
+def scan_input(torch, dev, gen, rows, n, dtype):
+    if dtype == "int32":       # full int32 range: the sums wrap
+        return torch.randint(-(1 << 30), 1 << 30, (rows, n),
+                             dtype=torch.int32, device=dev, generator=gen)
+    return torch.randn(rows, n, device=dev, generator=gen)
+
+
+def ssm_kernel_phase(torch, dev) -> dict:
+    """Phase ssm-kernels: ssm_scan, prefix_scan and bincount against their
+    plain versions, then one run of prefix_scan's and bincount's entry
+    points (their main path).  Returns max errors and launch counts."""
+    from repro_torch.kernels import bincount, ops, prefix_scan, ssm_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    err = {"ssm_scan": 0.0, "prefix_scan": 0.0, "bincount": 0.0}
+    checked = []
+    for shape in SSM_MAIN + SSM_EDGE:
+        a = 0.5 + 0.5 * torch.rand(shape, device=dev, generator=gen)
+        x = torch.randn(shape, device=dev, generator=gen)
+        got = ssm_scan.ssm_scan_cuda(a, x)
+        torch.cuda.synchronize()
+        want = ssm_scan.ssm_scan_plain(a, x)
+        check(got.dtype == x.dtype and got.shape == want.shape,
+              f"ssm_scan {shape}: {got.dtype} {tuple(got.shape)}")
+        e = (got - want).abs().max().item()
+        err["ssm_scan"] = max(err["ssm_scan"], e)
+        check(rel_close(got, want, 2e-4),
+              f"ssm_scan {shape}: max abs err {e} over tolerance 2e-4")
+        checked.append(["ssm_scan", *shape, e])
+        del a, x, got, want
+    for rows, n, dt, ex in SCAN_MAIN + SCAN_EDGE:
+        x = scan_input(torch, dev, gen, rows, n, dt)
+        got = prefix_scan.prefix_scan_cuda(x, ex)
+        torch.cuda.synchronize()
+        want = prefix_scan.prefix_scan_plain(x, ex)
+        check(got.dtype == x.dtype and got.shape == x.shape,
+              f"prefix_scan {rows, n, dt}: {got.dtype} {tuple(got.shape)}")
+        if dt == "int32":
+            check(torch.equal(got, want), f"prefix_scan {rows, n, dt, ex}: "
+                                          f"differs from the plain version")
+            e = 0.0
+        else:
+            # against a float64 cumsum, within twice torch.cumsum's own
+            # float32 error, plus two ulps of the largest prefix
+            exact = torch.cumsum(x.double(), -1) - (x.double() if ex else 0)
+            e = (got.double() - exact).abs().max().item() if n else 0.0
+            own = (want.double() - exact).abs().max().item() if n else 0.0
+            floor = 2.0 ** -22 * (exact.abs().max().item() if n else 0.0)
+            check(e <= 2 * own + floor, f"prefix_scan {rows, n, dt, ex}: "
+                  f"error {e} against float64, cumsum's own {own}")
+        err["prefix_scan"] = max(err["prefix_scan"], e)
+        checked.append(["prefix_scan", rows, n, dt, ex, e]
+                       + ([own] if dt == "float32" else []))
+    all_dropped = torch.tensor([-1] * 20 + [7] * 20, dtype=torch.int32,
+                               device=dev)
+    for n, V in (BINCOUNT_MAIN,) + BINCOUNT_EDGE + ((0, 7),):
+        ids = (torch.randint(-3, V + 3, (n,), dtype=torch.int32, device=dev,
+                             generator=gen) if n else all_dropped)
+        got = bincount.bincount_cuda(ids, V)
+        torch.cuda.synchronize()
+        want = bincount.bincount_plain(ids, V)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"bincount {n, V}: differs from the plain version")
+        checked.append(["bincount", ids.numel(), V])
+    # the entry points as a user calls them
+    counts = torch.randint(0, 64, SCAN_MAIN[0][:2], dtype=torch.int32,
+                           device=dev, generator=gen)
+    xf = torch.randn(SCAN_MAIN[1][:2], device=dev, generator=gen)
+    ids = torch.randint(0, BINCOUNT_MAIN[1], (BINCOUNT_MAIN[0],),
+                        dtype=torch.int32, device=dev, generator=gen)
+    ops.reset_launches()
+    outs = (ops.prefix_scan(counts, exclusive=True), ops.prefix_scan(xf),
+            ops.bincount(ids, BINCOUNT_MAIN[1]))
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    check(launches["prefix_scan"] == 2 and launches["bincount"] == 1,
+          f"entry-point launches {launches}")
+    check(torch.equal(outs[0], prefix_scan.prefix_scan_plain(counts, True)),
+          "ops.prefix_scan exclusive")
+    check(int(outs[2].sum()) == BINCOUNT_MAIN[0], "ops.bincount total")
+    emit(phase="ssm-kernels", checked=checked, max_abs_err=err,
+         entry_point_launches={k: launches[k] for k in ("prefix_scan",
+                                                        "bincount")},
+         columns="ssm_scan b t d err | prefix_scan rows n dtype exclusive "
+                 "err (float32: against float64, then torch.cumsum's own) | "
+                 "bincount n n_buckets")
+    return {"max_abs_err": err, "launches": launches}
+
+
+def ssm_lm_phase(torch, dev, arch: str, tag: str) -> dict:
+    """Phases <tag>-serve and <tag>-prefill: the serving path of a
+    sub-quadratic LM at full width and depth (prefill of 8 x 2048 tokens,
+    32 greedy decode steps, a serve drain, launch counts), a float32
+    prefill against token-by-token decode, then host-clock timings, a
+    profiled prefill and a profiled window of decode steps.  Returns the
+    launches and the timings."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, model_class
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch, attn_impl="flash")
+    # the hybrid's shared block runs at every shared_attn_period-th layer
+    n_flash = (len(range(0, cfg.n_layers, cfg.shared_attn_period))
+               if cfg.family == "hybrid" else 0)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = np.random.default_rng(0)
+    prompt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (LM_B, LM_S))
+                              .astype(np.int32)).to(dev)
+    requests = serve_requests(gen, cfg.vocab_size)
+
+    # -- the main path: counts reset just before, read just after ----------
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    logits, state = model.prefill(prompt, max_len=LM_S + LM_DECODE)
+    torch.cuda.synchronize()
+    per_prefill = ops.launches()
+    tokens = [logits.argmax(-1)]
+    for _ in range(LM_DECODE):
+        logits, state = model.decode_step(tokens[-1], state)
+        tokens.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_finite = bool(torch.isfinite(logits.float()).all())
+    eng = serve_drain(model, requests)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    want = {"ssm_scan": cfg.n_layers, "flash_attention": n_flash}
+    for name, n in want.items():
+        check(per_prefill[name] == n and launches[name] == n,
+              f"{arch}: {name} launches {per_prefill[name]} in prefill, "
+              f"{launches[name]} in all: expected {n} per prefill and none "
+              f"in decode or serving")
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    check(not others, f"{arch}: other kernels launched: {others}")
+    check(decode_finite, f"{arch}: decode logits not finite")
+    check(state.pos.tolist() == [LM_S + LM_DECODE] * LM_B,
+          f"{arch}: decode pos {state.pos.tolist()}")
+    st = check_drain(eng, len(requests))
+    emit(phase=f"{tag}-serve", arch=arch, stats=st,
+         cost=dataclasses.asdict(eng.cost), admitted=eng.admitted,
+         finished=[r.uid for r in eng.finished][:8])
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, eng
+
+    # -- checks: float32 prefill equals token-by-token decode ---------------
+    m32 = model_class(cfg)(dataclasses.replace(cfg, compute_dtype="float32"),
+                           model.param_tree())
+    short = prompt[:, :64]
+    lp, sp = m32.prefill(short, max_len=64)
+    sd = m32.init_decode_state(LM_B, 64)
+    for i in range(64):
+        ld, sd = m32.decode_step(short[:, i], sd)
+    f32_err = {"logits": (lp - ld).abs().max().item()}
+    ok = rel_close(ld, lp, 2e-3)
+    for name, a, b in zip(sp._fields, sp, sd):
+        f32_err[name] = (a.float() - b.float()).abs().max().item()
+        ok = ok and (torch.equal(a, b) if name == "pos"
+                     else rel_close(b, a, 2e-3))
+    check(ok, f"{arch}: f32 prefill vs decode {f32_err}")
+    del m32, sp, sd
+    logits, _ = model.prefill(prompt, max_len=LM_S)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch}: prefill logits")
+    emit(phase=f"{tag}-prefill", arch=arch, batch=LM_B, seq=LM_S,
+         decode_steps=LM_DECODE, build_s=build_s,
+         launches_per_prefill={k: per_prefill[k] for k in want},
+         main_path_launches=launches,
+         greedy_tokens_slot0=[int(t[0]) for t in tokens[:8]],
+         f32_prefill_vs_decode_max_abs=f32_err,
+         peak_mem_bytes=peak)
+
+    # -- timings: host clock first, then a profiled prefill and decode window
+    timings, prefill, decode = lm_host_timings(torch, model, prompt,
+                                               requests, prefill_reps=3)
+    # kernel names in csrc/ssm_scan.cu and csrc/flash_attention.cu
+    prof = profiled(prefill, torch, named={"ssm_scan": "ssm_scan_kernel",
+                                           "flash_attention":
+                                               "flash_fwd_kernel"})
+    prof["busy_share"] = prof["device_ms"] / timings["prefill_ms"]
+    prof["ssm_scan_share"] = prof["ssm_scan"]["ms"] / prof["device_ms"]
+    prof_decode = profiled(lambda: [decode() for _ in range(DECODE_WINDOW)],
+                           torch)
+    for key in ("wall_ms", "device_ms", "launches"):
+        prof_decode[key] /= DECODE_WINDOW
+    prof_decode["busy_share"] = (prof_decode["device_ms"]
+                                 / timings["decode_step_ms"])
+    return {"launches": launches,
+            "timings": {"arch": arch, **timings, "profiled_prefill": prof,
+                        "profiled_decode_step": prof_decode}}
+
+
+def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
+    """Phase ssm-timings: CUDA-event medians of ssm_scan, prefix_scan and
+    bincount, their plain versions and yardsticks at the main shapes,
+    beside the bound, with the models' host-clock timings.  Returns the
+    per-kernel totals of the summary line."""
+    from repro_torch.kernels import bincount, prefix_scan, ssm_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    per_call = []
+
+    def row(name, shape, kern, plain, library, nbytes, nops):
+        per_call.append({"kernel": name, "shape": shape, "ms": kern,
+                         "plain_ms": plain, "library_ms": library,
+                         "bytes": nbytes, "ops": nops,
+                         "bytes_ms": nbytes / mem_rate * 1e3,
+                         "ops_ms": nops / ALU_RATE * 1e3})
+
+    for shape in SSM_MAIN:
+        a = torch.rand(shape, device=dev, generator=gen)
+        x = torch.randn(shape, device=dev, generator=gen)
+        row("ssm_scan", list(shape),
+            event_ms(lambda: ssm_scan.ssm_scan_cuda(a, x), torch),
+            event_ms(lambda: ssm_scan.ssm_scan_plain(a, x), torch), None,
+            3 * a.numel() * 4, 2 * a.numel())
+        del a, x
+    for rows, n, dt, ex in SCAN_MAIN:
+        x = scan_input(torch, dev, gen, rows, n, dt)
+        row("prefix_scan", [rows, n, dt, ex],
+            event_ms(lambda: prefix_scan.prefix_scan_cuda(x, ex), torch),
+            event_ms(lambda: prefix_scan.prefix_scan_plain(x, ex), torch),
+            event_ms(lambda: torch.cumsum(x, -1, dtype=x.dtype), torch),
+            2 * x.numel() * 4, x.numel())
+    n, V = BINCOUNT_MAIN
+    ids = torch.randint(0, V, (n,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    check(torch.equal(bincount.bincount_cuda(ids, V),
+                      torch.bincount(ids, minlength=V).to(torch.int32)),
+          "bincount yardstick disagrees with the kernel")
+    row("bincount", [n, V], event_ms(lambda: bincount.bincount_cuda(ids, V),
+                                     torch),
+        event_ms(lambda: bincount.bincount_plain(ids, V), torch),
+        event_ms(lambda: torch.bincount(ids, minlength=V), torch),
+        n * 4 + V * 4, n)
+    emit(phase="ssm-timings", per_call=per_call, models=lm_timings,
+         note="kernel rows: CUDA-event medians of 7 after a warm-up; "
+              "models: host-clock medians ending in a synchronize, one "
+              "profiled prefill and a profiled window of "
+              f"{DECODE_WINDOW} decode steps (per step); busy_share = "
+              "device ms over the unprofiled median wall ms")
+    totals = {}
+    for r in per_call:
+        t = totals.setdefault(r["kernel"], {"ms": 0.0, "plain_ms": 0.0,
+                                            "library_ms": 0.0,
+                                            "bytes_ms": 0.0, "ops_ms": 0.0})
+        for k in ("ms", "plain_ms", "bytes_ms", "ops_ms"):
+            t[k] += r[k]
+        t["library_ms"] = (None if r["library_ms"] is None
+                           else t["library_ms"] + r["library_ms"])
+    return totals
 
 
 def main() -> int:
@@ -674,6 +1007,37 @@ def main() -> int:
             "library_ms": t["library_ms"]})
 
     summary.append(lm_phases(torch, dev, mem_rate))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10-14. the sub-quadratic LMs and the last three kernels -------------
+    entry = ssm_kernel_phase(torch, dev)
+    lms = []
+    for arch, tag in SSM_ARCHS:
+        lms.append(ssm_lm_phase(torch, dev, arch, tag))
+        gc.collect()                 # free each model before the next one
+        torch.cuda.empty_cache()
+    totals = ssm_timings_phase(torch, dev, mem_rate,
+                               [r["timings"] for r in lms])
+    summary[-1]["launches"] += sum(r["launches"]["flash_attention"]
+                                   for r in lms)
+    launches = {"ssm_scan": sum(r["launches"]["ssm_scan"] for r in lms),
+                "prefix_scan": entry["launches"]["prefix_scan"],
+                "bincount": entry["launches"]["bincount"]}
+    sources = {"ssm_scan": "src/repro/kernels/ssm_scan.py:65",
+               "prefix_scan": "src/repro/kernels/prefix_scan.py:64",
+               "bincount": "src/repro/kernels/bincount.py:63"}
+    for name, t in totals.items():
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": sources[name], "launches": launches[name],
+            "max_abs_err": entry["max_abs_err"][name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
+            "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations"),
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ Both sides meet in numpy: the JAX package's arrays convert with
 here imports JAX.  A ``Mailbox`` or ``CostAccum`` of the JAX package, read
 into numpy, becomes this port's with :func:`mailbox_from_numpy` and
 :func:`accum_from_numpy`, and goes back with :func:`to_numpy`.  An LM's
-params nest (``model.init`` of the JAX package, read into numpy) becomes a
-:class:`~repro_torch.models.DecoderLM` with :func:`lm_params_from_numpy`
-and goes back with :func:`lm_params_to_numpy`.
+params nest (``model.init`` of the JAX package, read into numpy) becomes
+the port's model of the config's family (:class:`~repro_torch.models.DecoderLM`,
+:class:`~repro_torch.models.HybridLM` or :class:`~repro_torch.models.RWKVLM`)
+with :func:`lm_params_from_numpy` and goes back with
+:func:`lm_params_to_numpy`.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from ._device import as_device
 from ._tree import tree_map
 from .core.costmodel import CostAccum
 from .core.mrmodel import Mailbox
-from .models.transformer import DecoderLM
+from .models.transformer import model_class
 
 _ACCUM_DTYPES = {"rounds": torch.int32, "communication": torch.float32,
                  "internal_time": torch.float32, "max_reducer_io": torch.int32,
@@ -67,14 +69,15 @@ def to_numpy(obj):
     return tree_map(as_numpy, obj)
 
 
-def lm_params_from_numpy(tree, cfg, device="cuda") -> DecoderLM:
-    """A :class:`DecoderLM` for ``cfg`` holding the params nest ``tree``
+def lm_params_from_numpy(tree, cfg, device="cuda"):
+    """The model of ``cfg``'s family holding the params nest ``tree``
     (numpy arrays under the JAX package's names), copied to ``device``: the
     card unless the caller passes ``device="cpu"``, as ``build_model``."""
-    return DecoderLM(cfg, tree_from_numpy(tree, as_device(device, "model")))
+    cls = model_class(cfg)
+    return cls(cfg, tree_from_numpy(tree, as_device(device, "model")))
 
 
-def lm_params_to_numpy(model: DecoderLM):
+def lm_params_to_numpy(model):
     """The model's params nest as numpy arrays, the JAX package's names and
     shapes kept: the inverse of :func:`lm_params_from_numpy`."""
     return to_numpy(model.param_tree())

@@ -13,6 +13,8 @@ import torch
 from . import bincount as _bincount
 from . import bitonic_sort as _bitonic
 from . import flash_attention as _flash
+from . import prefix_scan as _prefix
+from . import ssm_scan as _ssm
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -48,14 +50,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash.flash_attention_plain(q, k, v, causal)
 
 
+def ssm_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t along axis 1 of (batch, seq, d), float32
+    carry, h in x's dtype.
+
+    Forward only on the card: the JAX entry point is differentiable through
+    a custom VJP whose backward kernel comes with the training slice, so a
+    CUDA call that would need a gradient raises instead of returning a
+    result that silently carries none.  On the CPU the plain version is
+    differentiable by autograd."""
+    if _route(x, "ssm_scan"):
+        if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
+            raise NotImplementedError(
+                "ssm_scan on CUDA is forward only: its backward kernel comes "
+                "with the training slice of the port; call it under "
+                "torch.no_grad() or on inputs that do not require grad")
+        return _ssm.ssm_scan_cuda(a, x)
+    return _ssm.ssm_scan_plain(a, x)
+
+
+def prefix_scan(x: torch.Tensor, *, exclusive: bool = False) -> torch.Tensor:
+    """Cumulative sum along the last axis of (rows, n), int32 or float32,
+    in x's dtype (int32 wraps)."""
+    if _route(x, "prefix_scan"):
+        return _prefix.prefix_scan_cuda(x, exclusive)
+    return _prefix.prefix_scan_plain(x, exclusive)
+
+
+def bincount(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """(n_buckets,) int32 histogram of (n,) int32 ids; ids outside
+    [0, n_buckets) are ignored."""
+    if _route(ids, "bincount"):
+        return _bincount.bincount_cuda(ids, n_buckets)
+    return _bincount.bincount_plain(ids, n_buckets)
+
+
 def launches() -> Dict[str, int]:
     """CUDA launches of each kernel since the last :func:`reset_launches`."""
-    return {"bincount_tiles": _bincount.launches,
+    return {**_bincount.launches,
             "bitonic_sort": _bitonic.launches,
-            "flash_attention": _flash.launches}
+            "flash_attention": _flash.launches,
+            "ssm_scan": _ssm.launches,
+            "prefix_scan": _prefix.launches}
 
 
 def reset_launches() -> None:
-    _bincount.launches = 0
+    _bincount.launches.update(bincount_tiles=0, bincount=0)
     _bitonic.launches = 0
     _flash.launches = 0
+    _ssm.launches = 0
+    _prefix.launches = 0

@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --reduced --requests 16 --max-batch 4 --device cpu
 
+``--arch`` takes any config of a ported family: the dense ones,
+``zamba2-1.2b`` (hybrid) and ``rwkv6-1.6b`` (RWKV6).
+
 Runs on the card (``--device cuda``, the default) unless asked for the CPU;
 params are drawn from a generator seeded with ``--seed``.  Prints the
 engine's ``stats()`` as one JSON line.

@@ -1,28 +1,53 @@
-"""Decoder-only LM: the dense family of ``repro.models.transformer``.
+"""Decoder-only LMs: the dense, hybrid (zamba2) and RWKV6 families of
+``repro.models.transformer``.
 
-One model object serves both entry points of the JAX package's model API:
+One model object per family serves the JAX package's serving API:
 
-  model = build_model(cfg)                      # DecoderLM on cuda, seeded
-  logits, state = model.prefill(tokens, max_len)    # (B, V), KVDecodeState
+  model = build_model(cfg)                          # on cuda, seeded
+  logits, state = model.prefill(tokens, max_len)    # (B, V), decode state
   logits, state = model.decode_step(tok, state)     # one token per slot
   state = model.init_decode_state(batch, max_len)   # zeroed state
 
-:class:`DecoderLM` is an ``nn.Module`` whose parameters keep the JAX
-params nest's names (``embed.table``, ``layers.attn.wq``, ...), the layers
-stacked on axis 0 as ``jax.vmap`` init makes them, stored in
-``cfg.param_dtype``.  Products run in ``cfg.compute_dtype`` from one copy
-of the weights cast at first use (norm params stay float32, which is what
-the norms read): the same bits as a cast at every use, without moving the
-float32 weights each step.  The copy is made again when a parameter has
+Each family is an ``nn.Module`` whose parameters keep the JAX params
+nest's names, the layers stacked on axis 0 as ``jax.vmap`` init makes them,
+stored in ``cfg.param_dtype``:
+
+- :class:`DecoderLM` (``family == "dense"``): ``embed``, ``final_norm``,
+  ``lm_head`` (untied only), ``layers.{attn_norm, attn, mlp_norm, mlp}``;
+  state :class:`KVDecodeState`.
+- :class:`HybridLM` (``"hybrid"``, zamba2): ``embed``, ``final_norm``,
+  ``lm_head``, ``shared.{attn_norm, attn, mlp_norm, mlp}``,
+  ``layers.{norm, mamba}``.  One shared attention + MLP block runs before
+  the Mamba2 block of every ``shared_attn_period``-th layer, each
+  invocation with its own K/V cache; state :class:`HybridDecodeState`.
+- :class:`RWKVLM` (``"ssm"``, rwkv6): ``embed``, ``final_norm``
+  (layernorm), ``lm_head``, ``layers.{ln1, time, ln2, chan}``; state
+  :class:`RWKVDecodeState`.
+
+Products run in ``cfg.compute_dtype`` from one copy of the weights cast at
+first use: exactly the leaves the JAX package casts with ``.astype`` to the
+compute dtype where it reads them (each class's ``CAST``).  Every other
+leaf stays as stored, because the JAX code reads it in float32 or the param
+dtype: norm params, Mamba2's ``A_log``, ``D``, ``dt_bias`` and
+``norm_scale``, RWKV6's ``w0``, ``w_lora_a``, ``w_lora_b``, ``u`` and
+``ln_x_scale``.  That gives the bits of a cast at every use without moving
+the float32 weights each step.  The copy is made again when a parameter has
 changed since: ``load_state_dict``, an in-place update such as an
 optimizer's step, or ``model.to(...)``.  Writes through ``param.data``
 bypass PyTorch's version counter and are not seen: update parameters in
-place under ``torch.no_grad()`` instead.  Prefill attention goes through
-:func:`repro_torch.kernels.ops.flash_attention` when
-``cfg.attn_impl == "flash"``.
+place under ``torch.no_grad()`` instead.
 
-Only ``family == "dense"`` is ported; :func:`build_model` raises
-``NotImplementedError`` for the others, which later slices of the port add.
+``decode_step`` writes the new state into the given state's buffers in
+place and returns a state that shares them, with ``pos + 1``.  Buffers keep
+the dtypes of ``init_decode_state``: the hybrid's ``mamba_conv`` stays
+float32 where the JAX package's decode returns it in the compute dtype; the
+values are the same (a bfloat16 value is exact in float32).
+
+Prefill attention goes through :func:`repro_torch.kernels.ops.flash_attention`
+when ``cfg.attn_impl == "flash"``, and the Mamba2 and RWKV6 prefill through
+:func:`repro_torch.kernels.ops.ssm_scan`.  :func:`build_model` raises
+``NotImplementedError`` for the moe, vlm and encdec families, which a later
+slice of the port adds.
 """
 from __future__ import annotations
 
@@ -34,61 +59,20 @@ from torch import nn
 from .._device import as_device
 from .._tree import tree_map
 from ..configs.base import ArchConfig
+from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import (Params, apply_embed, apply_lm_head, apply_mlp,
                      apply_norm, attention_decode, attention_prefill, cdtype,
                      init_attention, init_embed, init_lm_head, init_mlp,
                      init_norm)
 
 #: the slice of the port that brings each family that is not ported yet
-_LATER = {"hybrid": "the hybrid/rwkv slice (ssm_scan)",
-          "ssm": "the hybrid/rwkv slice (ssm_scan)",
-          "moe": "the MoE/VLM/enc-dec slice",
+_LATER = {"moe": "the MoE/VLM/enc-dec slice",
           "vlm": "the MoE/VLM/enc-dec slice",
           "encdec": "the MoE/VLM/enc-dec slice"}
 
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
-            f"with {_LATER.get(cfg.family, 'a later slice')}")
-
-
-class KVDecodeState(NamedTuple):
-    k: torch.Tensor          # (L, B, T, kvh, hd), compute dtype
-    v: torch.Tensor
-    pos: torch.Tensor        # (B,) int32: tokens already in the cache
-
-
-def _block_prefill(p, cfg, x, positions):
-    z = apply_norm(p["attn_norm"], cfg, x)
-    h, kv = attention_prefill(p["attn"], cfg, z, positions)
-    x = x + h
-    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
-    return x, kv
-
-
-def _block_decode(p, cfg, x, ck, cv, pos):
-    z = apply_norm(p["attn_norm"], cfg, x)
-    h, ck, cv = attention_decode(p["attn"], cfg, z, ck, cv, pos)
-    x = x + h
-    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
-    return x, ck, cv
-
-
-def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
-    """The params nest of ``build_decoder_lm(cfg).init``, drawn from
-    ``gen`` (on ``gen.device``) with the same distributions."""
-    L = (cfg.n_layers,)
-    params = {"embed": init_embed(gen, cfg),
-              "final_norm": init_norm(gen, cfg)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = init_lm_head(gen, cfg)
-    params["layers"] = {"attn_norm": init_norm(gen, cfg, lead=L),
-                        "attn": init_attention(gen, cfg, lead=L),
-                        "mlp_norm": init_norm(gen, cfg, lead=L),
-                        "mlp": init_mlp(gen, cfg, lead=L)}
-    return params
+#: in a CAST spec: cast the whole subtree
+ALL = True
 
 
 class ParamNest(nn.Module):
@@ -122,22 +106,36 @@ class ParamNest(nn.Module):
         return out
 
 
-def _cast_weights(tree: Params, dt: torch.dtype) -> Params:
-    """Every leaf cast to ``dt``, except under norms (read in float32)."""
-    return {k: v if k.endswith("norm")
-            else _cast_weights(v, dt) if isinstance(v, dict) else v.to(dt)
-            for k, v in tree.items()}
+def _cast_tree(tree: Params, dt: torch.dtype, spec) -> Params:
+    """``tree`` with the leaves ``spec`` names cast to ``dt``: a spec maps
+    a key to ``ALL`` (the whole subtree) or to a nested spec, and a set
+    names leaves.  Everything else is kept as it is."""
+    out = {}
+    for k, v in tree.items():
+        rule = spec.get(k) if isinstance(spec, dict) else (
+            ALL if k in spec else None)
+        if rule is ALL:
+            out[k] = tree_map(lambda a: a.to(dt), v)
+        elif rule:
+            out[k] = _cast_tree(v, dt, rule)
+        else:
+            out[k] = v
+    return out
 
 
-class DecoderLM(ParamNest):
-    """The dense decoder LM over a params nest (see the module docstring);
-    its top-level children are the nest's ``embed``, ``final_norm``,
-    ``lm_head`` (untied only) and ``layers``."""
+class _LM(ParamNest):
+    """What the three families share: the params nest, its check against
+    the family's names, and the compute-dtype copy."""
+
+    FAMILY = ""
+    #: the leaves the compute copy casts (see :func:`_cast_tree`)
+    CAST: Dict = {}
 
     def __init__(self, cfg: ArchConfig, params: Params):
-        _check_family(cfg)
-        want = {"embed", "final_norm", "layers"} | (
-            set() if cfg.tie_embeddings else {"lm_head"})
+        if cfg.family != self.FAMILY:
+            raise ValueError(f"{type(self).__name__} serves family "
+                             f"{self.FAMILY!r}, not {cfg.family!r}")
+        want = self.param_names(cfg)
         if set(params) != want:
             raise ValueError(f"{cfg.name}: params nest has {sorted(params)}, "
                              f"expected {sorted(want)}")
@@ -145,6 +143,10 @@ class DecoderLM(ParamNest):
         self.cfg = cfg
         self._compute: Optional[Tuple[Params, List[Params]]] = None
         self._compute_key: Optional[Tuple] = None
+
+    @staticmethod
+    def param_names(cfg: ArchConfig) -> set:
+        raise NotImplementedError
 
     @property
     def device(self) -> torch.device:
@@ -157,15 +159,78 @@ class DecoderLM(ParamNest):
                      for p in self.parameters())
 
     def compute_params(self) -> Tuple[Params, List[Params]]:
-        """(whole nest, per-layer nests) in the compute dtype, made at first
-        use and again whenever a parameter has changed since."""
+        """(whole nest, per-layer nests) with ``CAST``'s leaves in the
+        compute dtype, made at first use and again whenever a parameter has
+        changed since."""
         key = self._params_key()
         if key != self._compute_key:
-            tree = _cast_weights(self.param_tree(), cdtype(self.cfg))
+            tree = _cast_tree(self.param_tree(), cdtype(self.cfg), self.CAST)
             layers = [tree_map(lambda a, i=i: a[i], tree["layers"])
                       for i in range(self.cfg.n_layers)]
             self._compute, self._compute_key = (tree, layers), key
         return self._compute
+
+    def _prompt(self, tokens, max_len: Optional[int]):
+        tokens = torch.as_tensor(tokens, device=self.device)
+        s = tokens.shape[1]
+        max_len = s if max_len is None else int(max_len)
+        if max_len < s:
+            raise ValueError(f"max_len {max_len} < prompt length {s}")
+        return tokens, max_len
+
+    def _pos(self, b: int, value: int) -> torch.Tensor:
+        return torch.full((b,), value, dtype=torch.int32, device=self.device)
+
+
+# ===================================================================== dense
+class KVDecodeState(NamedTuple):
+    k: torch.Tensor          # (L, B, T, kvh, hd), compute dtype
+    v: torch.Tensor
+    pos: torch.Tensor        # (B,) int32: tokens already in the cache
+
+
+def _block_prefill(p, cfg, x, positions):
+    z = apply_norm(p["attn_norm"], cfg, x)
+    h, kv = attention_prefill(p["attn"], cfg, z, positions)
+    x = x + h
+    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
+    return x, kv
+
+
+def _block_decode(p, cfg, x, ck, cv, pos):
+    z = apply_norm(p["attn_norm"], cfg, x)
+    h, ck, cv = attention_decode(p["attn"], cfg, z, ck, cv, pos)
+    x = x + h
+    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
+    return x, ck, cv
+
+
+class DecoderLM(_LM):
+    """The dense decoder LM over a params nest (see the module
+    docstring)."""
+
+    FAMILY = "dense"
+    CAST = {"embed": ALL, "lm_head": ALL, "layers": {"attn": ALL, "mlp": ALL}}
+
+    @staticmethod
+    def param_names(cfg):
+        return {"embed", "final_norm", "layers"} | (
+            set() if cfg.tie_embeddings else {"lm_head"})
+
+    @staticmethod
+    def init(cfg: ArchConfig, gen: torch.Generator) -> Params:
+        """The params nest of the JAX ``build_decoder_lm(cfg).init``, drawn
+        from ``gen`` (on ``gen.device``) with the same distributions."""
+        L = (cfg.n_layers,)
+        params = {"embed": init_embed(gen, cfg),
+                  "final_norm": init_norm(gen, cfg)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_lm_head(gen, cfg)
+        params["layers"] = {"attn_norm": init_norm(gen, cfg, lead=L),
+                            "attn": init_attention(gen, cfg, lead=L),
+                            "mlp_norm": init_norm(gen, cfg, lead=L),
+                            "mlp": init_mlp(gen, cfg, lead=L)}
+        return params
 
     def init_decode_state(self, batch_size: int,
                           max_len: int) -> KVDecodeState:
@@ -175,7 +240,7 @@ class DecoderLM(ParamNest):
         return KVDecodeState(
             k=torch.zeros(shape, dtype=dt, device=dev),
             v=torch.zeros(shape, dtype=dt, device=dev),
-            pos=torch.zeros((batch_size,), dtype=torch.int32, device=dev))
+            pos=self._pos(batch_size, 0))
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x)
@@ -189,11 +254,8 @@ class DecoderLM(ParamNest):
         state with the prompt's K/V in slots 0..S-1 of ``max_len``)."""
         cfg = self.cfg
         P, layers = self.compute_params()
-        tokens = torch.as_tensor(tokens, device=self.device)
+        tokens, max_len = self._prompt(tokens, max_len)
         b, s = tokens.shape
-        max_len = s if max_len is None else int(max_len)
-        if max_len < s:
-            raise ValueError(f"max_len {max_len} < prompt length {s}")
         x = apply_embed(P["embed"], cfg, tokens)
         positions = torch.arange(s, device=self.device).expand(b, s)
         state = self.init_decode_state(b, max_len)
@@ -202,15 +264,12 @@ class DecoderLM(ParamNest):
             state.k[i, :, :s] = k
             state.v[i, :, :s] = v
         logits = self._logits(P, x[:, -1:])
-        return logits, state._replace(
-            pos=torch.full((b,), s, dtype=torch.int32, device=self.device))
+        return logits, state._replace(pos=self._pos(b, s))
 
     @torch.no_grad()
     def decode_step(self, tok: torch.Tensor, state: KVDecodeState
                     ) -> Tuple[torch.Tensor, KVDecodeState]:
-        """tok (B,) -> (logits (B, V), the next state).  The new K/V are
-        written into ``state``'s caches in place; the returned state shares
-        them and holds ``pos + 1``."""
+        """tok (B,) -> (logits (B, V), the next state)."""
         cfg = self.cfg
         P, layers = self.compute_params()
         tok = torch.as_tensor(tok, device=self.device)
@@ -221,11 +280,257 @@ class DecoderLM(ParamNest):
         return self._logits(P, x), state._replace(pos=state.pos + 1)
 
 
-def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> DecoderLM:
-    """A :class:`DecoderLM` for ``cfg`` with params drawn from a generator
+# ==================================================================== hybrid
+class HybridDecodeState(NamedTuple):
+    mamba_h: torch.Tensor     # (L, B, heads, d_state, SSM_HEAD) float32
+    mamba_conv: torch.Tensor  # (L, B, D_CONV-1, conv_ch) float32
+    shared_k: torch.Tensor    # (n_inv, B, T, kvh, hd) compute dtype
+    shared_v: torch.Tensor
+    pos: torch.Tensor         # (B,) int32
+
+
+def _shared_positions(cfg: ArchConfig) -> List[int]:
+    """The layers before whose Mamba2 block the shared block runs."""
+    period = max(1, cfg.shared_attn_period)
+    return [i for i in range(cfg.n_layers) if i % period == 0]
+
+
+def _shared_block_tail(sp, cfg, x, h):
+    x = x + h
+    return x + apply_mlp(sp["mlp"], cfg, apply_norm(sp["mlp_norm"], cfg, x))
+
+
+class HybridLM(_LM):
+    """The zamba2 hybrid: a Mamba2 stack with one shared attention block
+    (see the module docstring)."""
+
+    FAMILY = "hybrid"
+    CAST = {"embed": ALL, "lm_head": ALL,
+            "shared": {"attn": ALL, "mlp": ALL},
+            "layers": {"mamba": {"in_proj", "conv_w", "out_proj"}}}
+
+    @staticmethod
+    def param_names(cfg):
+        return {"embed", "final_norm", "lm_head", "shared", "layers"}
+
+    @staticmethod
+    def init(cfg: ArchConfig, gen: torch.Generator) -> Params:
+        """The params nest of the JAX ``build_hybrid_lm(cfg).init``."""
+        L = (cfg.n_layers,)
+        return {
+            "embed": init_embed(gen, cfg),
+            "final_norm": init_norm(gen, cfg),
+            "lm_head": init_lm_head(gen, cfg),
+            "shared": {"attn_norm": init_norm(gen, cfg),
+                       "attn": init_attention(gen, cfg),
+                       "mlp_norm": init_norm(gen, cfg),
+                       "mlp": init_mlp(gen, cfg)},
+            "layers": {"norm": init_norm(gen, cfg, lead=L),
+                       "mamba": ssm_mod.init_mamba(gen, cfg, lead=L)},
+        }
+
+    def init_decode_state(self, batch_size: int,
+                          max_len: int) -> HybridDecodeState:
+        cfg = self.cfg
+        d_in, n_heads, d_state = ssm_mod.ssm_dims(cfg)
+        n_inv = len(_shared_positions(cfg))
+        L, dev = cfg.n_layers, self.device
+        kv = (n_inv, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        return HybridDecodeState(
+            mamba_h=torch.zeros((L, batch_size, n_heads, d_state,
+                                 ssm_mod.SSM_HEAD), device=dev),
+            mamba_conv=torch.zeros((L, batch_size, ssm_mod.D_CONV - 1,
+                                    d_in + 2 * d_state), device=dev),
+            shared_k=torch.zeros(kv, dtype=cdtype(cfg), device=dev),
+            shared_v=torch.zeros(kv, dtype=cdtype(cfg), device=dev),
+            pos=self._pos(batch_size, 0))
+
+    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+        x = apply_norm(P["final_norm"], self.cfg, x)
+        return apply_lm_head(P["lm_head"], self.cfg, x)[:, 0]
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, HybridDecodeState]:
+        """tokens (B, S) -> (logits of the last position (B, V), the decode
+        state: each layer's Mamba2 state after the prompt, and each shared
+        invocation's K/V in slots 0..S-1 of ``max_len``)."""
+        cfg = self.cfg
+        P, layers = self.compute_params()
+        tokens, max_len = self._prompt(tokens, max_len)
+        b, s = tokens.shape
+        x = apply_embed(P["embed"], cfg, tokens)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        state = self.init_decode_state(b, max_len)
+        sp, shared_at = P["shared"], _shared_positions(cfg)
+        inv = 0
+        for i, lp in enumerate(layers):
+            if i in shared_at:
+                z = apply_norm(sp["attn_norm"], cfg, x)
+                h, (k, v) = attention_prefill(sp["attn"], cfg, z, positions)
+                state.shared_k[inv, :, :s] = k
+                state.shared_v[inv, :, :s] = v
+                inv += 1
+                x = _shared_block_tail(sp, cfg, x, h)
+            y, ms = ssm_mod.apply_mamba(lp["mamba"], cfg,
+                                        apply_norm(lp["norm"], cfg, x),
+                                        return_state=True)
+            x = x + y
+            state.mamba_h[i] = ms.h
+            state.mamba_conv[i] = ms.conv
+        return self._logits(P, x[:, -1:]), state._replace(pos=self._pos(b, s))
+
+    @torch.no_grad()
+    def decode_step(self, tok: torch.Tensor, state: HybridDecodeState
+                    ) -> Tuple[torch.Tensor, HybridDecodeState]:
+        """tok (B,) -> (logits (B, V), the next state)."""
+        cfg = self.cfg
+        P, layers = self.compute_params()
+        tok = torch.as_tensor(tok, device=self.device)
+        x = apply_embed(P["embed"], cfg, tok[:, None])
+        sp, shared_at = P["shared"], _shared_positions(cfg)
+        inv = 0
+        for i, lp in enumerate(layers):
+            if i in shared_at:
+                z = apply_norm(sp["attn_norm"], cfg, x)
+                h, _, _ = attention_decode(sp["attn"], cfg, z,
+                                           state.shared_k[inv],
+                                           state.shared_v[inv], state.pos)
+                inv += 1
+                x = _shared_block_tail(sp, cfg, x, h)
+            y, ms = ssm_mod.mamba_decode_step(
+                lp["mamba"], cfg, apply_norm(lp["norm"], cfg, x),
+                ssm_mod.MambaState(h=state.mamba_h[i],
+                                   conv=state.mamba_conv[i]))
+            x = x + y
+            state.mamba_h[i] = ms.h
+            state.mamba_conv[i] = ms.conv
+        return self._logits(P, x), state._replace(pos=state.pos + 1)
+
+
+# ====================================================================== rwkv
+class RWKVDecodeState(NamedTuple):
+    S: torch.Tensor           # (L, B, h, dk, dv) float32
+    x_time: torch.Tensor      # (L, B, d) float32
+    x_chan: torch.Tensor      # (L, B, d) float32
+    pos: torch.Tensor         # (B,) int32
+
+
+class RWKVLM(_LM):
+    """The RWKV6 LM (see the module docstring)."""
+
+    FAMILY = "ssm"
+    CAST = {"embed": ALL, "lm_head": ALL,
+            "layers": {"time": {"mu", "receptance", "key", "value", "gate",
+                                "output"},
+                       "chan": ALL}}
+
+    @staticmethod
+    def param_names(cfg):
+        return {"embed", "final_norm", "lm_head", "layers"}
+
+    @staticmethod
+    def init(cfg: ArchConfig, gen: torch.Generator) -> Params:
+        """The params nest of the JAX ``build_rwkv_lm(cfg).init``."""
+        L = (cfg.n_layers,)
+        return {
+            "embed": init_embed(gen, cfg),
+            "final_norm": init_norm(gen, cfg, kind="layernorm"),
+            "lm_head": init_lm_head(gen, cfg),
+            "layers": {"ln1": init_norm(gen, cfg, kind="layernorm", lead=L),
+                       "time": rwkv_mod.init_rwkv_time(gen, cfg, lead=L),
+                       "ln2": init_norm(gen, cfg, kind="layernorm", lead=L),
+                       "chan": rwkv_mod.init_rwkv_channel(gen, cfg, lead=L)},
+        }
+
+    def init_decode_state(self, batch_size: int,
+                          max_len: Optional[int] = None) -> RWKVDecodeState:
+        """The state does not grow with context: ``max_len`` is unused."""
+        cfg = self.cfg
+        n_heads, hd = rwkv_mod.rwkv_dims(cfg)
+        L, d, dev = cfg.n_layers, cfg.d_model, self.device
+        return RWKVDecodeState(
+            S=torch.zeros((L, batch_size, n_heads, hd, hd), device=dev),
+            x_time=torch.zeros((L, batch_size, d), device=dev),
+            x_chan=torch.zeros((L, batch_size, d), device=dev),
+            pos=self._pos(batch_size, 0))
+
+    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+        x = apply_norm(P["final_norm"], self.cfg, x, kind="layernorm")
+        return apply_lm_head(P["lm_head"], self.cfg, x)[:, 0]
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, RWKVDecodeState]:
+        """tokens (B, S) -> (logits of the last position (B, V), the decode
+        state after the prompt).  ``max_len`` is checked, not used."""
+        cfg = self.cfg
+        P, layers = self.compute_params()
+        tokens, _ = self._prompt(tokens, max_len)
+        b, s = tokens.shape
+        x = apply_embed(P["embed"], cfg, tokens)
+        state = self.init_decode_state(b)
+        chunk = min(cfg.ssm_chunk, 64)
+        for i, lp in enumerate(layers):
+            z = apply_norm(lp["ln1"], cfg, x, kind="layernorm")
+            y, (S, x_last) = rwkv_mod.apply_rwkv_time(
+                lp["time"], cfg, z, chunk=chunk, return_state=True)
+            x = x + y
+            z2 = apply_norm(lp["ln2"], cfg, x, kind="layernorm")
+            x = x + rwkv_mod.apply_rwkv_channel(lp["chan"], cfg, z2)
+            state.S[i] = S
+            state.x_time[i] = x_last
+            state.x_chan[i] = z2[:, -1]
+        return self._logits(P, x[:, -1:]), state._replace(pos=self._pos(b, s))
+
+    @torch.no_grad()
+    def decode_step(self, tok: torch.Tensor, state: RWKVDecodeState
+                    ) -> Tuple[torch.Tensor, RWKVDecodeState]:
+        """tok (B,) -> (logits (B, V), the next state)."""
+        cfg = self.cfg
+        P, layers = self.compute_params()
+        tok = torch.as_tensor(tok, device=self.device)
+        x = apply_embed(P["embed"], cfg, tok[:, None])
+        for i, lp in enumerate(layers):
+            st = rwkv_mod.RWKVState(S=state.S[i], x_time=state.x_time[i],
+                                    x_chan=state.x_chan[i])
+            z = apply_norm(lp["ln1"], cfg, x, kind="layernorm")
+            y, st = rwkv_mod.rwkv_time_decode(lp["time"], cfg, z, st)
+            x = x + y
+            z = apply_norm(lp["ln2"], cfg, x, kind="layernorm")
+            y, st = rwkv_mod.rwkv_channel_decode(lp["chan"], cfg, z, st)
+            x = x + y
+            state.S[i] = st.S
+            state.x_time[i] = st.x_time
+            state.x_chan[i] = st.x_chan
+        return self._logits(P, x), state._replace(pos=state.pos + 1)
+
+
+# ================================================================== building
+_FAMILIES = {"dense": DecoderLM, "hybrid": HybridLM, "ssm": RWKVLM}
+
+
+def model_class(cfg: ArchConfig):
+    """The module class that serves ``cfg.family``; raises
+    ``NotImplementedError`` for a family the port does not have yet."""
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
+            f"with {_LATER.get(cfg.family, 'a later slice')}")
+    return _FAMILIES[cfg.family]
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """The params nest of the JAX ``build_model(cfg).init``, drawn from
+    ``gen`` (on ``gen.device``) with the same distributions."""
+    return model_class(cfg).init(cfg, gen)
+
+
+def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> _LM:
+    """The family's model for ``cfg``, with params drawn from a generator
     seeded with ``seed``, on ``device``."""
-    _check_family(cfg)
+    cls = model_class(cfg)
     dev = as_device(device, "model")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return DecoderLM(cfg, init_params(cfg, gen))
+    return cls(cfg, cls.init(cfg, gen))

@@ -14,9 +14,12 @@ generating.  Slots evolve independently because the decode state is
 per-slot (per-slot pos, per-slot cache lines), so prefill and decode mix
 freely in one ``decode_step`` call per round.
 
-Dense decoder-only models (:class:`repro_torch.models.DecoderLM`).  The
-decode state lives on the model's device and is updated in place; each
-round moves the B sampled token ids to the host.
+Any of the port's LMs (:class:`~repro_torch.models.DecoderLM`,
+:class:`~repro_torch.models.HybridLM`, :class:`~repro_torch.models.RWKVLM`):
+the engine reads only ``init_decode_state``, ``decode_step``, ``device`` and
+the state's per-slot fields.  The decode state lives on the model's device
+and is updated in place; each round moves the B sampled token ids to the
+host.
 """
 from __future__ import annotations
 
@@ -54,8 +57,7 @@ class ServeConfig:
 
 class ServeEngine:
     """Token-level continuous batching (see module docstring) over
-    ``model``, a :class:`~repro_torch.models.DecoderLM` that holds its
-    params.
+    ``model``, one of the port's LMs, which holds its params.
 
     ``clock`` is the injectable time source: any zero-arg callable returning
     float seconds (``time.time`` in production, a counter under test), so

@@ -4,7 +4,10 @@ Launches each kernel on the card at small shapes, the shuffle's tile width
 and the shapes that take each kernel's second path (a histogram in global
 memory, a row wider than shared memory), and requires exact agreement;
 ``flash_attention`` at the edge shapes and TinyLlama's prefill shape, within
-2e-4 (float32) and 2e-2 (bfloat16).
+2e-4 (float32) and 2e-2 (bfloat16); ``ssm_scan`` at the edge shapes and the
+zamba2 and RWKV6 prefill shapes within 2e-4; ``prefix_scan`` exactly in
+int32 and, in float32, within twice ``torch.cumsum``'s own error against a
+float64 cumsum; ``bincount`` exactly.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.kernels import bincount, bitonic_sort, ops
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import prefix_scan, ssm_scan
 
 RNG = np.random.default_rng(4321)
 
@@ -106,3 +110,90 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         ops.flash_attention(k16, k16, k16)
     with pytest.raises(ValueError, match="one dtype"):
         ops.flash_attention(k, k.bfloat16(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,a_dtype,x_dtype", [
+    (2, 100, 16, torch.float32, torch.float32),
+    (1, 513, 8, torch.float32, torch.float32),
+    (3, 64, 32, torch.bfloat16, torch.float32),
+    (1, 16, 4, torch.float32, torch.bfloat16),
+    (2, 33, 300, torch.bfloat16, torch.bfloat16),
+    (8, 16, 262144, torch.float32, torch.float32),   # zamba2-1.2b prefill
+    (8, 32, 131072, torch.float32, torch.float32),   # rwkv6-1.6b prefill
+])
+def test_ssm_scan_kernel_matches_plain(cuda, b, t, d, a_dtype, x_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(t * d)
+    a = (0.8 + 0.2 * torch.rand(b, t, d, device=cuda, generator=gen)) \
+        .to(a_dtype)
+    x = torch.randn(b, t, d, device=cuda, generator=gen).to(x_dtype)
+    before = ssm_scan.launches
+    got = ops.ssm_scan(a, x)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want = ssm_scan.ssm_scan_plain(a, x)
+    tol = 2e-4 if x_dtype == torch.float32 else 2e-2
+    assert got.dtype == x_dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_refuses_a_gradient(cuda):
+    a = torch.rand(1, 4, 8, device=cuda, requires_grad=True)
+    x = torch.randn(1, 4, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.ssm_scan(a, x)
+    with torch.no_grad():
+        assert ops.ssm_scan(a, x).shape == (1, 4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [
+    (2, 1), (3, 13), (2, 700), (1, 1024), (4, 1025), (16, 128),
+    (2048, 12288),               # the local-sort count scan: V x T tiles
+    (3, 1 << 20),
+])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_prefix_scan_kernel_matches_plain(cuda, rows, n, exclusive):
+    gen = torch.Generator(device=cuda).manual_seed(rows + n)
+    xi = torch.randint(-(1 << 30), 1 << 30, (rows, n), dtype=torch.int32,
+                       device=cuda, generator=gen)       # sums wrap
+    got = ops.prefix_scan(xi, exclusive=exclusive)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, prefix_scan.prefix_scan_plain(xi, exclusive))
+    xf = torch.randn(rows, n, device=cuda, generator=gen)
+    got = ops.prefix_scan(xf, exclusive=exclusive)
+    exact = torch.cumsum(xf.double(), -1) - (xf.double() if exclusive else 0)
+    err = (got.double() - exact).abs().max().item()
+    own = (prefix_scan.prefix_scan_plain(xf, exclusive).double()
+           - exact).abs().max().item()
+    assert err <= 2 * own + 1e-6, (err, own)
+
+
+@pytest.mark.cuda
+def test_prefix_scan_kernel_passes_an_empty_axis(cuda):
+    x = torch.zeros((3, 0), dtype=torch.int32, device=cuda)
+    assert ops.prefix_scan(x) is x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_buckets", [
+    (0, 8), (13, 64), (31, 5), (6, 100), (100, 8), (5000, 50),
+    (1 << 24, 2048),             # the sort's destinations
+    (1 << 20, 100000),           # above the shared-memory histogram
+])
+def test_bincount_kernel_matches_plain(cuda, n, n_buckets):
+    gen = torch.Generator(device=cuda).manual_seed(n + n_buckets)
+    ids = torch.randint(-3, n_buckets + 3, (n,), dtype=torch.int32,
+                        device=cuda, generator=gen)
+    got = ops.bincount(ids, n_buckets)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (n_buckets,)
+    assert torch.equal(got, bincount.bincount_plain(ids, n_buckets))
+
+
+@pytest.mark.cuda
+def test_bincount_kernel_all_dropped(cuda):
+    ids = torch.tensor([-1] * 40 + [7] * 40, dtype=torch.int32, device=cuda)
+    assert not ops.bincount(ids, 7).any()

@@ -28,7 +28,8 @@ def test_no_jax_or_repro_imports(path):
 def test_sorts_on_cpu_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` and ``import repro``
     fail, the port imports and sorts on the CPU through the kernel engine,
-    and prefills and serves a reduced TinyLlama."""
+    prefills and serves a reduced TinyLlama, and prefills and decodes a
+    reduced zamba2 and RWKV6."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -60,6 +61,14 @@ def test_sorts_on_cpu_with_jax_blocked():
                                                          dtype=np.int32),
                                  max_new_tokens=3))
         assert len(serve.run_until_drained()) == 3
+        for arch in ("zamba2-1.2b", "rwkv6-1.6b"):
+            m = build_model(get_config(arch, reduced=True), device="cpu")
+            logits, state = m.prefill(torch.zeros((2, 5), dtype=torch.int32),
+                                      max_len=8)
+            logits, state = m.decode_step(torch.zeros(2, dtype=torch.int32),
+                                          state)
+            assert bool(torch.isfinite(logits).all())
+            assert state.pos.tolist() == [6, 6]
         assert not [m for m, mod in sys.modules.items() if mod is not None
                     and (m in ("jax", "repro")
                          or m.startswith(("jax.", "repro.")))]

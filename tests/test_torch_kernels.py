@@ -14,7 +14,7 @@ from repro.kernels.bincount import bincount as jax_bincount
 from repro.kernels.bincount import bincount_tiles as jax_bincount_tiles
 from repro.kernels.bitonic_sort import bitonic_sort as jax_bitonic_sort
 from repro_torch.kernels import (bincount, bitonic_sort, flash_attention, ops,
-                                 ref)
+                                 prefix_scan, ref, ssm_scan)
 
 RNG = np.random.default_rng(1234)
 
@@ -109,8 +109,12 @@ def test_cpu_tensors_never_launch():
                      torch.zeros((2, 4), dtype=torch.int32))
     ops.flash_attention(torch.zeros((1, 2, 4, 8)), torch.zeros((1, 1, 4, 8)),
                         torch.zeros((1, 1, 4, 8)))
+    ops.ssm_scan(torch.ones((1, 3, 2)), torch.zeros((1, 3, 2)))
+    ops.prefix_scan(torch.zeros((2, 4), dtype=torch.int32))
+    ops.bincount(torch.zeros((4,), dtype=torch.int32), 3)
     assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0,
-                              "flash_attention": 0}
+                              "flash_attention": 0, "ssm_scan": 0,
+                              "prefix_scan": 0, "bincount": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -120,3 +124,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bitonic_sort.bitonic_sort_cuda(torch.zeros((2, 4)), torch.zeros((2, 4)))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention_cuda(*[torch.zeros((1, 2, 4, 64))] * 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan.ssm_scan_cuda(torch.ones((1, 3, 2)), torch.zeros((1, 3, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        prefix_scan.prefix_scan_cuda(torch.zeros((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        bincount.bincount_cuda(torch.zeros((4,), dtype=torch.int32), 3)

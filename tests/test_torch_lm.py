@@ -333,8 +333,7 @@ def test_compute_copy_follows_parameter_changes(change):
         assert not torch.allclose(after, before)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b",
-                                  "kimi-k2-1t-a32b", "internvl2-2b",
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "internvl2-2b",
                                   "whisper-base"])
 def test_families_not_ported_raise(arch):
     cfg = get_config(arch, reduced=True)

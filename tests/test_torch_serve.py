@@ -59,6 +59,9 @@ def _top2_gap(row):
     ("tinyllama-1.1b", 3, 24, 7, (10, 20), (6, 12), True),
     # tied embeddings and QKV biases
     ("qwen1.5-0.5b", 2, 40, 5, (2, 9), (3, 10), False),
+    # the hybrid (Mamba2 state, shared attention K/V) and RWKV6 states
+    ("zamba2-1.2b", 3, 40, 7, (4, 14), (5, 12), False),
+    ("rwkv6-1.6b", 3, 24, 7, (10, 20), (6, 12), True),
 ])
 def test_serve_engine_matches_jax(arch, max_batch, max_len, n, plen, new,
                                   truncates):
