@@ -71,10 +71,6 @@ _LATER = {"moe": "the MoE/VLM/enc-dec slice",
           "vlm": "the MoE/VLM/enc-dec slice",
           "encdec": "the MoE/VLM/enc-dec slice"}
 
-#: in a CAST spec: cast the whole subtree
-ALL = True
-
-
 class ParamNest(nn.Module):
     """A nest of parameters that indexes like the JAX params dict:
     ``p["attn"]["wq"]``, ``"b_up" in p``."""
@@ -106,18 +102,17 @@ class ParamNest(nn.Module):
         return out
 
 
-def _cast_tree(tree: Params, dt: torch.dtype, spec) -> Params:
-    """``tree`` with the leaves ``spec`` names cast to ``dt``: a spec maps
-    a key to ``ALL`` (the whole subtree) or to a nested spec, and a set
-    names leaves.  Everything else is kept as it is."""
+def _cast_tree(tree: Params, dt: torch.dtype, cast: frozenset,
+               prefix: str = "") -> Params:
+    """``tree`` with every leaf whose dotted name is, or lies under, one of
+    the names in ``cast`` cast to ``dt``; everything else kept as it is."""
     out = {}
     for k, v in tree.items():
-        rule = spec.get(k) if isinstance(spec, dict) else (
-            ALL if k in spec else None)
-        if rule is ALL:
+        name = prefix + k
+        if any(name == c or name.startswith(c + ".") for c in cast):
             out[k] = tree_map(lambda a: a.to(dt), v)
-        elif rule:
-            out[k] = _cast_tree(v, dt, rule)
+        elif isinstance(v, dict):
+            out[k] = _cast_tree(v, dt, cast, name + ".")
         else:
             out[k] = v
     return out
@@ -128,8 +123,8 @@ class _LM(ParamNest):
     the family's names, and the compute-dtype copy."""
 
     FAMILY = ""
-    #: the leaves the compute copy casts (see :func:`_cast_tree`)
-    CAST: Dict = {}
+    #: the dotted names (leaves or subtrees) the compute copy casts
+    CAST: frozenset = frozenset()
 
     def __init__(self, cfg: ArchConfig, params: Params):
         if cfg.family != self.FAMILY:
@@ -210,7 +205,7 @@ class DecoderLM(_LM):
     docstring)."""
 
     FAMILY = "dense"
-    CAST = {"embed": ALL, "lm_head": ALL, "layers": {"attn": ALL, "mlp": ALL}}
+    CAST = frozenset({"embed", "lm_head", "layers.attn", "layers.mlp"})
 
     @staticmethod
     def param_names(cfg):
@@ -305,9 +300,9 @@ class HybridLM(_LM):
     (see the module docstring)."""
 
     FAMILY = "hybrid"
-    CAST = {"embed": ALL, "lm_head": ALL,
-            "shared": {"attn": ALL, "mlp": ALL},
-            "layers": {"mamba": {"in_proj", "conv_w", "out_proj"}}}
+    CAST = frozenset({"embed", "lm_head", "shared.attn", "shared.mlp",
+                      "layers.mamba.in_proj", "layers.mamba.conv_w",
+                      "layers.mamba.out_proj"})
 
     @staticmethod
     def param_names(cfg):
@@ -420,10 +415,9 @@ class RWKVLM(_LM):
     """The RWKV6 LM (see the module docstring)."""
 
     FAMILY = "ssm"
-    CAST = {"embed": ALL, "lm_head": ALL,
-            "layers": {"time": {"mu", "receptance", "key", "value", "gate",
-                                "output"},
-                       "chan": ALL}}
+    CAST = frozenset({"embed", "lm_head", "layers.chan"} | {
+        f"layers.time.{k}" for k in ("mu", "receptance", "key", "value",
+                                     "gate", "output")})
 
     @staticmethod
     def param_names(cfg):
