@@ -8,8 +8,15 @@ exits non-zero:
 
 1. device   — the card, and ``nvidia-smi``'s name and power limit;
 2. build    — nvcc builds the kernels from src/repro_torch/kernels/csrc;
+              build-kernels: registers, spills and shared memory of the
+              kernels redesigned for Hopper (flash_wgmma_kernel,
+              bitonic_regs), from the build log;
 3. kernels  — each kernel against its plain PyTorch version, exactly, at
-              the main path's shapes and at edge shapes;
+              the main path's shapes and at edge shapes (``bitonic_sort``
+              at every width where its mechanism changes, up to 2^18,
+              int32 and float32); ``bitonic_sort`` on tie-heavy rows
+              (8 key values, both float zeros): keys sorted, (key, value)
+              pairs unchanged;
 4. shuffle  — the kernel shuffle against the dense shuffle at both calls of
               a main-path query: mailbox, validity and RoundStats identical;
 5. main     — the §4.3 sample sort of n = 2^24 float32 keys at M = 8192
@@ -22,8 +29,11 @@ exits non-zero:
               and host-clock medians of whole sort queries;
 7. lm-kernels — ``flash_attention`` against its plain version at TinyLlama's
               prefill shape (b 8, hq 32, hkv 4, s 2048, d 64, causal) in
-              bfloat16 and float32 and at the edge shapes of
-              tests/test_kernels.py, within 2e-4 (f32) and 2e-2 (bf16);
+              bfloat16 and float32, at the edge shapes of
+              tests/test_kernels.py, at lengths off the wgmma tiles, every
+              head dim, and d 128 causal at s 2048, within 2e-4 (f32) and
+              2e-2 (bf16); the main paths' bf16 launches must all take the
+              wgmma route;
 8. lm-prefill — the dense serving path at TinyLlama-1.1B's full width and
               depth, params from a seeded generator: prefill of 8 prompts of
               2048 tokens (22 kernel launches), 32 greedy decode steps, then
@@ -69,7 +79,9 @@ exits non-zero:
               bound, and the two models' timings and profiles.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
-power line, and ``{"ok": true, "device": {...}}``.  A kernel's times and
+power line, and ``{"ok": true, "device": {...}}``; the summary's
+``flash_attention`` row also gives its launches by route and the float32
+route's time beside that route's bound.  A kernel's times and
 bound in the summary are sums over one call at each main-path shape: the
 two calls of a sort query, TinyLlama's and the hybrid's prefill attention,
 the two ``ssm_scan`` prefill shapes.  Without CUDA, or without
@@ -103,12 +115,23 @@ LM_ARCH = "tinyllama-1.1b"
 LM_B, LM_S, LM_DECODE = 8, 2048, 32       # prefill batch and length, steps
 DECODE_WINDOW = 5                          # decode steps in a profiled window
 #: flash_attention shapes (b, hq, hkv, s_q, s_k, d, causal): TinyLlama's
-#: prefill, then the edge shapes of tests/test_kernels.py and one query
-#: against a 512-key cache
+#: prefill, then the edge shapes of tests/test_kernels.py, one query
+#: against a 512-key cache, lengths off the wgmma kernel's tiles (128
+#: queries, 64 keys) at d 64 and 128, every head dim causal and ragged, and
+#: d 128 causal at s 2048
 FLASH_MAIN = (LM_B, 32, 4, LM_S, LM_S, 64, True)
 FLASH_EDGE = ((2, 4, 2, 128, 128, 64, True), (1, 2, 2, 200, 200, 32, False),
               (1, 8, 2, 256, 256, 64, True), (1, 2, 1, 100, 100, 48, True),
-              (2, 4, 4, 64, 64, 128, False), (2, 4, 4, 1, 512, 64, False))
+              (2, 4, 4, 64, 64, 128, False), (2, 4, 4, 1, 512, 64, False),
+              (1, 4, 2, 300, 300, 128, True), (2, 4, 4, 200, 200, 64, False),
+              (1, 2, 2, 77, 333, 128, False), (1, 4, 1, 129, 129, 32, True),
+              (1, 4, 4, 65, 65, 48, False), (2, 16, 4, LM_S, LM_S, 128, True))
+#: bitonic_sort row widths that cross the kernel's mechanisms: one block
+#: of 4096 elements holding many rows, the register chunks (16), the lane
+#: and warp bits of a layout, a row per block (4096 to 16384), and the
+#: global stages above 16384 up to the 2^18 contract
+BITONIC_WIDTHS = (1, 2, 31, 32, 33, 255, 256, 257, 511, 512, 513, 4095, 4096,
+                  4097, 16384, 16385, 1 << 18)
 #: the sub-quadratic LMs: (arch, phase tag)
 SSM_ARCHS = (("zamba2-1.2b", "hybrid"), ("rwkv6-1.6b", "rwkv"))
 #: ssm_scan (b, t, d) of one prefill call: zamba2-1.2b (2048 / 128 chunks,
@@ -144,6 +167,38 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str, names) -> list:
+    """Registers, spills and static shared memory of each compiled entry
+    whose name holds one of ``names``, from nvcc's ``-Xptxas -v`` output."""
+    import re
+    rows, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = next((n for n in names if n in m.group(1)), None)
+            if entry:
+                # the template arguments: Li<n>E, i (int), f (float)
+                mangled = m.group(1).split(entry + "I", 1)[1]
+                args = [("int", "float")["if".index(a)] if a else n
+                        for n, a in re.findall(r"Li(\d+)E|^([if])", mangled)]
+                rows.append({"kernel": f"{entry}<{','.join(args)}>"})
+            continue
+        if not entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1].update(registers=int(m.group(1)),
+                            static_smem=int(smem.group(1)) if smem else 0)
+            entry = None
+    return rows
 
 
 def event_ms(fn, torch, reps: int = REPS) -> float:
@@ -381,6 +436,7 @@ def lm_phases(torch, dev, mem_rate) -> dict:
 
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops
     from repro_torch.models import DecoderLM, build_model
 
@@ -420,10 +476,13 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     eng = serve_drain(model, requests)
     torch.cuda.synchronize()
     launches = ops.launches()
+    routes = dict(flash.route_launches)
     check(per_prefill == [cfg.n_layers] and
           launches["flash_attention"] == cfg.n_layers,
           f"flash_attention launches {per_prefill}, {launches}: expected "
           f"{cfg.n_layers} per prefill and none in decode")
+    check(routes == {"wgmma": cfg.n_layers, "cuda_core": 0},
+          f"flash_attention routes {routes}: the bf16 prefill runs wgmma")
     check(launches["bincount_tiles"] == launches["bitonic_sort"] == 0,
           f"sort kernels launched on the LM path: {launches}")
     check(decode_finite, "decode logits not finite")
@@ -508,8 +567,8 @@ def lm_phases(torch, dev, mem_rate) -> dict:
                           f"{DECODE_WINDOW} decode steps (per step); "
                           f"busy_share = device ms over the unprofiled "
                           f"median wall ms"})
-    return {"launches": launches["flash_attention"], "max_abs_err": max_abs,
-            "timing": flash_t}
+    return {"launches": launches["flash_attention"], "routes": routes,
+            "max_abs_err": max_abs, "timing": flash_t}
 
 
 def scan_input(torch, dev, gen, rows, n, dtype):
@@ -671,6 +730,7 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
 
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_kernel
     from repro_torch.kernels import ops
     from repro_torch.models import build_model, model_class
 
@@ -717,6 +777,9 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
     eng = serve_drain(model, requests)
     torch.cuda.synchronize()
     launches = ops.launches()
+    routes = dict(flash_kernel.route_launches)
+    check(routes == {"wgmma": n_flash, "cuda_core": 0},
+          f"{arch}: flash_attention routes {routes}")
     want = {"ssm_scan": cfg.n_layers, "flash_attention": n_flash}
     for name, n in want.items():
         check(per_prefill[name] == n and launches[name] == n,
@@ -826,7 +889,7 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
     # kernel names in csrc/ssm_scan.cu and csrc/flash_attention.cu
     prof = profiled(prefill, torch, named={"ssm_scan": "ssm_scan_kernel",
                                            "flash_attention":
-                                               "flash_fwd_kernel"})
+                                               "flash_wgmma_kernel"})
     prof["busy_share"] = prof["device_ms"] / timings["prefill_ms"]
     prof["ssm_scan_share"] = prof["ssm_scan"]["ms"] / prof["device_ms"]
     prof_decode = profiled(lambda: [decode() for _ in range(DECODE_WINDOW)],
@@ -835,7 +898,7 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
         prof_decode[key] /= DECODE_WINDOW
     prof_decode["busy_share"] = (prof_decode["device_ms"]
                                  / timings["decode_step_ms"])
-    return {"launches": launches, "flash": flash,
+    return {"launches": launches, "routes": routes, "flash": flash,
             "timings": {"arch": arch, **timings, "profiled_prefill": prof,
                         "profiled_decode_step": prof_decode}}
 
@@ -932,6 +995,22 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.last_build["seconds"], library=str(lib_path),
          sources=[p.name for p in _build.sources()])
+    # The kernels redesigned for Hopper: what ptxas gave them.  Dynamic
+    # shared memory is set at launch: flash_wgmma_kernel<D> asks for
+    # 128 D 2 + 4 * 64 D 2 + 1024 bytes (Q, two K and two V stages,
+    # alignment), bitonic_regs<K, LOGC> for 2^LOGC * 17 / 16 * 8.
+    hopper = ptxas_report((lib_path.parent / "build.log").read_text(),
+                          ("flash_wgmma_kernel", "bitonic_regs"))
+    for row in hopper:
+        t = row["kernel"].split("<")[1].rstrip(">").split(",")
+        row["dynamic_smem"] = (
+            128 * int(t[0]) * 2 + 4 * 64 * int(t[0]) * 2 + 1024
+            if row["kernel"].startswith("flash")
+            else (1 << int(t[1])) * 17 // 2)
+    check(len(hopper) == 8 and all("registers" in r for r in hopper),
+          f"ptxas report of the redesigned kernels: {hopper}")
+    emit(phase="build-kernels", kernels=hopper,
+         source="build.log of the library (nvcc -Xptxas -v)")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev)
@@ -961,27 +1040,64 @@ def main() -> int:
              (T, tile_n, V))
         checked.append(["bincount_tiles", T, tile_n, V])
 
-    def unique_rows(rows, n, dtype):
+    def unique_rows(rows, n, dtype, gen):
         # distinct keys per row (the network is not stable; the shuffle's
         # keys are distinct), scattered over the key range
         keys = torch.rand(rows, n, device=dev, generator=gen).argsort(1)
         keys = keys.to(torch.int32) * 37 - 5000
         return keys.to(dtype) * 0.25 if dtype == torch.float32 else keys
 
-    for rows, n, dtype in ((12288, 4096, torch.int32),
-                           (4096, 4096, torch.int32),
-                           (256, 4096, torch.float32),
-                           (64, 3000, torch.int32), (9, 1000, torch.float32),
-                           (1, 1 << 18, torch.int32),
-                           (2, 100000, torch.float32), (3, 1, torch.int32)):
-        keys = unique_rows(rows, n, dtype)
+    # The width sweep and the tie rows draw from their own generator, so
+    # that checks added here leave the main path's keys (drawn from ``gen``
+    # below) as they are.
+    gen_w = torch.Generator(device=dev)
+    gen_w.manual_seed(1)
+    widths = [(1 if n == 1 << 18 else 3, n, dtype, gen_w)
+              for n in BITONIC_WIDTHS
+              for dtype in (torch.int32, torch.float32)]
+    for rows, n, dtype, g in [(12288, 4096, torch.int32, gen),
+                              (4096, 4096, torch.int32, gen),
+                              (256, 4096, torch.float32, gen),
+                              (64, 3000, torch.int32, gen),
+                              (9, 1000, torch.float32, gen),
+                              (1, 1 << 18, torch.int32, gen),
+                              (2, 100000, torch.float32, gen),
+                              (3, 1, torch.int32, gen)] + widths:
+        keys = unique_rows(rows, n, dtype, g)
         vals = torch.randint(0, 1 << 30, (rows, n), dtype=torch.int32,
-                             device=dev, generator=gen)
+                             device=dev, generator=g)
         got = bitonic_sort.bitonic_sort_cuda(keys, vals)
         torch.cuda.synchronize()
         held("bitonic_sort", got, bitonic_sort.bitonic_sort_plain(keys, vals),
              (rows, n, str(dtype)))
         checked.append(["bitonic_sort", rows, n, str(dtype)])
+
+    def pairs(k, v):
+        # the (key bits, value) multiset of each row, as sorted int64s
+        bits = k.view(torch.int32).long() & 0xFFFFFFFF
+        return torch.sort((bits << 32) | (v.long() & 0xFFFFFFFF), 1).values
+
+    # tie-heavy rows (the network is not stable): keys drawn from 8 values,
+    # in float32 with both zeros; the keys come out sorted and the (key,
+    # value) pairs are those that went in
+    zeros = torch.tensor([0.0, -0.0, 1.5, -2.0, 3.0, -0.0, 0.0, 7.0],
+                         device=dev)
+    for rows, n in ((4096, 4096), (5, 33), (3, 4097), (2, 16385),
+                    (1, 1 << 18)):
+        for dtype in (torch.int32, torch.float32):
+            pick = torch.randint(0, 8, (rows, n), device=dev,
+                                 generator=gen_w)
+            keys = (zeros[pick] if dtype == torch.float32
+                    else (pick - 4).to(torch.int32))
+            vals = torch.randint(0, 1 << 30, (rows, n), dtype=torch.int32,
+                                 device=dev, generator=gen_w)
+            gk, gv = bitonic_sort.bitonic_sort_cuda(keys, vals)
+            torch.cuda.synchronize()
+            check(bool((gk[:, 1:] >= gk[:, :-1]).all()),
+                  f"bitonic_sort ties {rows, n, dtype}: keys not sorted")
+            check(torch.equal(pairs(gk, gv), pairs(keys, vals)),
+                  f"bitonic_sort ties {rows, n, dtype}: pairs changed")
+            checked.append(["bitonic_sort ties", rows, n, str(dtype)])
     emit(phase="kernels", checked=checked, max_abs_err=max_err)
 
     # -- 4. the kernel shuffle against the dense one at main-path calls -----
@@ -1190,7 +1306,16 @@ def main() -> int:
         "plain_ms": sum(t["plain_ms"] for t in parts),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": sum(t["sdpa_ms"] for t in parts)})
+        "library_ms": sum(t["sdpa_ms"] for t in parts),
+        # launches by route on the main paths (bf16 prefill: wgmma), and
+        # the float32 route's time at the same shapes beside its bound at
+        # the CUDA-core rate
+        "launches_by_route": {
+            r: tinyllama["routes"][r] + sum(x["routes"][r] for x in lms)
+            for r in ("wgmma", "cuda_core")},
+        "f32_ms": sum(t["flash_f32_ms"] for t in parts),
+        "f32_bound_ms": max(bytes_ms * 2, sum(t["flops_ms_f32"]
+                                              for t in parts))})
     launches = {"ssm_scan": sum(r["launches"]["ssm_scan"] for r in lms),
                 "prefix_scan": entry["launches"]["prefix_scan"],
                 "bincount": entry["launches"]["bincount"]}

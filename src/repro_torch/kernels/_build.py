@@ -7,6 +7,12 @@ into ``build/repro_torch_kernels/<hash>/`` at the repository root, where the
 hash covers the sources and the flags; a later process with the same
 sources loads the library without compiling.
 
+The library links against the CUDA runtime only: no kernel uses a TMA
+tensor map, so nothing reaches the driver API (no ``-lcuda``; the wgmma
+kernel of ``flash_attention.cu`` is fed by ``cp.async``).
+``tests/test_torch_build.py`` holds ``_SIGNATURES`` to the sources'
+``extern "C"`` functions.
+
 Nothing here runs at import: the CPU tests import every module, and a
 machine without CUDA has no ``nvcc``.
 """
@@ -48,6 +54,7 @@ _SIGNATURES = {
     "repro_flash_attention": ([_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64,
                                _I64, _I64, ctypes.c_int, ctypes.c_int,
                                ctypes.c_float, _PTR], ctypes.c_int),
+    "repro_flash_attention_route": ([_I64, ctypes.c_int], ctypes.c_int),
     "repro_ssm_scan": ([_PTR, _PTR, _PTR, _I64, _I64, _I64, ctypes.c_int,
                         ctypes.c_int, _PTR], ctypes.c_int),
     "repro_prefix_scan_scratch_bytes": ([_I64, _I64, ctypes.c_int], _I64),

@@ -7,12 +7,12 @@ along.  Rows are padded to a power of two n_pad with the key type's maximum;
 a row with n_pad above 2^18 raises, as the JAX package's kernel does.
 
 :func:`bitonic_sort_cuda` launches the hand-written bitonic network of
-``csrc/bitonic_sort.cu``; :func:`bitonic_sort_plain` is the plain PyTorch
-version (stable argsort plus gather) for the CPU and as the kernel's
-yardstick on the card.  The network is not stable, so the two agree exactly
-on rows of unique keys, which is what the shuffle sorts (segmented keys
-``dest * tile + local_src``).  :func:`repro_torch.kernels.ops.bitonic_sort`
-picks one by device.
+``csrc/bitonic_sort.cu``, run in registers; :func:`bitonic_sort_plain` is
+the plain PyTorch version (stable argsort plus gather) for the CPU and as
+the kernel's yardstick on the card.  The network is not stable, so the two
+agree exactly on rows of unique keys, which is what the shuffle sorts
+(segmented keys ``dest * tile + local_src``).
+:func:`repro_torch.kernels.ops.bitonic_sort` picks one by device.
 """
 from __future__ import annotations
 
@@ -74,7 +74,10 @@ def bitonic_sort_cuda(keys: torch.Tensor, values: torch.Tensor
     if rows == 0 or n == 0:
         return keys, values
     n_pad = _padded_width(n)
-    keys, values = keys.contiguous(), values.contiguous()
+    # the kernel moves rows in 16-byte words
+    keys, values = (t.contiguous() for t in (keys, values))
+    keys, values = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (keys, values))
     out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
     lib = _build.library()
     work_k = work_v = None

@@ -9,9 +9,11 @@ with scale 1/sqrt(d), scores and softmax in float32, and, when ``causal``,
 key j masked for query i where j > i (absolute indices from 0 on both axes).
 Masked scores are the finite ``NEG_INF`` of the JAX kernel, not -inf.
 
-:func:`flash_attention_cuda` launches the hand-written kernel of
+:func:`flash_attention_cuda` launches the hand-written kernels of
 ``csrc/flash_attention.cu`` (float32 or bfloat16, head dims 32, 48, 64 and
-128); :func:`flash_attention_plain` is plain PyTorch, for the CPU and as the
+128): bfloat16 at head dims 64 and 128 runs on the tensor cores (wgmma),
+everything else on the CUDA cores, as ``repro_flash_attention_route`` says;
+:func:`flash_attention_plain` is plain PyTorch, for the CPU and as the
 kernel's yardstick on the card.
 :func:`repro_torch.kernels.ops.flash_attention` picks one by device.
 """
@@ -23,8 +25,10 @@ import torch
 
 from . import _build
 
-#: launches of the CUDA kernel since the last reset (ops.reset_launches)
+#: launches of the CUDA kernels since the last reset (ops.reset_launches)
 launches = 0
+#: the same launches by route: "wgmma" (tensor cores) or "cuda_core"
+route_launches = {"wgmma": 0, "cuda_core": 0}
 
 NEG_INF = -1e30
 #: head dims the kernel is compiled for
@@ -80,7 +84,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {d} not in "
                          f"{HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    # the kernels copy rows in 16-byte chunks
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -90,4 +96,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream)
     _build.check(err, "flash_attention")
     launches += 1
+    route = lib.repro_flash_attention_route(d, _DTYPES[q.dtype])
+    route_launches["wgmma" if route else "cuda_core"] += 1
     return out

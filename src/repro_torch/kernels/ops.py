@@ -98,5 +98,6 @@ def reset_launches() -> None:
     _bincount.launches.update(bincount_tiles=0, bincount=0)
     _bitonic.launches = 0
     _flash.launches = 0
+    _flash.route_launches.update(wgmma=0, cuda_core=0)
     _ssm.launches = 0
     _prefix.launches = 0

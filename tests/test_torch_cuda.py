@@ -3,11 +3,14 @@
 Launches each kernel on the card at small shapes, the shuffle's tile width
 and the shapes that take each kernel's second path (a histogram in global
 memory, a row wider than shared memory), and requires exact agreement;
-``flash_attention`` at the edge shapes and TinyLlama's prefill shape, within
-2e-4 (float32) and 2e-2 (bfloat16); ``ssm_scan`` at the edge shapes and the
-zamba2 and RWKV6 prefill shapes within 2e-4; ``prefix_scan`` exactly in
-int32 and, in float32, within twice ``torch.cumsum``'s own error against a
-float64 cumsum; ``bincount`` exactly.
+``bitonic_sort`` also at every width where its mechanism changes, and on
+tie-heavy rows (sorted keys, the same (key, value) pairs);
+``flash_attention`` at the edge shapes, lengths off the wgmma tiles, every
+head dim and the two prefill shapes, within 2e-4 (float32) and 2e-2
+(bfloat16), and its launches counted by route; ``ssm_scan`` at the edge
+shapes and the zamba2 and RWKV6 prefill shapes within 2e-4; ``prefix_scan``
+exactly in int32 and, in float32, within twice ``torch.cumsum``'s own error
+against a float64 cumsum; ``bincount`` exactly.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -58,6 +61,7 @@ def test_bincount_tiles_kernel_matches_plain(cuda, T, tile_n, n_buckets):
     (64, 4096, np.int32), (16, 1000, np.float32),
     (1, 1 << 18, np.int32),      # global stages above the shared-memory row
     (2, 40000, np.float32),
+    (4096, 4096, np.int32),      # a main-path query's entry sort
 ])
 def test_bitonic_sort_kernel_matches_plain(cuda, rows, n, dtype):
     if dtype == np.int32:
@@ -74,6 +78,50 @@ def test_bitonic_sort_kernel_matches_plain(cuda, rows, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 255, 256, 257, 511, 512, 513,
+                               4095, 4096, 4097, 16384, 16385, 1 << 18])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_bitonic_sort_kernel_at_mechanism_widths(cuda, n, dtype):
+    # widths where the kernel changes mechanism: rows sharing a block,
+    # register chunks, lane and warp bits, a row per block, global stages
+    rows = 1 if n == 1 << 18 else 3
+    k = torch.from_numpy(_unique_keys(rows, n).astype(dtype)).to(cuda)
+    v = torch.from_numpy(
+        RNG.integers(0, 1 << 30, (rows, n)).astype(np.int32)).to(cuda)
+    gk, gv = bitonic_sort.bitonic_sort_cuda(k, v)
+    torch.cuda.synchronize()
+    wk, wv = bitonic_sort.bitonic_sort_plain(k, v)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+def _pairs(k, v):
+    bits = k.view(torch.int32).long() & 0xFFFFFFFF
+    return torch.sort((bits << 32) | (v.long() & 0xFFFFFFFF), 1).values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(64, 4096), (5, 33), (3, 4097),
+                                    (2, 16385), (1, 1 << 18)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_bitonic_sort_kernel_on_ties(cuda, rows, n, dtype):
+    # 8 key values (both float zeros among them): the network is not
+    # stable, so the keys come out sorted and the (key, value) pairs are
+    # those that went in
+    pick = torch.from_numpy(RNG.integers(0, 8, (rows, n))).to(cuda)
+    if dtype == torch.float32:
+        k = torch.tensor([0.0, -0.0, 1.5, -2.0, 3.0, -0.0, 0.0, 7.0],
+                         device=cuda)[pick]
+    else:
+        k = (pick - 4).to(torch.int32)
+    v = torch.from_numpy(
+        RNG.integers(0, 1 << 30, (rows, n)).astype(np.int32)).to(cuda)
+    gk, gv = bitonic_sort.bitonic_sort_cuda(k, v)
+    torch.cuda.synchronize()
+    assert bool((gk[:, 1:] >= gk[:, :-1]).all())
+    assert torch.equal(_pairs(gk, gv), _pairs(k, v))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
     (2, 4, 2, 128, 128, 64, True),
     (1, 2, 2, 200, 200, 32, False),    # ragged tiles, key masking
@@ -82,6 +130,13 @@ def test_bitonic_sort_kernel_matches_plain(cuda, rows, n, dtype):
     (2, 4, 4, 64, 64, 128, False),
     (2, 4, 4, 1, 512, 64, False),      # one query against a 512-key cache
     (8, 32, 4, 2048, 2048, 64, True),  # TinyLlama-1.1B prefill, B 8, S 2048
+    (8, 32, 32, 2048, 2048, 64, True),  # zamba2-1.2b's shared block
+    (2, 16, 4, 2048, 2048, 128, True),  # d 128 causal at S 2048
+    (1, 4, 2, 300, 300, 128, True),    # lengths off the wgmma tiles
+    (2, 4, 4, 200, 200, 64, False),
+    (1, 2, 2, 77, 333, 128, False),
+    (1, 4, 1, 129, 129, 32, True),
+    (1, 4, 4, 65, 65, 48, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
@@ -98,6 +153,23 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,route", [
+    (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
+    (32, torch.bfloat16, "cuda_core"), (48, torch.bfloat16, "cuda_core"),
+    (64, torch.float32, "cuda_core"), (128, torch.float32, "cuda_core"),
+])
+def test_flash_attention_counts_each_route(cuda, d, dtype, route):
+    q = torch.randn(1, 2, 70, d, device=cuda).to(dtype)
+    before = dict(flash.route_launches)
+    ops.flash_attention(q, q, q)
+    after = dict(flash.route_launches)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    ops.reset_launches()
+    assert flash.route_launches == {"wgmma": 0, "cuda_core": 0}
 
 
 @pytest.mark.cuda
