@@ -10,23 +10,29 @@ exits non-zero:
 2. build    — nvcc builds the kernels from src/repro_torch/kernels/csrc;
               build-kernels: registers, spills and shared memory of the
               kernels redesigned for Hopper (flash_wgmma_kernel,
-              bitonic_regs), from the build log;
+              bitonic_regs, and the look-back kernels scan_tiles and
+              count_groups), from the build log;
 3. kernels  — each kernel against its plain PyTorch version, exactly, at
               the main path's shapes and at edge shapes (``bitonic_sort``
               at every width where its mechanism changes, up to 2^18,
               int32 and float32); ``bitonic_sort`` on tie-heavy rows
               (8 key values, both float zeros): keys sorted, (key, value)
-              pairs unchanged;
+              pairs unchanged; ``bincount_tiles`` at T = 1, G and G + 1
+              where its group size G changes with V, both sides of its
+              route boundary, and on ids all outside [0, V), whole tiles of
+              one bucket and the two mixed, each call on its route;
 4. shuffle  — the kernel shuffle against the dense shuffle at both calls of
               a main-path query: mailbox, validity and RoundStats identical;
 5. main     — the §4.3 sample sort of n = 2^24 float32 keys at M = 8192
               through LocalEngine(shuffle_impl="kernel"): values equal
               torch.sort, no drops, CostAccum equal to the dense engine fed
               the same sample, every shuffle routed to the kernels, and both
-              kernels launched; then a levels=2 query and exe.batch(4);
-6. timings  — CUDA-event medians of each kernel, its plain version and its
-              library yardstick at the main path's inputs, beside the bound;
-              and host-clock medians of whole sort queries;
+              kernels launched, every ``bincount_tiles`` launch on its
+              single-pass route; then a levels=2 query and exe.batch(4);
+6. timings  — CUDA-event medians (each over 5 calls back to back) of each
+              kernel, its plain version and its library yardstick at the
+              main path's inputs, beside the bound, per call; and
+              host-clock medians of whole sort queries;
 7. lm-kernels — ``flash_attention`` against its plain version at TinyLlama's
               prefill shape (b 8, hq 32, hkv 4, s 2048, d 64, causal) in
               bfloat16 and float32, at the edge shapes of
@@ -52,8 +58,13 @@ exits non-zero:
               tests/test_kernels.py, within 2e-4; ``prefix_scan`` (int32
               exactly; float32 against a float64 cumsum, within twice
               ``torch.cumsum``'s own error) and ``bincount`` (exactly) at
-              the sort's shapes and the awkward ones; then one call of
-              ``ops.prefix_scan`` and ``ops.bincount`` each, their main path;
+              the sort's shapes and the awkward ones; ``prefix_scan`` also
+              across its look-back (a tile of 4096 less one, one, and one
+              more; row tails 4 k + 1, 2, 3; a row of 4096 tiles) and on a
+              float32 row of magnitudes 1e-6 .. 1e6, and each float32 main
+              shape 5 times, the elements that differ between runs
+              recorded; then one call of ``ops.prefix_scan`` and
+              ``ops.bincount`` each, their main path;
 11. hybrid-flash / hybrid-serve / hybrid-prefill — ``flash_attention``
               against its plain version at the shared block's prefill shape
               (b 8, hq 32, hkv 32, s 2048, d 64, causal), bf16 and float32,
@@ -76,7 +87,8 @@ exits non-zero:
               launches per prefill, no attention);
 13. ssm-timings — CUDA-event medians of ``ssm_scan``, ``prefix_scan`` and
               ``bincount``, their plain versions and yardsticks, beside the
-              bound, and the two models' timings and profiles.
+              bound, one row per shape, and the two models' timings and
+              profiles.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``; the summary's
@@ -84,7 +96,9 @@ power line, and ``{"ok": true, "device": {...}}``; the summary's
 route's time beside that route's bound.  A kernel's times and
 bound in the summary are sums over one call at each main-path shape: the
 two calls of a sort query, TinyLlama's and the hybrid's prefill attention,
-the two ``ssm_scan`` prefill shapes.  Without CUDA, or without
+the two ``ssm_scan`` and ``prefix_scan`` shapes; the sort's, ``ssm_scan``'s,
+``prefix_scan``'s and ``bincount``'s rows also list each call
+(``per_call``).  Without CUDA, or without
 the rest of the repository beside it, the script fails before any result.
 """
 from __future__ import annotations
@@ -104,6 +118,7 @@ N_MAIN = 1 << 24          # keys sorted by a main-path query
 M_MAIN = 8192             # reducer I/O bound: V = 2048 reducers
 SEEDS = (101, 202, 303)
 REPS = 7
+INNER = 5                 # calls back to back in one CUDA-event timing
 #: H100 memory rates (bytes/s), NVIDIA's data sheets; the name picks one
 MEM_RATES = (("PCIe", 2.0e12), ("NVL", 3.9e12), ("H100", 3.35e12))
 #: float32 rate outside the tensor cores (FLOP/s), the H100 SXM data sheet;
@@ -146,6 +161,25 @@ SCAN_MAIN = ((2048, 12288, "int32", True), (16, 1 << 20, "float32", False))
 SCAN_EDGE = tuple((r, n, dt, ex) for r, n in ((2, 0), (1, 1), (3, 13),
                                              (2, 700))
                   for dt in ("int32", "float32") for ex in (False, True))
+#: bincount_tiles bucket counts where its group size G changes (8 at 2048,
+#: 7 at 2049, 1 from 8193), where the histograms fill exactly the 48 KB a
+#: block gets without opting in (6144: G 2), and both sides of its route
+#: boundary (kSmemBuckets of csrc/bincount_tiles.cu: single pass up to 48 Ki
+#: buckets)
+BT_EDGE_V = (2048, 2049, 6144, 8192, 8193, 48 * 1024, 48 * 1024 + 1)
+#: prefix_scan (rows, n, dtype, exclusive) across its look-back: a tile of
+#: 4096 less one, a tile, a tile and one; row tails of 4 k + 1, 2, 3; a row
+#: of 4096 tiles (deeper than one warp's window of 32)
+SCAN_TILE = 4096
+SCAN_LOOKBACK = tuple(
+    (r, n, dt, ex)
+    for r, n in ((3, SCAN_TILE - 1), (3, SCAN_TILE), (3, SCAN_TILE + 1),
+                 (2, 2 * SCAN_TILE + 1), (2, 2 * SCAN_TILE + 2),
+                 (2, 2 * SCAN_TILE + 3), (1, SCAN_TILE * SCAN_TILE))
+    for dt in ("int32", "float32") for ex in (False, True))
+#: float32 runs of each main shape compared bit for bit (the look-back adds
+#: in an order that depends on timing)
+SCAN_REPEATS = 5
 #: bincount (n, n_buckets): the sort's destinations; then the awkward
 #: shapes of tests/test_kernels.py, and a histogram above shared memory
 BINCOUNT_MAIN = (1 << 24, 2048)
@@ -201,8 +235,11 @@ def ptxas_report(log: str, names) -> list:
     return rows
 
 
-def event_ms(fn, torch, reps: int = REPS) -> float:
-    """Median device time of fn() in ms, by CUDA events, after a warm-up."""
+def event_ms(fn, torch, reps: int = REPS, inner: int = INNER) -> float:
+    """Device time of one fn() in ms, by CUDA events, after a warm-up: the
+    median over ``reps`` of the time of ``inner`` calls back to back,
+    divided by ``inner``, so that the card does not wait on the host
+    between calls."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -210,10 +247,11 @@ def event_ms(fn, torch, reps: int = REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -601,8 +639,21 @@ def ssm_kernel_phase(torch, dev) -> dict:
               f"ssm_scan {shape}: max abs err {e} over tolerance 2e-4")
         checked.append(["ssm_scan", *shape, e])
         del a, x, got, want
-    for rows, n, dt, ex in SCAN_MAIN + SCAN_EDGE:
-        x = scan_input(torch, dev, gen, rows, n, dt)
+    # the look-back's shapes and the mixed-magnitude row draw from a
+    # generator of their own, so the other checks' inputs stay as they were
+    gen_s = torch.Generator(device=dev)
+    gen_s.manual_seed(14)
+    mag = 10.0 ** (12 * torch.rand(4, 1 << 18, device=dev, generator=gen_s)
+                   - 6)
+    sign = torch.randint(0, 2, mag.shape, device=dev, generator=gen_s) * 2 - 1
+    mixed = (mag * sign).float()       # magnitudes 1e-6 .. 1e6, both signs
+    del mag, sign
+    cases = ([(shape, scan_input(torch, dev, gen, *shape[:2], shape[2]))
+              for shape in SCAN_MAIN + SCAN_EDGE]
+             + [(shape, scan_input(torch, dev, gen_s, *shape[:2], shape[2]))
+                for shape in SCAN_LOOKBACK]
+             + [((*mixed.shape, "float32", ex), mixed) for ex in (False, True)])
+    for (rows, n, dt, ex), x in cases:
         got = prefix_scan.prefix_scan_cuda(x, ex)
         torch.cuda.synchronize()
         want = prefix_scan.prefix_scan_plain(x, ex)
@@ -624,6 +675,21 @@ def ssm_kernel_phase(torch, dev) -> dict:
         err["prefix_scan"] = max(err["prefix_scan"], e)
         checked.append(["prefix_scan", rows, n, dt, ex, e]
                        + ([own] if dt == "float32" else []))
+    del cases, mixed
+    # float32 run to run: the look-back adds in an order that depends on
+    # timing; how many elements differ from the first of SCAN_REPEATS runs
+    # (recorded, not held)
+    f32_repeats = []
+    for rows, n, dt, ex in SCAN_MAIN:
+        if dt != "float32":
+            continue
+        x = scan_input(torch, dev, gen_s, rows, n, dt)
+        first = prefix_scan.prefix_scan_cuda(x, ex)
+        differ = [int((prefix_scan.prefix_scan_cuda(x, ex) != first).sum())
+                  for _ in range(SCAN_REPEATS - 1)]
+        f32_repeats.append({"shape": [rows, n, dt, ex], "runs": SCAN_REPEATS,
+                            "elements": x.numel(),
+                            "differing_from_first": differ})
     all_dropped = torch.tensor([-1] * 20 + [7] * 20, dtype=torch.int32,
                                device=dev)
     for n, V in (BINCOUNT_MAIN,) + BINCOUNT_EDGE + ((0, 7),):
@@ -652,6 +718,7 @@ def ssm_kernel_phase(torch, dev) -> dict:
           "ops.prefix_scan exclusive")
     check(int(outs[2].sum()) == BINCOUNT_MAIN[0], "ops.bincount total")
     emit(phase="ssm-kernels", checked=checked, max_abs_err=err,
+         prefix_scan_f32_run_to_run=f32_repeats,
          entry_point_launches={k: launches[k] for k in ("prefix_scan",
                                                         "bincount")},
          columns="ssm_scan b t d err | prefix_scan rows n dtype exclusive "
@@ -786,7 +853,9 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
               f"{arch}: {name} launches {per_prefill[name]} in prefill, "
               f"{launches[name]} in all: expected {n} per prefill and none "
               f"in decode or serving")
-    others = {k: v for k, v in launches.items() if k not in want and v}
+    # route counts ("kernel.route") belong to their kernel
+    others = {k: v for k, v in launches.items()
+              if k.split(".")[0] not in want and v}
     check(not others, f"{arch}: other kernels launched: {others}")
     check(decode_finite, f"{arch}: decode logits not finite")
     check(state.pos.tolist() == [LM_S + LM_DECODE] * LM_B,
@@ -918,7 +987,9 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
                          "plain_ms": plain, "library_ms": library,
                          "bytes": nbytes, "ops": nops,
                          "bytes_ms": nbytes / mem_rate * 1e3,
-                         "ops_ms": nops / ALU_RATE * 1e3})
+                         "ops_ms": nops / ALU_RATE * 1e3,
+                         "bound_ms": max(nbytes / mem_rate,
+                                         nops / ALU_RATE) * 1e3})
 
     for shape in SSM_MAIN:
         a = torch.rand(shape, device=dev, generator=gen)
@@ -947,7 +1018,8 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
         event_ms(lambda: torch.bincount(ids, minlength=V), torch),
         n * 4 + V * 4, n)
     emit(phase="ssm-timings", per_call=per_call, models=lm_timings,
-         note="kernel rows: CUDA-event medians of 7 after a warm-up; "
+         note=f"kernel rows: CUDA-event medians of {REPS}, each over {INNER} "
+              "calls back to back, after a warm-up; "
               "models: host-clock medians ending in a synchronize, one "
               "profiled prefill and a profiled window of "
               f"{DECODE_WINDOW} decode steps (per step); busy_share = "
@@ -961,6 +1033,9 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
             t[k] += r[k]
         t["library_ms"] = (None if r["library_ms"] is None
                            else t["library_ms"] + r["library_ms"])
+        t.setdefault("per_call", []).append(
+            {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                               "library_ms")})
     return totals
 
 
@@ -998,16 +1073,24 @@ def main() -> int:
     # The kernels redesigned for Hopper: what ptxas gave them.  Dynamic
     # shared memory is set at launch: flash_wgmma_kernel<D> asks for
     # 128 D 2 + 4 * 64 D 2 + 1024 bytes (Q, two K and two V stages,
-    # alignment), bitonic_regs<K, LOGC> for 2^LOGC * 17 / 16 * 8.
+    # alignment), bitonic_regs<K, LOGC> for 2^LOGC * 17 / 16 * 8,
+    # count_groups<Q> for G V 4 (at the sort's V = 2048, G = 8), scan_tiles
+    # for none.
     hopper = ptxas_report((lib_path.parent / "build.log").read_text(),
-                          ("flash_wgmma_kernel", "bitonic_regs"))
+                          ("flash_wgmma_kernel", "bitonic_regs", "scan_tiles",
+                           "count_groups"))
+    V_sort = sort_plan(N_MAIN, M_MAIN).n_nodes
     for row in hopper:
-        t = row["kernel"].split("<")[1].rstrip(">").split(",")
-        row["dynamic_smem"] = (
-            128 * int(t[0]) * 2 + 4 * 64 * int(t[0]) * 2 + 1024
-            if row["kernel"].startswith("flash")
-            else (1 << int(t[1])) * 17 // 2)
-    check(len(hopper) == 8 and all("registers" in r for r in hopper),
+        name, t = row["kernel"].rstrip(">").split("<")
+        t = t.split(",")
+        row["dynamic_smem"] = {
+            "flash_wgmma_kernel": lambda: 128 * int(t[0]) * 2
+            + 4 * 64 * int(t[0]) * 2 + 1024,
+            "bitonic_regs": lambda: (1 << int(t[1])) * 17 // 2,
+            "count_groups": lambda: bincount.group_tiles(12288, 4096, V_sort)
+            * V_sort * 4,
+            "scan_tiles": lambda: 0}[name]()
+    check(len(hopper) == 12 and all("registers" in r for r in hopper),
           f"ptxas report of the redesigned kernels: {hopper}")
     emit(phase="build-kernels", kernels=hopper,
          source="build.log of the library (nvcc -Xptxas -v)")
@@ -1039,6 +1122,44 @@ def main() -> int:
         held("bincount_tiles", got, bincount.bincount_tiles_plain(tiles, V),
              (T, tile_n, V))
         checked.append(["bincount_tiles", T, tile_n, V])
+    # The look-back's edges, from a generator of their own (the main path's
+    # keys stay as they were): T = 1, G and G + 1 tiles where the group size
+    # G changes with V, both sides of the route boundary, ids all outside
+    # [0, V), whole tiles of one bucket, and the two mixed; each call on the
+    # route group_tiles names.
+    gen_b = torch.Generator(device=dev)
+    gen_b.manual_seed(2)
+    edges = [(T, 1024, V, "random") for V in BT_EDGE_V
+             for G in [max(bincount.group_tiles(1, 1024, V), 1)]
+             for T in (1, G, G + 1)]
+    edges += [(12288, 4096, 2048, fill)
+              for fill in ("outside", "uniform", "mixed")]
+    for T, tile_n, V, fill in edges:
+        if fill == "random":
+            tiles = torch.randint(-2, V + 2, (T, tile_n), dtype=torch.int32,
+                                  device=dev, generator=gen_b)
+        else:
+            outside = torch.tensor([-5, -1, V, V + 7], dtype=torch.int32,
+                                   device=dev)[torch.randint(
+                                       0, 4, (T, tile_n), device=dev,
+                                       generator=gen_b)]
+            uniform = torch.randint(0, V, (T, 1), dtype=torch.int32,
+                                    device=dev, generator=gen_b)
+            tiles = {"outside": outside,
+                     "uniform": uniform.expand(T, tile_n).contiguous(),
+                     "mixed": torch.where(torch.rand(
+                         T, tile_n, device=dev, generator=gen_b) < 0.5,
+                         outside, uniform)}[fill]
+        route = ("single_pass" if bincount.group_tiles(T, tile_n, V)
+                 else "global")
+        before = dict(bincount.route_launches)
+        got = bincount.bincount_tiles_cuda(tiles, V)
+        torch.cuda.synchronize()
+        check(bincount.route_launches[route] == before[route] + 1,
+              f"bincount_tiles {T, tile_n, V}: not on the {route} route")
+        held("bincount_tiles", got, bincount.bincount_tiles_plain(tiles, V),
+             (T, tile_n, V, fill))
+        checked.append(["bincount_tiles", T, tile_n, V, fill, route])
 
     def unique_rows(rows, n, dtype, gen):
         # distinct keys per row (the network is not stable; the shuffle's
@@ -1153,7 +1274,8 @@ def main() -> int:
     launches = ops.launches()
     route = engine.route_log.snapshot()
     check(route == (2 * len(SEEDS), 0), f"main path routes {route}")
-    for name in ("bincount_tiles", "bitonic_sort"):
+    for name in ("bincount_tiles", "bitonic_sort",
+                 "bincount_tiles.single_pass"):
         check(launches[name] == 2 * len(SEEDS),
               f"{name} launched {launches[name]} times on the main path")
     want = torch.sort(x).values
@@ -1239,10 +1361,14 @@ def main() -> int:
         t["ops"] += nops
         per_call.append({"kernel": name, "shape": list(a.shape), "ms": kern,
                          "plain_ms": plain, "library_ms": library,
-                         "bytes": nbytes, "ops": nops})
+                         "bytes": nbytes, "ops": nops,
+                         "bound_ms": max(nbytes / mem_rate,
+                                         nops / ALU_RATE) * 1e3})
     emit(phase="kernel-timings", per_call=per_call,
          note="ms, plain_ms, library_ms and bound_ms in the summary are sums "
-              "over the two calls of one levels=1 query (entry, local-sort)")
+              "over the two calls of one levels=1 query (entry, local-sort); "
+              f"CUDA-event medians of {REPS}, each over {INNER} calls back "
+              "to back")
 
     # Whole queries as a user calls them: the seed's splitter draw is inside.
     sort_ms = {
@@ -1271,7 +1397,10 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "per_call": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                            "bound_ms", "library_ms")}
+                         for r in per_call if r["kernel"] == name]})
 
     tinyllama = lm_phases(torch, dev, mem_rate)
     gc.collect()
@@ -1332,7 +1461,7 @@ def main() -> int:
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"], "per_call": t["per_call"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ here: ``*_cuda``, which launches the hand-written kernel of
 ``csrc/bincount_tiles.cu`` or ``csrc/bincount.cu``, and ``*_plain``, plain
 PyTorch for the CPU and as the kernel's yardstick on the card.
 :mod:`repro_torch.kernels.ops` picks one by device.
+
+``bincount_tiles`` has two routes on the card: ``single_pass`` for V up to
+48 Ki buckets and fewer than 2^30 ids (one launch; blocks of
+:func:`group_tiles` tiles carry P across blocks by decoupled look-back) and
+``global`` otherwise (global atomics and a column scan over C).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from . import _build
 
 #: launches of each CUDA kernel since the last reset (ops.reset_launches)
 launches = {"bincount_tiles": 0, "bincount": 0}
+#: the bincount_tiles launches by route
+route_launches = {"single_pass": 0, "global": 0}
 
 Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -71,15 +78,25 @@ def bincount_tiles_cuda(tiles: torch.Tensor, n_buckets: int) -> Tables:
     C, P, F = (torch.empty((T, V), dtype=torch.int32, device=tiles.device)
                for _ in range(3))
     lib = _build.library()
-    scratch = torch.empty(lib.repro_bincount_tiles_scratch_elems(T, V),
-                          dtype=torch.int32, device=tiles.device)
+    scratch = torch.empty(lib.repro_bincount_tiles_scratch_bytes(T, tile_n, V),
+                          dtype=torch.uint8, device=tiles.device)
     stream = torch.cuda.current_stream(tiles.device).cuda_stream
     err = lib.repro_bincount_tiles(tiles.data_ptr(), T, tile_n, V,
                                    C.data_ptr(), P.data_ptr(), F.data_ptr(),
                                    scratch.data_ptr(), stream)
     _build.check(err, "bincount_tiles")
     launches["bincount_tiles"] += 1
+    route_launches["single_pass" if group_tiles(T, tile_n, V)
+                   else "global"] += 1
     return C, P, F
+
+
+def group_tiles(T: int, tile_n: int, n_buckets: int) -> int:
+    """Tiles one block of the single-pass route counts for a (T, tile_n)
+    id matrix over ``n_buckets`` (8 at 2048), or 0 where the kernel takes
+    the global route; asks the built library."""
+    return int(_build.library().repro_bincount_tiles_group(T, tile_n,
+                                                          n_buckets))
 
 
 def _check_ids(ids: torch.Tensor, n_buckets: int) -> None:

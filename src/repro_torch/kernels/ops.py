@@ -86,16 +86,22 @@ def bincount(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
 
 
 def launches() -> Dict[str, int]:
-    """CUDA launches of each kernel since the last :func:`reset_launches`."""
+    """CUDA launches of each kernel since the last :func:`reset_launches`,
+    and of each route of the kernels that have two, as ``kernel.route``."""
     return {**_bincount.launches,
             "bitonic_sort": _bitonic.launches,
             "flash_attention": _flash.launches,
             "ssm_scan": _ssm.launches,
-            "prefix_scan": _prefix.launches}
+            "prefix_scan": _prefix.launches,
+            **{f"bincount_tiles.{r}": n
+               for r, n in _bincount.route_launches.items()},
+            **{f"flash_attention.{r}": n
+               for r, n in _flash.route_launches.items()}}
 
 
 def reset_launches() -> None:
     _bincount.launches.update(bincount_tiles=0, bincount=0)
+    _bincount.route_launches.update({"single_pass": 0, "global": 0})
     _bitonic.launches = 0
     _flash.launches = 0
     _flash.route_launches.update(wgmma=0, cuda_core=0)

@@ -8,8 +8,12 @@ when ``exclusive``.  int32 sums wrap modulo 2^32, as JAX's do; an empty
 last axis returns x itself.
 
 :func:`prefix_scan_cuda` launches the hand-written kernel of
-``csrc/prefix_scan.cu``; :func:`prefix_scan_plain` is plain PyTorch, for the
-CPU and as the kernel's yardstick on the card.
+``csrc/prefix_scan.cu``: one pass over tiles of 4096 elements that carries
+the row sum across blocks by decoupled look-back.  Its int32 results are
+exact; its float32 results (float64 carry) are summed in an order that
+depends on timing, so they are not bitwise identical from run to run.
+:func:`prefix_scan_plain` is plain PyTorch, for the CPU and as the kernel's
+yardstick on the card.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from . import _build
 launches = 0
 
 _DTYPES = {torch.int32: 0, torch.float32: 1}
+#: elements of a row one block scans (kTile of csrc/prefix_scan.cu)
+TILE = 4096
 
 
 def _check(x: torch.Tensor) -> None:
@@ -55,6 +61,9 @@ def prefix_scan_cuda(x: torch.Tensor, exclusive: bool = False
     out = torch.empty_like(x)
     if rows == 0:
         return out
+    if rows * -(-n // TILE) >= 1 << 31:
+        raise ValueError(f"prefix_scan_cuda: {rows} rows of {n} make "
+                         f"2^31 or more tiles of {TILE}")
     lib = _build.library()
     code = _DTYPES[x.dtype]
     scratch = torch.empty(lib.repro_prefix_scan_scratch_bytes(rows, n, code),

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from .layers import Params, _dense_init, _full, cdtype, pdtype
@@ -177,7 +178,11 @@ class RWKVState(NamedTuple):
     x_chan: torch.Tensor      # (b, d) last input of channel mix
 
 
-def init_rwkv_state(cfg: ArchConfig, batch: int, device="cpu") -> RWKVState:
+def init_rwkv_state(cfg: ArchConfig, batch: int,
+                    device="cuda") -> RWKVState:
+    """Zeroed decode state on ``device``: the card unless the caller asks
+    for the CPU; raises without CUDA."""
+    device = as_device(device, "state")
     n_heads, hd = rwkv_dims(cfg)
     d = cfg.d_model
     return RWKVState(S=torch.zeros((batch, n_heads, hd, hd), device=device),

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from .layers import Params, _dense_init, _full, cdtype, pdtype
@@ -172,7 +173,10 @@ class MambaState(NamedTuple):
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int,
-                     device="cpu") -> MambaState:
+                     device="cuda") -> MambaState:
+    """Zeroed decode state on ``device``: the card unless the caller asks
+    for the CPU; raises without CUDA."""
+    device = as_device(device, "state")
     d_in, n_heads, d_state = ssm_dims(cfg)
     return MambaState(
         h=torch.zeros((batch, n_heads, d_state, SSM_HEAD), device=device),

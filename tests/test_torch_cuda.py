@@ -10,7 +10,12 @@ head dim and the two prefill shapes, within 2e-4 (float32) and 2e-2
 (bfloat16), and its launches counted by route; ``ssm_scan`` at the edge
 shapes and the zamba2 and RWKV6 prefill shapes within 2e-4; ``prefix_scan``
 exactly in int32 and, in float32, within twice ``torch.cumsum``'s own error
-against a float64 cumsum; ``bincount`` exactly.
+against a float64 cumsum; ``bincount`` exactly.  The two look-back kernels
+also at their edges: ``prefix_scan`` one below, at and above its tile,
+unaligned row tails and bases, a row of 4096 tiles, float32 of mixed
+magnitudes; ``bincount_tiles`` at T = 1, G and G + 1 where the group size G
+changes with V, across its route boundary, on ids all outside [0, V), and
+on the single-pass route at the shuffle's shape.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -269,3 +274,123 @@ def test_bincount_kernel_matches_plain(cuda, n, n_buckets):
 def test_bincount_kernel_all_dropped(cuda):
     ids = torch.tensor([-1] * 40 + [7] * 40, dtype=torch.int32, device=cuda)
     assert not ops.bincount(ids, 7).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_buckets", [2048, 2049, 4096, 4097, 6144, 8192,
+                                       8193, 12288, 16385, 48 * 1024,
+                                       48 * 1024 + 1])
+@pytest.mark.parametrize("which", ["1", "G", "G+1"])
+def test_bincount_tiles_kernel_at_group_edges(cuda, n_buckets, which):
+    # the group size G falls with V (8 at 2048, 1 from 8193); at 6144 and
+    # 12288 the histograms fill exactly 48 KB; above 48 Ki buckets the
+    # kernel takes its global route (G 0)
+    G = bincount.group_tiles(1, 1024, n_buckets)
+    assert G == {2048: 8, 2049: 7, 4096: 4, 4097: 3, 6144: 2, 8192: 2}.get(
+        n_buckets, 0 if n_buckets > 48 * 1024 else 1)
+    T = {"1": 1, "G": max(G, 1), "G+1": max(G, 1) + 1}[which]
+    tiles = torch.from_numpy(
+        RNG.integers(-2, n_buckets + 2, (T, 1024)).astype(np.int32)).to(cuda)
+    before = dict(bincount.route_launches)
+    got = ops.bincount_tiles(tiles, n_buckets)
+    torch.cuda.synchronize()
+    route = "single_pass" if G else "global"
+    assert bincount.route_launches[route] == before[route] + 1
+    for g, w in zip(got, bincount.bincount_tiles_plain(tiles, n_buckets)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,tile_n", [(12288, 4096), (9, 4095), (17, 6),
+                                      (1, 1)])
+def test_bincount_tiles_kernel_on_ignored_and_uniform_ids(cuda, T, tile_n):
+    # every id outside [0, V); then whole tiles of one bucket (a warp adds
+    # them once), then the two mixed
+    V = 2048
+    outside = torch.from_numpy(RNG.choice(
+        np.array([-5, -1, V, V + 7], np.int32), (T, tile_n))).to(cuda)
+    uniform = torch.from_numpy(np.repeat(
+        RNG.integers(0, V, (T, 1)).astype(np.int32), tile_n, 1)).to(cuda)
+    mixed = torch.where(torch.from_numpy(RNG.random((T, tile_n)) < 0.5)
+                        .to(cuda), outside, uniform)
+    for tiles in (outside, uniform, mixed):
+        got = ops.bincount_tiles(tiles, V)
+        torch.cuda.synchronize()
+        for g, w in zip(got, bincount.bincount_tiles_plain(tiles, V)):
+            assert torch.equal(g, w)
+    assert not ops.bincount_tiles(outside, V)[0].any()
+
+
+@pytest.mark.cuda
+def test_bincount_tiles_takes_the_single_pass_route_in_the_shuffle(cuda):
+    # the entry shuffle of a sort query at its main-path geometry: 2^24
+    # items into V = 2048 reducers, tiles of 4096 padded by -1
+    from repro_torch.core.kshuffle import kernel_shuffle
+    n, V = 1 << 24, 2048
+    dests = torch.randint(-1, V, (n,), dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    kernel_shuffle(dests, (dests,), V, 3 * n // V)
+    torch.cuda.synchronize()
+    got = ops.launches()
+    assert got["bincount_tiles"] == 1
+    assert got["bincount_tiles.single_pass"] == 1
+    assert got["bincount_tiles.global"] == 0
+    ops.reset_launches()
+    assert bincount.route_launches == {"single_pass": 0, "global": 0}
+
+
+def _scan_checks(x, exclusive):
+    got = ops.prefix_scan(x, exclusive=exclusive)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if x.dtype == torch.int32:
+        assert torch.equal(got, prefix_scan.prefix_scan_plain(x, exclusive))
+        return
+    exact = torch.cumsum(x.double(), -1) - (x.double() if exclusive else 0)
+    err = (got.double() - exact).abs().max().item()
+    own = (prefix_scan.prefix_scan_plain(x, exclusive).double()
+           - exact).abs().max().item()
+    assert err <= 2 * own + 2.0 ** -22 * exact.abs().max().item(), (err, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [
+    (3, 4095), (3, 4096), (3, 4097),              # one tile, and one more
+    (2, 8193), (2, 8194), (2, 8195),              # unaligned row tails
+    (5, 3 * 4096 + 4),
+    (1, 1 << 24),                # 4096 tiles: look-back past one warp's 32
+])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_prefix_scan_kernel_at_look_back_edges(cuda, rows, n, dtype,
+                                               exclusive):
+    gen = torch.Generator(device=cuda).manual_seed(rows * n)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 30), 1 << 30, (rows, n), dtype=dtype,
+                          device=cuda, generator=gen)
+    else:
+        x = torch.randn(rows, n, device=cuda, generator=gen)
+    _scan_checks(x, exclusive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_prefix_scan_kernel_on_an_unaligned_base(cuda, dtype):
+    # rows of a multiple of 4 whose base is 4 bytes past 16-byte alignment:
+    # the scalar loads and stores
+    flat = torch.arange(1 + 4 * 8192, device=cuda).to(dtype)
+    x = flat[1:].view(4, 8192)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    _scan_checks(x, False)
+    _scan_checks(x, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_prefix_scan_kernel_on_mixed_magnitudes(cuda, exclusive):
+    # float32 of magnitudes 1e-6 .. 1e6 and both signs, 64 tiles a row
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mag = 10.0 ** (12 * torch.rand(4, 1 << 18, device=cuda, generator=gen)
+                   - 6)
+    sign = torch.randint(0, 2, mag.shape, device=cuda, generator=gen) * 2 - 1
+    _scan_checks((mag * sign).float(), exclusive)

@@ -111,3 +111,20 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_params_from_numpy(to_numpy(build_model(cfg, device="cpu")
                                       .param_tree()), cfg)
+
+
+@pytest.mark.parametrize("arch,module,init", [
+    ("zamba2-1.2b", "ssm", "init_mamba_state"),
+    ("rwkv6-1.6b", "rwkv", "init_rwkv_state"),
+])
+def test_decode_state_inits_default_to_the_card(arch, module, init):
+    import importlib
+    from repro_torch.configs import get_config
+    fn = getattr(importlib.import_module(f"repro_torch.models.{module}"), init)
+    cfg = get_config(arch, reduced=True)
+    assert all(t.device.type == "cpu" for t in fn(cfg, 2, device="cpu"))
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in fn(cfg, 2))
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fn(cfg, 2)

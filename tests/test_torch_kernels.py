@@ -13,6 +13,7 @@ import torch
 from repro.kernels.bincount import bincount as jax_bincount
 from repro.kernels.bincount import bincount_tiles as jax_bincount_tiles
 from repro.kernels.bitonic_sort import bitonic_sort as jax_bitonic_sort
+from repro.kernels.prefix_scan import prefix_scan as jax_prefix_scan
 from repro_torch.kernels import (bincount, bitonic_sort, flash_attention, ops,
                                  prefix_scan, ref, ssm_scan)
 
@@ -43,6 +44,45 @@ def test_bincount_tiles_matches_jax(T, tile_n, n_buckets):
         assert g.dtype == torch.int32 and g.shape == (T, n_buckets), name
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
         np.testing.assert_array_equal(o.numpy(), np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("n,tile_n,n_buckets", [
+    (9 * 64 - 5, 64, 2048),     # T = 9: one group of 8 tiles and one more
+    (17 * 32, 32, 2048),        # T = 17, no padding
+    (7 * 128 + 1, 128, 2048),   # T = 8, a tail of one item
+    (3 * 64, 64, 4096),         # fewer buckets a group (V above 2048)
+])
+def test_bincount_tiles_kshuffle_padding_matches_jax(n, tile_n, n_buckets):
+    """Tiles cut from a flat dest vector as kshuffle cuts them: source
+    order, the tail padded with the "no item" sentinel -1."""
+    dests = RNG.integers(-1, n_buckets, n).astype(np.int32)
+    T = -(-n // tile_n)
+    tiles = np.pad(dests, (0, T * tile_n - n),
+                   constant_values=-1).reshape(T, tile_n)
+    want = jax_bincount_tiles(tiles, n_buckets, interpret=True)
+    got = ops.bincount_tiles(torch.from_numpy(tiles), n_buckets)
+    for w, g, name in zip(want, got, ("counts", "tile_prefix",
+                                      "bucket_offsets")):
+        assert g.dtype == torch.int32 and g.shape == (T, n_buckets), name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    np.testing.assert_array_equal((got[1][-1] + got[0][-1]).numpy(),
+                                  np.bincount(dests[dests >= 0],
+                                              minlength=n_buckets))
+
+
+@pytest.mark.parametrize("n", [4095, 4096, 4097])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_prefix_scan_int32_wraps_like_jax(n, exclusive):
+    """Rows one below, at and one above the kernel's 4096-element tile, of
+    int32 values whose sums wrap modulo 2^32."""
+    x = RNG.integers(-(1 << 30), 1 << 30, (3, n)).astype(np.int32)
+    want = jax_prefix_scan(x, exclusive=exclusive, interpret=True)
+    got = ops.prefix_scan(torch.from_numpy(x), exclusive=exclusive)
+    assert got.dtype == torch.int32 and got.shape == (3, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    wide = np.cumsum(x.astype(np.int64), axis=1) - (x if exclusive else 0)
+    assert (np.abs(wide) > 2**31).any()          # the sums do wrap
+    np.testing.assert_array_equal(got.numpy(), wide.astype(np.int32))
 
 
 def test_bincount_tiles_totals_match_jax_bincount():
@@ -114,7 +154,11 @@ def test_cpu_tensors_never_launch():
     ops.bincount(torch.zeros((4,), dtype=torch.int32), 3)
     assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0,
                               "flash_attention": 0, "ssm_scan": 0,
-                              "prefix_scan": 0, "bincount": 0}
+                              "prefix_scan": 0, "bincount": 0,
+                              "bincount_tiles.single_pass": 0,
+                              "bincount_tiles.global": 0,
+                              "flash_attention.wgmma": 0,
+                              "flash_attention.cuda_core": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -245,7 +245,7 @@ def test_mamba_decode_step_matches_jax():
 def test_mamba_state_and_init_state_match_jax():
     jcfg, tcfg = _cfgs("zamba2-1.2b")
     want = jssm.init_mamba_state(jcfg, 3)
-    got = tssm.init_mamba_state(tcfg, 3)
+    got = tssm.init_mamba_state(tcfg, 3, device="cpu")
     assert got._fields == want._fields
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape and g.dtype == torch.float32
@@ -351,7 +351,7 @@ def test_rwkv_decode_steps_match_jax():
     for name, g, w in zip(tst._fields, tst, jst):
         _close(g, w, what=name)
     want = jrwkv.init_rwkv_state(jcfg, 3)
-    got = trwkv.init_rwkv_state(tcfg, 3)
+    got = trwkv.init_rwkv_state(tcfg, 3, device="cpu")
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape and g.dtype == torch.float32
 
@@ -366,6 +366,6 @@ def test_rwkv_time_decode_continues_prefill_like_jax():
     full = trwkv.apply_rwkv_time(p, tcfg, _t(x), chunk=8)
     _, (S, x_last) = trwkv.apply_rwkv_time(p, tcfg, _t(x[:, :11]), chunk=8,
                                            return_state=True)
-    st = trwkv.init_rwkv_state(tcfg, 2)._replace(S=S, x_time=x_last)
+    st = trwkv.init_rwkv_state(tcfg, 2, device="cpu")._replace(S=S, x_time=x_last)
     y, _ = trwkv.rwkv_time_decode(p, tcfg, _t(x[:, 11:]), st)
     _close(y[:, 0], full[:, -1], 1e-3)
