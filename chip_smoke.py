@@ -29,10 +29,12 @@ exits non-zero:
               the same sample, every shuffle routed to the kernels, and both
               kernels launched, every ``bincount_tiles`` launch on its
               single-pass route; then a levels=2 query and exe.batch(4);
-6. timings  — CUDA-event medians (each over 5 calls back to back) of each
-              kernel, its plain version and its library yardstick at the
-              main path's inputs, beside the bound, per call; and
-              host-clock medians of whole sort queries;
+6. timings  — CUDA-event medians of each kernel, its plain version and its
+              library yardstick at the main path's inputs, beside the
+              bound, per call; ``bincount_tiles`` also on tiles whose ids
+              all name one bucket (the counting's worst case for shared-
+              memory atomics); and host-clock medians of whole sort
+              queries;
 7. lm-kernels — ``flash_attention`` against its plain version at TinyLlama's
               prefill shape (b 8, hq 32, hkv 4, s 2048, d 64, causal) in
               bfloat16 and float32, at the edge shapes of
@@ -118,7 +120,6 @@ N_MAIN = 1 << 24          # keys sorted by a main-path query
 M_MAIN = 8192             # reducer I/O bound: V = 2048 reducers
 SEEDS = (101, 202, 303)
 REPS = 7
-INNER = 5                 # calls back to back in one CUDA-event timing
 #: H100 memory rates (bytes/s), NVIDIA's data sheets; the name picks one
 MEM_RATES = (("PCIe", 2.0e12), ("NVL", 3.9e12), ("H100", 3.35e12))
 #: float32 rate outside the tensor cores (FLOP/s), the H100 SXM data sheet;
@@ -235,11 +236,8 @@ def ptxas_report(log: str, names) -> list:
     return rows
 
 
-def event_ms(fn, torch, reps: int = REPS, inner: int = INNER) -> float:
-    """Device time of one fn() in ms, by CUDA events, after a warm-up: the
-    median over ``reps`` of the time of ``inner`` calls back to back,
-    divided by ``inner``, so that the card does not wait on the host
-    between calls."""
+def event_ms(fn, torch, reps: int = REPS) -> float:
+    """Median device time of fn() in ms, by CUDA events, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -247,11 +245,10 @@ def event_ms(fn, torch, reps: int = REPS, inner: int = INNER) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -1018,8 +1015,7 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
         event_ms(lambda: torch.bincount(ids, minlength=V), torch),
         n * 4 + V * 4, n)
     emit(phase="ssm-timings", per_call=per_call, models=lm_timings,
-         note=f"kernel rows: CUDA-event medians of {REPS}, each over {INNER} "
-              "calls back to back, after a warm-up; "
+         note=f"kernel rows: CUDA-event medians of {REPS} after a warm-up; "
               "models: host-clock medians ending in a synchronize, one "
               "profiled prefill and a profiled window of "
               f"{DECODE_WINDOW} decode steps (per step); busy_share = "
@@ -1364,11 +1360,27 @@ def main() -> int:
                          "bytes": nbytes, "ops": nops,
                          "bound_ms": max(nbytes / mem_rate,
                                          nops / ALU_RATE) * 1e3})
+    # bincount_tiles at the main path's shapes on tiles whose ids all name
+    # one bucket: every shared-memory atomic of a warp hits one word
+    gen_u = torch.Generator(device=dev)
+    gen_u.manual_seed(3)
+    one_bucket = []
+    for name, a, b in recorder.calls:
+        if name != "bincount_tiles":
+            continue
+        tiles = torch.randint(0, b, (a.shape[0], 1), dtype=torch.int32,
+                              device=dev, generator=gen_u).expand(
+                                  a.shape).contiguous()
+        held(name, bincount.bincount_tiles_cuda(tiles, b),
+             bincount.bincount_tiles_plain(tiles, b), "one bucket a tile")
+        one_bucket.append({"shape": list(a.shape), "ms": event_ms(
+            lambda: bincount.bincount_tiles_cuda(tiles, b), torch)})
+        del tiles
     emit(phase="kernel-timings", per_call=per_call,
+         bincount_tiles_one_bucket=one_bucket,
          note="ms, plain_ms, library_ms and bound_ms in the summary are sums "
               "over the two calls of one levels=1 query (entry, local-sort); "
-              f"CUDA-event medians of {REPS}, each over {INNER} calls back "
-              "to back")
+              f"CUDA-event medians of {REPS} after a warm-up")
 
     # Whole queries as a user calls them: the seed's splitter draw is inside.
     sort_ms = {
