@@ -19,9 +19,9 @@
 //   G = kGroupBytes / (4 V), at most 8 (8 at V = 2048): the G histograms
 //   fill 64 KB of dynamic shared memory at most, room for 3 blocks an SM;
 // - counting: 16-byte streaming loads of the ids (read once), kUnroll in
-//   flight a thread across the group's rows (scalar ones when tile_n % 4 != 0 or the base is not
-//   16-byte aligned), shared-memory atomics; a warp whose 128 ids all name
-//   one bucket, and a thread whose 4 ids do, add once;
+//   flight a thread across the group's rows (scalar ones when
+//   tile_n % 4 != 0 or the base is not 16-byte aligned), one shared-memory
+//   atomic an id;
 // - a status word per (group, bucket) holds a flag in its top 2 bits (none,
 //   aggregate, inclusive) and a count in the other 30.  The group publishes
 //   its column totals as aggregates first (group 0 as inclusive prefixes),
@@ -139,44 +139,15 @@ __device__ __forceinline__ int word_of(unsigned flag, int count) {
   return (int)(flag << 30 | (unsigned)count);
 }
 
-__device__ __forceinline__ void hit(int* h, int id, unsigned V, int by) {
-  if ((unsigned)id < V) atomicAdd(h + id, by);
-}
-
-// Adds 4 ids of every lane of a full warp to the histogram h.
-__device__ __forceinline__ void add4(int* h, int4 q, unsigned V, int lane) {
-  const bool same = q.x == q.y && q.y == q.z && q.z == q.w;
-  const int lead = __shfl_sync(0xffffffffu, q.x, 0);
-  if (__all_sync(0xffffffffu, same && q.x == lead)) {
-    if (lane == 0) hit(h, lead, V, 128);
-  } else if (same) {
-    hit(h, q.x, V, 4);
-  } else {
-    hit(h, q.x, V, 1);
-    hit(h, q.y, V, 1);
-    hit(h, q.z, V, 1);
-    hit(h, q.w, V, 1);
-  }
-}
-
-// Adds one id of every lane of a full warp to the histogram h.
-__device__ __forceinline__ void add1(int* h, int id, unsigned V, int lane) {
-  const int lead = __shfl_sync(0xffffffffu, id, 0);
-  if (__all_sync(0xffffffffu, id == lead)) {
-    if (lane == 0) hit(h, lead, V, 32);
-  } else {
-    hit(h, id, V, 1);
-  }
+__device__ __forceinline__ void hit(int* h, int id, unsigned V) {
+  if ((unsigned)id < V) atomicAdd(h + id, 1);
 }
 
 // Counts the ids of the group's ng tiles (consecutive rows of tile_n ids
-// from row) into hist, tile g into hist + g V.  Every thread of the block
-// calls it; the loops are uniform across the block, so each warp is full in
-// add4 / add1.  With 16-byte loads the group's rows are one range of
-// vectors, kUnroll of them in flight a thread.
+// from row) into hist, tile g into hist + g V.  With 16-byte loads the
+// group's rows are one range of vectors, kUnroll of them in flight a thread.
 __device__ void count_group(const int* __restrict__ row, int ng,
-                            long long tile_n, unsigned V, int vec, int* hist,
-                            int lane) {
+                            long long tile_n, unsigned V, int vec, int* hist) {
   if (vec) {
     const int4* r4 = reinterpret_cast<const int4*>(row);
     const unsigned nv = (unsigned)(tile_n / 4);
@@ -191,7 +162,13 @@ __device__ void count_group(const int* __restrict__ row, int ng,
         g[u] = i < total ? i / nv : 0;
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) add4(hist + g[u] * V, q[u], V, lane);
+      for (int u = 0; u < kUnroll; ++u) {
+        int* h = hist + g[u] * V;
+        hit(h, q[u].x, V);
+        hit(h, q[u].y, V);
+        hit(h, q[u].z, V);
+        hit(h, q[u].w, V);
+      }
     }
     return;
   }
@@ -205,7 +182,7 @@ __device__ void count_group(const int* __restrict__ row, int ng,
         q[u] = i < tile_n ? __ldcs(r + i) : -1;
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) add1(hist + g * V, q[u], V, lane);
+      for (int u = 0; u < kUnroll; ++u) hit(hist + g * V, q[u], V);
     }
   }
 }
@@ -343,7 +320,7 @@ count_groups(const int* __restrict__ tiles, long long T, long long tile_n,
   const int ng = (int)min((long long)G, T - t0);
   unsigned* mine = word + k * V;
 
-  count_group(tiles + t0 * tile_n, ng, tile_n, (unsigned)V, vec, hist, lane);
+  count_group(tiles + t0 * tile_n, ng, tile_n, (unsigned)V, vec, hist);
   __syncthreads();
 
   // the group's column totals: aggregates (group 0: inclusive prefixes)
