@@ -32,9 +32,8 @@ exits non-zero:
 6. timings  — CUDA-event medians of each kernel, its plain version and its
               library yardstick at the main path's inputs, beside the
               bound, per call; ``bincount_tiles`` also on tiles whose ids
-              all name one bucket (the counting's worst case for shared-
-              memory atomics); and host-clock medians of whole sort
-              queries;
+              all name one bucket (every shared-memory atomic of a warp on
+              one word); and host-clock medians of whole sort queries;
 7. lm-kernels — ``flash_attention`` against its plain version at TinyLlama's
               prefill shape (b 8, hq 32, hkv 4, s 2048, d 64, causal) in
               bfloat16 and float32, at the edge shapes of
