@@ -89,12 +89,38 @@ exits non-zero:
 13. ssm-timings — CUDA-event medians of ``ssm_scan``, ``prefix_scan`` and
               ``bincount``, their plain versions and yardsticks, beside the
               bound, one row per shape, and the two models' timings and
-              profiles.
+              profiles;
+14. search  — ``multisearch_plan(65,536 queries, 1,024 pivots, M 64)``
+              (its steady rounds shuffle 1060 nodes x 65,536 slots);
+15. prefix-inclusive / prefix-exclusive — the physical
+              ``prefix_plan(2^24, 16,384)``, int32;
+16. funnel / crcw — ``funnel_write_plan(P 2^22, N 8, M 32,768, add)``,
+              int32, 1/16 of the processors silent, with the host time of
+              each level's slot fold; then ``simulate_crcw`` of a two-step
+              parallel max at the same P, N and M;
+17. bsp     — a two-superstep bucket sort of 2^23 float32 keys on 2048
+              processors at M 8192 through ``bsp_plan``;
+    Each of 14-17 runs on the kernel engine with the launch counts and the
+              route log set to 0 just before and read just after (every
+              shuffle on the kernels, each kernel once a shuffle, every
+              ``bincount_tiles`` launch single-pass), then on the dense
+              engine with the same draw: outputs and CostAccum equal, and
+              the outputs equal a library answer (``torch.searchsorted``,
+              ``torch.cumsum``, ``index_add_``, the max, ``torch.sort``);
+18. queues  — 2^22 items into 2048 FIFO rings of 16,384 (one queue 4
+              times the mean), drained by ``run_queued`` at M 2048 with a
+              one-hop forwarding f; the order in which each queue absorbs
+              equals a stable-sort answer; no kernel launches;
+19. search-timings — host-clock medians of 5 of each query of 14-17 on
+              the kernel engine, the dense engine and its library answer,
+              with its launches and the CUDA-event medians of its kernels.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``; the summary's
 ``flash_attention`` row also gives its launches by route and the float32
-route's time beside that route's bound.  A kernel's times and
+route's time beside that route's bound and SDPA's float32 time, and the
+``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
+sort, search, prefix, funnel, crcw and bsp runs).  A kernel's times and
 bound in the summary are sums over one call at each main-path shape: the
 two calls of a sort query, TinyLlama's and the hybrid's prefill attention,
 the two ``ssm_scan`` and ``prefix_scan`` shapes; the sort's, ``ssm_scan``'s,
@@ -184,6 +210,20 @@ SCAN_REPEATS = 5
 #: shapes of tests/test_kernels.py, and a histogram above shared memory
 BINCOUNT_MAIN = (1 << 24, 2048)
 BINCOUNT_EDGE = ((0, 8), (13, 64), (31, 5), (6, 100), (1 << 20, 100000))
+#: the searching and simulation paths, each on the kernel engine beside the
+#: dense one: multisearch_plan(queries, pivots, M) (f 32, L 2, K 3, V 1060;
+#: its steady rounds shuffle 1060 x 65,536 slots); prefix_plan(n, M,
+#: physical=True) (d 8192: 2048 leaf-parents, then the root); the write
+#: funnel (P, N, M) (d 16,384: level 0 is 2048 nodes x 16,384 slots, level
+#: 1 8 nodes); the BSP bucket sort (processors, M, keys: 4096 a processor);
+#: the FIFO queues (items, queues, ring capacity, M), no shuffle
+SEARCH = (65_536, 1_024, 64)
+PREFIX = (1 << 24, 16_384)
+FUNNEL = (1 << 22, 8, 32_768)
+BSP = (2_048, 8_192, 1 << 23)
+QUEUES = (1 << 22, 2_048, 16_384, 2_048)
+#: the hot queue's share: 4 times the mean
+QUEUE_SKEW = 4
 
 
 def emit(**rec) -> None:
@@ -451,13 +491,22 @@ def flash_timing(torch, dev, shape, mem_rate) -> dict:
     q32, k32, v32 = (a.float() for a in (q, k, v))
     kern32_ms = event_ms(lambda: flash.flash_attention_cuda(q32, k32, v32,
                                                             True), torch)
+    sdpa32 = lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, enable_gqa=True)
+    # the float32 yardstick's distance from the kernel, recorded beside
+    # its time (the kernel itself is held to its plain version)
+    sdpa32_err = (flash.flash_attention_cuda(q32, k32, v32, True)
+                  - sdpa32()).abs().max().item()
+    sdpa32_ms = event_ms(sdpa32, torch)
     del q32, k32, v32
     b, hq, hkv, s, _, d, _ = shape
     flops = 4 * b * hq * d * s * (s + 1) // 2     # unmasked pairs only
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     return {"shape": list(shape), "flash_ms": kern_ms,
             "flash_f32_ms": kern32_ms, "plain_ms": plain_ms,
-            "sdpa_ms": sdpa_ms, "flops": flops, "bytes": nbytes,
+            "sdpa_ms": sdpa_ms, "sdpa_f32_ms": sdpa32_ms,
+            "sdpa_f32_max_abs_err": sdpa32_err,
+            "flops": flops, "bytes": nbytes,
             "bytes_ms": nbytes / mem_rate * 1e3,
             "flops_ms_bf16": flops / BF16_RATE * 1e3,
             "flops_ms_f32": flops / ALU_RATE * 1e3}
@@ -1034,6 +1083,328 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
     return totals
 
 
+def same_accum(torch, a, b, ctx: str) -> None:
+    """Every CostAccum field equal, bit for bit."""
+    for name, x, y in zip(a._fields, a, b):
+        check(torch.equal(x, y), f"{ctx}: CostAccum.{name} {x} vs {y}")
+
+
+def accum_dict(a) -> dict:
+    return {k: float(v) for k, v in a._asdict().items()}
+
+
+SHUFFLE_KERNELS = ("bincount_tiles", "bitonic_sort",
+                   "bincount_tiles.single_pass")
+
+
+def kernel_query(torch, ops, engine, run, n_shuffles: int, ctx: str):
+    """``run(engine)`` once, with the launch counts and the engine's route
+    log set to 0 just before it and read just after: every shuffle routed
+    to the kernels, each kernel launched once a shuffle, every
+    ``bincount_tiles`` launch single-pass, no other kernel.  Returns the
+    result and the two kernels' launches."""
+    ops.reset_launches()
+    engine.route_log.reset()
+    res = run(engine)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    route = engine.route_log.snapshot()
+    check(route == (n_shuffles, 0),
+          f"{ctx}: routes {route}, want ({n_shuffles}, 0)")
+    for name in SHUFFLE_KERNELS:
+        check(launches[name] == n_shuffles,
+              f"{ctx}: {name} launched {launches[name]} times for "
+              f"{n_shuffles} shuffles")
+    others = {k: v for k, v in launches.items()
+              if v and not k.startswith(("bincount_tiles", "bitonic_sort"))}
+    check(not others, f"{ctx}: other kernels launched: {others}")
+    return res, {k: launches[k] for k in SHUFFLE_KERNELS}
+
+
+def n_plan_shuffles(plan) -> int:
+    return sum(s.rounds for s in plan.stages if s.shuffles)
+
+
+def search_phases(torch, dev, ops, engine, dense):
+    """Phases search, prefix, funnel, crcw, bsp and queues: the paper's
+    searching and simulation algorithms at full size on the kernel engine
+    and the dense one, with the same draw.  Returns the queries to time,
+    and the launches of the CRCW path (not timed)."""
+    from repro_torch.core import (BSPProgram, PRAMProgram, bsp_plan,
+                                  dequeue, enqueue, funnel_write_plan,
+                                  make_queues, multisearch_plan, prefix_plan,
+                                  run_queued, simulate_crcw)
+    from repro_torch.core import funnel
+    from repro_torch.core.mrmodel import fifo_rank
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    queries = []
+
+    def plan_query(name, plan, args, key, library, outputs, n_shuffles=None,
+                   **rec):
+        # kernel engine, then the dense engine on the same draw: outputs,
+        # CostAccum and the library answer all equal
+        exe, dense_exe = engine.compile(plan), dense.compile(plan)
+        if n_shuffles is None:
+            n_shuffles = n_plan_shuffles(plan)
+        t0 = time.perf_counter()
+        res, launches = kernel_query(
+            torch, ops, engine, lambda e: exe(*args, key=key), n_shuffles,
+            name)
+        first_s = time.perf_counter() - t0
+        ref = dense_exe(*args, key=key)
+        want = library()
+        torch.cuda.synchronize()
+        for label, got, dns, lib in outputs(res, ref, want):
+            check(torch.equal(got, dns), f"{name}: {label} kernel vs dense")
+            check(torch.equal(got, lib), f"{name}: {label} vs the library "
+                                         f"answer")
+        same_accum(torch, res.stats, ref.stats, name)
+        check(int(res.stats.dropped) == 0, f"{name}: dropped "
+                                           f"{int(res.stats.dropped)}")
+        emit(phase=name, schedule=[list(r) for r in plan.schedule()],
+             shuffles=n_shuffles, launches=launches,
+             route_log=[n_shuffles, 0], stats=accum_dict(res.stats),
+             first_query_s=first_s, **rec)
+        queries.append({"name": name, "exe": exe, "dense_exe": dense_exe,
+                        "args": args, "key": key, "library": library,
+                        "launches": launches})
+        return res
+
+    # -- search: Theorem 4.1 ---------------------------------------------
+    nq, m, M = SEARCH
+    q = torch.randn(nq, device=dev, generator=gen)
+    piv = torch.randn(m, device=dev, generator=gen)
+    plan = multisearch_plan(nq, m, M)
+    plan_query(
+        "search", plan, (q, piv), 5,
+        lambda: torch.searchsorted(torch.sort(piv).values, q,
+                                   side="left").to(torch.int32),
+        lambda r, d, w: [("buckets", r.buckets, d.buckets, w)],
+        n_queries=nq, n_pivots=m, M=M, V=plan.n_nodes,
+        answer="torch.searchsorted(torch.sort(pivots), queries)")
+
+    # -- prefix: Lemma 2.2, physical, int32 ------------------------------
+    n, M = PREFIX
+    x = torch.randint(-100, 100, (n,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    for inclusive in (True, False):
+        tag = "inclusive" if inclusive else "exclusive"
+        plan_query(
+            f"prefix-{tag}", prefix_plan(n, M, physical=True,
+                                         inclusive=inclusive), (x,), None,
+            (lambda inc=inclusive: torch.cumsum(x, 0, dtype=torch.int32)
+             - (0 if inc else x)),
+            lambda r, d, w: [("values", r.values, d.values, w)],
+            n=n, M=M, answer="torch.cumsum")
+
+    # -- funnel: Theorem 3.2, write funnel and two CRCW steps -------------
+    P, N, M = FUNNEL
+    addrs = torch.randint(0, N, (P,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    silent = torch.rand(P, device=dev, generator=gen) < 1 / 16
+    addrs = torch.where(silent, -1, addrs)
+    vals = torch.randint(-1000, 1000, (P,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    mem0 = torch.randint(-1000, 1000, (N,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    live = addrs >= 0
+    combine_s = []
+    fold = funnel._combine_mailbox_slots
+
+    def timed_fold(payload, valid, op):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fold(payload, valid, op)
+        torch.cuda.synchronize()
+        combine_s.append({"slots": list(payload.shape),
+                          "s": time.perf_counter() - t0})
+        return out
+
+    fplan = funnel_write_plan(P, N, M, torch.add, identity=0,
+                              dtype=torch.int32)
+    # one shuffle a funnel level; the root stage applies, it does not move
+    levels = sum(s.name.startswith("funnel-level") for s in fplan.stages)
+    funnel._combine_mailbox_slots = timed_fold
+    try:
+        plan_query(
+            "funnel", fplan, (addrs, vals, mem0), None,
+            lambda: mem0.clone().index_add_(0, addrs[live].long(),
+                                            vals[live]),
+            lambda r, d, w: [("memory", r.memory, d.memory, w)],
+            n_shuffles=levels, P=P, N=N, M=M, silent=int(silent.sum()),
+            answer="index_add_")
+    finally:
+        funnel._combine_mailbox_slots = fold
+    emit(phase="funnel-combine", levels=combine_s[:levels],
+         note="host seconds of _combine_mailbox_slots (one loop step a "
+              "slot), kernel engine, ending in a synchronize")
+
+    # the two-step parallel max of tests/test_paper_algorithms.py:172:
+    # step 0 writes every value to cell 0, step 1 reads the max and
+    # writes max - value
+    zeros = torch.zeros((P,), dtype=torch.int32, device=dev)
+    prog = PRAMProgram(read_addr=lambda s, t: zeros,
+                       compute=lambda s, v, t: (s, zeros,
+                                                s if t == 0 else v - s))
+    state = torch.randn(P, device=dev, generator=gen)
+    memory = torch.full((N,), -1e30, device=dev)
+    crcw = {}
+    for label, eng in (("kernel", engine), ("dense", dense)):
+        def run(e):
+            return simulate_crcw(prog, state, memory, 2, M, torch.maximum,
+                                 engine=e, with_accum=True)
+        if label == "kernel":
+            t0 = time.perf_counter()
+            out, launches = kernel_query(torch, ops, eng, run, 2 * levels,
+                                         "crcw")
+            crcw_s = time.perf_counter() - t0
+        else:
+            out = run(eng)
+        crcw[label] = out
+    top = state.max()
+    want = memory.clone()
+    want[0] = torch.maximum(top, top - state.min())
+    check(torch.equal(crcw["kernel"][1], crcw["dense"][1]),
+          "crcw: memory kernel vs dense")
+    check(torch.equal(crcw["kernel"][1], want), "crcw: memory vs the max")
+    same_accum(torch, crcw["kernel"][2], crcw["dense"][2], "crcw")
+    emit(phase="crcw", P=P, N=N, M=M, steps=2, launches=launches,
+         route_log=[2 * levels, 0], stats=accum_dict(crcw["kernel"][2]),
+         query_s=crcw_s)
+    paths = {"crcw": launches}
+    del crcw
+
+    # -- bsp: Theorem 3.1, a two-superstep bucket sort -------------------
+    Pp, M, n = BSP
+    keys = torch.rand(Pp, n // Pp, device=dev, generator=gen)
+    inf = torch.tensor(float("inf"), device=dev)
+
+    def superstep(t, ids, st, inbox, ok):
+        if t == 0:      # each key to processor floor(key * P)
+            dests = (st["keys"] * Pp).to(torch.int32).clamp_max(Pp - 1)
+            return st, dests, st["keys"]
+        # sort the inbox locally, send nothing
+        local = torch.sort(torch.where(ok, inbox, inf), dim=1).values
+        return ({"keys": local, "count": ok.sum(1)},
+                torch.full((Pp, 1), -1, dtype=torch.int32, device=dev),
+                torch.zeros((Pp, 1), device=dev))
+
+    def concat(r):
+        st = r.proc_state
+        slot = torch.arange(M, device=dev)[None, :]
+        return st["keys"][slot < st["count"][:, None]]
+
+    def bsp_outputs(r, d, w):
+        check(r.dropped_per_step.tolist() == [0, 0],
+              f"bsp: dropped {r.dropped_per_step.tolist()}")
+        check(torch.equal(r.proc_state["count"], d.proc_state["count"]),
+              "bsp: counts kernel vs dense")
+        return [("keys", concat(r), concat(d), w)]
+
+    plan_query("bsp", bsp_plan(BSPProgram(superstep), 2, M, Pp,
+                               torch.tensor(0.0)),
+               ({"keys": keys},), None,
+               lambda: torch.sort(keys.reshape(-1)).values, bsp_outputs,
+               processors=Pp, M=M, keys=n, answer="torch.sort")
+
+    # -- queues: Theorem 4.2, no shuffle ---------------------------------
+    n, V, cap, M = QUEUES
+    dests0 = torch.randint(1, V, (n,), dtype=torch.int32, device=dev,
+                           generator=gen)
+    hot = torch.randperm(n, device=dev, generator=gen)[:QUEUE_SKEW * (n // V)]
+    dests0[hot] = 0
+    fwd = torch.randint(0, V, (n,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    tmpl = {"id": torch.tensor(0, dtype=torch.int32),
+            "hop": torch.tensor(0, dtype=torch.int32)}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qs = make_queues(V, cap, tmpl, device=dev)
+    qs, overflow = enqueue(qs, dests0, {"id": ids, "hop": torch.zeros_like(
+        ids)})
+    sizes = qs.size.clone()
+    sink = []
+
+    def forward(r, node_ids, items, ok):
+        # originals hop once to fwd[id]; arrivals are absorbed, in order
+        hop = items["hop"]
+        sink.append((items["id"].clone(), ok & (hop == 1)))
+        dest = torch.where(ok & (hop == 0), fwd[items["id"].long()], -1)
+        return dest, {"id": items["id"], "hop": torch.ones_like(hop)}
+
+    qs = run_queued(forward, qs, M, n_rounds=64)
+    torch.cuda.synchronize()
+    queue_s = time.perf_counter() - t0
+    check(int(overflow) == 0 and int(qs.size.sum()) == 0,
+          f"queues: overflow {int(overflow)}, left {int(qs.size.sum())}")
+    check(int(sizes[0]) == QUEUE_SKEW * (n // V),
+          f"queues: hot queue {int(sizes[0])}")
+    got_ids = torch.stack([s[0] for s in sink])
+    absorbed = torch.stack([s[1] for s in sink])
+    r_idx, v_idx, s_idx = torch.nonzero(absorbed, as_tuple=True)
+    order = torch.argsort(v_idx, stable=True)     # (node, round, slot)
+    got = got_ids[r_idx, v_idx, s_idx][order]
+    # the stable-sort answer: an original of rank p in its first queue
+    # leaves in round p // M from slot p % M; each node absorbs its
+    # arrivals in the order they were enqueued: by round, source, slot
+    rank, _ = fifo_rank(dests0, V)
+    rank = rank.long()
+    key = (((fwd.long() * (cap // M + 1) + rank // M) * V + dests0.long())
+           * M + rank % M)
+    want = ids[torch.argsort(key, stable=True)]
+    check(torch.equal(got, want), "queues: FIFO order of the absorbed items")
+    check(torch.equal(v_idx[order].to(torch.int32), fwd[want.long()]),
+          "queues: absorbed at the wrong node")
+    _, _, left = dequeue(qs, M)
+    check(not bool(left.any()), "queues: items left after the drain")
+    launches = {k: v for k, v in ops.launches().items() if v}
+    check(not launches, f"queues launched kernels: {launches}")
+    emit(phase="queues", items=n, queues=V, capacity=cap, M=M,
+         hot_queue=int(sizes[0]), mean_queue=n / V,
+         max_other=int(sizes[1:].max()), rounds=len(sink),
+         host_s=queue_s, fifo="equal to the stable-sort answer")
+    return queries, paths
+
+
+def search_timings(torch, queries) -> list:
+    """Phase search-timings: host-clock medians of 5 after a warm-up of
+    each query on the kernel engine, on the dense engine and for its
+    library answer; its kernels' launches, and the CUDA-event medians of
+    those launches (the calls of one query recorded, then timed)."""
+    from repro_torch.core import kshuffle
+    from repro_torch.kernels import bincount, bitonic_sort, ops
+    rows = []
+    for qd in queries:
+        exe, dense_exe, args, key = (qd["exe"], qd["dense_exe"], qd["args"],
+                                     qd["key"])
+        recorder = Recorder(ops)
+        kshuffle._kops = recorder
+        try:
+            exe(*args, key=key)
+        finally:
+            kshuffle._kops = ops
+        torch.cuda.synchronize()
+        kern = {"bincount_tiles": 0.0, "bitonic_sort": 0.0}
+        for name, a, b in recorder.calls:
+            fn = (bincount.bincount_tiles_cuda if name == "bincount_tiles"
+                  else bitonic_sort.bitonic_sort_cuda)
+            kern[name] += event_ms(lambda: fn(a, b), torch)
+        del recorder
+        row = {"query": qd["name"],
+               "kernel_engine_ms": host_ms(lambda: exe(*args, key=key),
+                                           torch),
+               "dense_engine_ms": host_ms(lambda: dense_exe(*args, key=key),
+                                          torch),
+               "library_ms": host_ms(qd["library"], torch),
+               "launches": qd["launches"], "kernel_event_ms": kern}
+        rows.append(row)
+        emit(phase="search-timings", **row)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1267,6 +1638,7 @@ def main() -> int:
     results = [exe(x, key=seed) for seed in SEEDS]
     torch.cuda.synchronize()
     launches = ops.launches()
+    launches_sort = {k: launches[k] for k in SHUFFLE_KERNELS}
     route = engine.route_log.snapshot()
     check(route == (2 * len(SEEDS), 0), f"main path routes {route}")
     for name in ("bincount_tiles", "bitonic_sort",
@@ -1454,6 +1826,7 @@ def main() -> int:
             r: tinyllama["routes"][r] + sum(x["routes"][r] for x in lms)
             for r in ("wgmma", "cuda_core")},
         "f32_ms": sum(t["flash_f32_ms"] for t in parts),
+        "f32_library_ms": sum(t["sdpa_f32_ms"] for t in parts),
         "f32_bound_ms": max(bytes_ms * 2, sum(t["flops_ms_f32"]
                                               for t in parts))})
     launches = {"ssm_scan": sum(r["launches"]["ssm_scan"] for r in lms),
@@ -1473,6 +1846,21 @@ def main() -> int:
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
             "library_ms": t["library_ms"], "per_call": t["per_call"]})
+    # -- 14-19. the searching and simulation paths -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    queries, by_path = search_phases(torch, dev, ops, engine, dense)
+    rows = search_timings(torch, queries)
+    del queries
+    by_path = {"sort": launches_sort, **by_path}
+    for r in rows:
+        by_path[r["query"]] = r["launches"]
+    emit(phase="search-summary", seconds=time.perf_counter() - t0,
+         launches_by_path=by_path)
+    for row in summary[:2]:
+        row["launches_by_path"] = {path: n[row["name"]]
+                                   for path, n in by_path.items()}
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

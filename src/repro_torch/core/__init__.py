@@ -1,9 +1,14 @@
 """The paper's round machine in PyTorch: cost model, mailboxes and the
-Shuffle, the engines, plans and the §4.3 sample sort.
+Shuffle, the engines, plans, and the paper's sorting, searching and
+simulation algorithms (§2.1 prefix sums, §3.1 BSP, §3.2 funnels and CRCW,
+§4.1 multisearch, §4.2 queues, §4.3 sample sort).
 
 ``LocalEngine`` runs on the card unless given ``device="cpu"``; with
 ``shuffle_impl="kernel"`` (``get_engine("kernel")``) its Shuffle runs the
-hand-written CUDA kernels of :mod:`repro_torch.kernels`."""
+hand-written CUDA kernels of :mod:`repro_torch.kernels`.
+
+The names match the JAX package's ``repro.core`` except the geometry, the
+TPU ``HardwareModel`` and ``ShardedEngine``, which are not ported."""
 
 from .costmodel import CostAccum, MRCost, RoundStats, log_M, tree_height
 from .mrmodel import (Mailbox, ShuffleStats, empty_like, make_mailbox,
@@ -13,10 +18,21 @@ from .engine import (LocalEngine, MREngine, ReferenceEngine, RoundProgram,
 from .plan import (Plan, PlanStage, PlanState, account_stage, compute_stage,
                    custom_stage, entry_stage, execute_plan, round_stage)
 from .api import (BoundedCache, CacheInfo, Executable, compile_plan,
-                  pad_batch, sort_plan)
+                  pad_batch, sort_plan, multisearch_plan, prefix_plan,
+                  PrefixResult, funnel_write_plan, bsp_plan, BSPResult)
+from .prefix import (tree_prefix_sum, prefix_sum_opt, random_indexing,
+                     prefix_cost_bound, max_leaf_occupancy)
+from .funnel import (funnel_write, funnel_read, funnel_read_accum,
+                     scatter_combine_opt, FunnelResult, PRAMProgram,
+                     simulate_crcw)
+from .multisearch import (multisearch, multisearch_mr, multisearch_opt,
+                          brute_force_multisearch, MultisearchResult,
+                          EngineSearchResult)
 from .sortmr import (EngineSortResult, brute_force_sort, quantile_splitters,
-                     sample_sort_mr, sort_cost_bound, sort_opt,
+                     sample_sort, sample_sort_mr, sort_cost_bound, sort_opt,
                      sort_plan_escalating)
+from .bsp import BSPProgram, run_bsp
+from .queues import QueueState, make_queues, enqueue, dequeue, run_queued
 
 __all__ = [
     "CostAccum", "MRCost", "RoundStats", "log_M", "tree_height",
@@ -27,7 +43,17 @@ __all__ = [
     "Plan", "PlanStage", "PlanState", "account_stage", "compute_stage",
     "custom_stage", "entry_stage", "execute_plan", "round_stage",
     "BoundedCache", "CacheInfo", "Executable", "compile_plan", "pad_batch",
-    "sort_plan",
+    "sort_plan", "multisearch_plan", "prefix_plan", "PrefixResult",
+    "funnel_write_plan", "bsp_plan", "BSPResult",
+    "tree_prefix_sum", "prefix_sum_opt", "random_indexing",
+    "prefix_cost_bound", "max_leaf_occupancy",
+    "funnel_write", "funnel_read", "funnel_read_accum",
+    "scatter_combine_opt", "FunnelResult", "PRAMProgram", "simulate_crcw",
+    "multisearch", "multisearch_mr", "multisearch_opt",
+    "brute_force_multisearch", "MultisearchResult", "EngineSearchResult",
     "EngineSortResult", "brute_force_sort", "quantile_splitters",
-    "sample_sort_mr", "sort_cost_bound", "sort_opt", "sort_plan_escalating",
+    "sample_sort", "sample_sort_mr", "sort_cost_bound", "sort_opt",
+    "sort_plan_escalating",
+    "BSPProgram", "run_bsp",
+    "QueueState", "make_queues", "enqueue", "dequeue", "run_queued",
 ]

@@ -205,9 +205,17 @@ def deprecated_entry(old: str, new: str) -> None:
         DeprecationWarning, stacklevel=3)
 
 
+# ---------------------------------------------------------------------------
+# The query surface: every ported algorithm's plan builder, one import away.
+# ---------------------------------------------------------------------------
 from .sortmr import sort_plan                                    # noqa: E402
+from .multisearch import multisearch_plan                        # noqa: E402
+from .prefix import prefix_plan, PrefixResult                    # noqa: E402
+from .funnel import funnel_write_plan                            # noqa: E402
+from .bsp import bsp_plan, BSPResult                             # noqa: E402
 
 __all__ = [
     "CacheInfo", "BoundedCache", "Executable", "compile_plan", "pad_batch",
-    "sort_plan",
+    "sort_plan", "multisearch_plan", "prefix_plan", "PrefixResult",
+    "funnel_write_plan", "bsp_plan", "BSPResult",
 ]

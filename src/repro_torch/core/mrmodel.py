@@ -98,6 +98,42 @@ def materialize_mailbox(dests: torch.Tensor, payload: Payload,
     return Mailbox(payload=new_payload, valid=new_valid), max_sent
 
 
+def fifo_rank(flat_dest: torch.Tensor, n_nodes: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FIFO rank of each item among the items with its destination, in
+    flattened source order, and the sort key (``n_nodes`` for items with
+    dest < 0, which rank among themselves).  Both int32.  The dense
+    Shuffle's ranking, shared with the FIFO queues' enqueue."""
+    n = flat_dest.shape[0]
+    # Stable sort by destination; invalid items sort to the end.
+    sort_key = torch.where(flat_dest >= 0, flat_dest, n_nodes).to(torch.int32)
+    order = torch.argsort(sort_key, stable=True)
+    sorted_dest = sort_key[order]
+    # Rank of each item within its destination segment.
+    first_occurrence = torch.searchsorted(sorted_dest, sorted_dest,
+                                          side="left")
+    rank_sorted = (torch.arange(n, dtype=torch.int32, device=flat_dest.device)
+                   - first_occurrence.to(torch.int32))
+    # Scatter back to source order.
+    rank = torch.zeros((n,), dtype=torch.int32, device=flat_dest.device)
+    rank[order] = rank_sorted
+    return rank, sort_key
+
+
+def scatter_or_drop(base: torch.Tensor, index: torch.Tensor,
+                    ok: torch.Tensor, values: torch.Tensor,
+                    salt: torch.Tensor) -> torch.Tensor:
+    """A copy of ``base`` with ``base[index[i]] = values[i]`` wherever
+    ``ok[i]``: the drop-mode scatter PyTorch lacks.  The other writes land
+    in a spill area past the end, at ``salt`` modulo ``_SPILL`` (distinct
+    salts keep them from contending for one address), which is cut off."""
+    n = base.shape[0]
+    out = torch.cat([base, base.new_empty((_SPILL,) + tuple(base.shape[1:]))])
+    out[torch.where(ok, index.long(), n + (salt.long() & (_SPILL - 1)))] = \
+        values.to(base.dtype)
+    return out[:n]
+
+
 def shuffle(dests: torch.Tensor, payload: Payload, n_nodes: int,
             capacity: int) -> Tuple[Mailbox, ShuffleStats]:
     """The Shuffle step: deliver item j to node ``dests[j]``.
@@ -113,21 +149,8 @@ def shuffle(dests: torch.Tensor, payload: Payload, n_nodes: int,
     :func:`repro_torch.core.kshuffle.kernel_shuffle`.
     """
     flat_dest = dests.reshape(-1)
-    n = flat_dest.shape[0]
     valid = flat_dest >= 0
-    # Stable sort by destination; invalid items sort to the end.
-    sort_key = torch.where(valid, flat_dest, n_nodes).to(torch.int32)
-    order = torch.argsort(sort_key, stable=True)
-    sorted_dest = sort_key[order]
-    # Rank of each item within its destination segment.
-    first_occurrence = torch.searchsorted(sorted_dest, sorted_dest,
-                                          side="left")
-    rank_sorted = (torch.arange(n, dtype=torch.int32, device=dests.device)
-                   - first_occurrence.to(torch.int32))
-    # Scatter back to source order.
-    rank = torch.zeros((n,), dtype=torch.int32, device=dests.device)
-    rank[order] = rank_sorted
-
+    rank, sort_key = fifo_rank(flat_dest, n_nodes)
     box, max_sent = materialize_mailbox(dests, payload, flat_dest, valid,
                                         rank, n_nodes, capacity)
     # invalid items count into a sentinel bin n_nodes, cut off

@@ -166,6 +166,13 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def dtype_max(dtype: torch.dtype):
+    """The largest value of a torch dtype (the sort and search padding)."""
+    if dtype.is_floating_point:
+        return torch.finfo(dtype).max
+    return torch.iinfo(dtype).max
+
+
 def _check_inputs(plan: Plan, inputs: Tuple) -> None:
     """Fail loudly when runtime inputs disagree with the plan's baked-in
     statics (shapes/dtypes are part of the fingerprint, not of the data)."""

@@ -26,13 +26,8 @@ import numpy as np
 import torch
 
 from .costmodel import CostAccum, MRCost, log_M
-from .plan import Plan, account_stage, entry_stage, round_stage, torch_dtype
-
-
-def _dtype_max(dtype: torch.dtype):
-    if dtype.is_floating_point:
-        return torch.finfo(dtype).max
-    return torch.iinfo(dtype).max
+from .plan import (Plan, account_stage, dtype_max, entry_stage, round_stage,
+                   torch_dtype)
 
 
 def brute_force_sort(x: torch.Tensor, M: int,
@@ -68,6 +63,22 @@ def brute_force_sort(x: torch.Tensor, M: int,
             cost.round(items_sent=n * n_tiles, max_io=M)    # row-sum tree
         cost.round(items_sent=n, max_io=1)                  # permute by rank
     return out
+
+
+def sample_sort(x, M: int, key=None, cost: Optional[MRCost] = None,
+                _depth: int = 0) -> torch.Tensor:
+    """Deprecated: the §4.3 sample sort as one call.
+
+    Delegates to :func:`sort_plan_escalating` on the default engine, which
+    handles the w.h.p. overflow event as the paper does, by retrying with
+    more capacity.  ``cost`` absorbs the plan's functional accounting;
+    ``_depth`` is accepted for compatibility and ignored."""
+    from .api import deprecated_entry
+    deprecated_entry("sample_sort", "sort_plan")
+    res = sort_plan_escalating(x, M, key=key)
+    if cost is not None:
+        cost.absorb(res.stats)
+    return res.values
 
 
 def sort_plan_escalating(x, M: int, *, key=None,
@@ -233,7 +244,7 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
                                   capacity=group_cap(d),
                                   n_nodes=group_nodes(d) if shape else None))
 
-    big = _dtype_max(dtype)
+    big = dtype_max(dtype)
 
     def make_local_sort(carry):
         # Reducer-local sort round: sort within the mailbox, keep at self.

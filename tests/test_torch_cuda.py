@@ -394,3 +394,59 @@ def test_prefix_scan_kernel_on_mixed_magnitudes(cuda, exclusive):
                    - 6)
     sign = torch.randint(0, 2, mag.shape, device=cuda, generator=gen) * 2 - 1
     _scan_checks((mag * sign).float(), exclusive)
+
+
+def _plan_families():
+    """(name, plan, inputs, key) at small sizes: one query of each
+    searching and simulation plan family."""
+    from repro_torch.core import (BSPProgram, bsp_plan, funnel_write_plan,
+                                  multisearch_plan, prefix_plan)
+    rng = np.random.default_rng(77)
+    q = rng.normal(size=3000).astype(np.float32)
+    piv = rng.normal(size=200).astype(np.float32)
+    x = rng.integers(-100, 100, 5000).astype(np.int32)
+    addrs = rng.integers(-1, 9, 4000).astype(np.int32)
+    vals = rng.integers(-50, 50, 4000).astype(np.int32)
+
+    def step(t, ids, s, box, ok):
+        dests = (s * 64).to(torch.int32).clamp_max(63) if t == 0 else \
+            torch.full_like(s, -1, dtype=torch.int32)
+        return s, dests, s
+
+    keys = rng.random((64, 32)).astype(np.float32)
+    return [
+        ("multisearch", multisearch_plan(3000, 200, 16), (q, piv),
+         rng.permutation(3000)),
+        ("prefix", prefix_plan(5000, 64, physical=True), (x,), None),
+        ("funnel", funnel_write_plan(4000, 9, 64, torch.add, identity=0,
+                                     dtype="int32"),
+         (addrs, vals, np.zeros(9, np.int32)), None),
+        ("bsp", bsp_plan(BSPProgram(step), 2, 96, 64, torch.tensor(0.0)),
+         (keys,), None),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["multisearch", "prefix", "funnel", "bsp"])
+def test_plan_families_on_the_card_match_the_cpu(cuda, family):
+    """Each searching and simulation plan on the card's kernel engine: every
+    shuffle on the kernels, every ``bincount_tiles`` launch single-pass,
+    outputs and CostAccum equal to the CPU kernel engine's on the same
+    draw (explicit slots for the multisearch batches)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import get_engine
+    _, plan, inputs, key = next(f for f in _plan_families()
+                                if f[0] == family)
+    eng = get_engine("kernel", device=cuda)
+    ops.reset_launches()
+    got = eng.compile(plan)(*inputs, key=key)
+    torch.cuda.synchronize()
+    shuffles = eng.route_log.kernel
+    assert eng.route_log.dense == 0 and shuffles > 0
+    launches = ops.launches()
+    assert launches["bincount_tiles"] == launches["bitonic_sort"] == shuffles
+    assert launches["bincount_tiles.single_pass"] == shuffles
+    want = get_engine("kernel", device="cpu").compile(plan)(*inputs, key=key)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert g.device.type == "cuda"
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

@@ -28,8 +28,9 @@ def test_no_jax_or_repro_imports(path):
 def test_sorts_on_cpu_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` and ``import repro``
     fail, the port imports and sorts on the CPU through the kernel engine,
-    prefills and serves a reduced TinyLlama, and prefills and decodes a
-    reduced zamba2 and RWKV6."""
+    runs a multisearch, a physical prefix, a write funnel and a BSP plan
+    there, prefills and serves a reduced TinyLlama, and prefills and
+    decodes a reduced zamba2 and RWKV6."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -45,6 +46,27 @@ def test_sorts_on_cpu_with_jax_blocked():
         assert torch.equal(res.values, torch.sort(torch.from_numpy(x)).values)
         assert int(res.stats.dropped) == 0
         assert eng.route_log.snapshot() == (3, 0)
+        from repro_torch.core import (BSPProgram, bsp_plan, funnel_write_plan,
+                                      multisearch_plan, prefix_plan)
+        eng.route_log.reset()
+        q = np.random.default_rng(1).normal(size=300).astype(np.float32)
+        piv = np.sort(q[:40])
+        res = eng.compile(multisearch_plan(300, 40, 8))(q, piv, key=2)
+        assert res.buckets.tolist() == np.searchsorted(piv, q).tolist()
+        v = np.arange(-50, 450, dtype=np.int32)
+        res = eng.compile(prefix_plan(500, 8, physical=True))(v)
+        assert res.values.tolist() == np.cumsum(v).tolist()
+        addrs = np.arange(400, dtype=np.int32) % 7 - 1
+        res = eng.compile(funnel_write_plan(400, 6, 8, torch.add,
+                                            identity=0, dtype="int32"))(
+            addrs, np.ones(400, np.int32), np.zeros(6, np.int32))
+        assert res.memory.tolist() == np.bincount(addrs[addrs >= 0]).tolist()
+        step = lambda t, ids, s, box, ok: (s, ((ids + 1) % 8)[:, None],
+                                           s[:, None])
+        res = eng.compile(bsp_plan(BSPProgram(step), 2, 2, 8,
+                                   torch.tensor(0.0)))(np.zeros(8, np.float32))
+        assert res.dropped_per_step.tolist() == [0, 0]
+        assert eng.route_log.dense == 0 and eng.route_log.kernel > 0
         from repro_torch.configs import get_config
         from repro_torch.models import build_model
         from repro_torch.serve import Request, ServeConfig, ServeEngine
@@ -91,6 +113,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.models import build_model
     if torch.cuda.is_available():
         assert LocalEngine().device.type == "cuda"
+        from repro_torch.core import make_queues, random_indexing
+        assert make_queues(4, 8, torch.tensor(0.0)).head.device.type == "cuda"
+        assert random_indexing(16, 0, 8).device.type == "cuda"
         cfg = get_config("tinyllama-1.1b", reduced=True)
         assert build_model(cfg).device.type == "cuda"
         assert lm_params_from_numpy(to_numpy(build_model(cfg).param_tree()),
@@ -103,6 +128,11 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compile_plan(sort_plan(64, 8))
     default_engine.cache_clear()
+    from repro_torch.core import make_queues, random_indexing
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_queues(4, 8, torch.tensor(0.0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        random_indexing(16, 0, 8)
     cfg = get_config("tinyllama-1.1b", reduced=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(cfg)
