@@ -113,14 +113,42 @@ exits non-zero:
               equals a stable-sort answer; no kernel launches;
 19. search-timings — host-clock medians of 5 of each query of 14-17 on
               the kernel engine, the dense engine and its library answer,
-              with its launches and the CUDA-event medians of its kernels.
+              with its launches and the CUDA-event medians of its kernels;
+20. hull2d  — ``hull2d_plan(2^24, 8192)`` on standard-normal float32
+              points (V 2048: the entry, merge-0 into one node, the
+              finalize; ``monotone_chain`` once in each of the last two):
+              output and CostAccum equal to the dense engine's, and the
+              hull equal to ``scipy.spatial.ConvexHull``'s vertex set and,
+              on the card in float64, strictly convex, CCW from the
+              lex-min, made of input points and holding every input point;
+21. geometry-chain — ``monotone_chain``'s CUDA-event ms at both calls of
+              the query beside its bound; then against its plain version
+              (run on host copies), bit for bit, on 16 of merge-0's 2048
+              runs, the finalize's run and a run of 65,536 points that are
+              all extreme;
+22. hull3d / lp — ``hull3d_plan(128, 8192)`` (C(128, 3) facet processors,
+              three CRCW steps) against ``ConvexHull(points).vertices`` and
+              ``convex_hull_3d_oracle``; ``lp_plan(256, 3, 8192)`` against
+              ``scipy.optimize.linprog(method="highs")`` within 1e-4
+              relative; each on the kernel engine (every shuffle on the
+              kernels, counts set to 0 just before and read just after)
+              and the dense engine: outputs and CostAccum equal; the
+              geometry phase sets true float32 matmuls itself;
+23. geometry-timings — host-clock medians of 5 of each geometry query on
+              the kernel and the dense engine and of scipy's answer (the
+              2-D hull's scipy call once), with launches, and
+              ``monotone_chain``'s CUDA-event ms beside its bound.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``; the summary's
 ``flash_attention`` row also gives its launches by route and the float32
 route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
-sort, search, prefix, funnel, crcw and bsp runs).  A kernel's times and
+sort, search, prefix, funnel, crcw, bsp, hull2d, hull3d and lp runs).
+``monotone_chain``'s row sums the kernel, its plain version (one call on
+host copies: the slot loop takes seconds) and the bound over the checked
+main-path inputs (16 of merge-0's runs, the finalize's run), and gives the
+kernel's time at the query's own two calls as ``main_path_ms``.  A kernel's times and
 bound in the summary are sums over one call at each main-path shape: the
 two calls of a sort query, TinyLlama's and the hybrid's prefill attention,
 the two ``ssm_scan`` and ``prefix_scan`` shapes; the sort's, ``ssm_scan``'s,
@@ -224,6 +252,26 @@ BSP = (2_048, 8_192, 1 << 23)
 QUEUES = (1 << 22, 2_048, 16_384, 2_048)
 #: the hot queue's share: 4 times the mean
 QUEUE_SKEW = 4
+#: the geometry, each on the kernel engine beside the dense one, inputs from
+#: numpy's generator: hull2d_plan(n, M) on standard-normal points (V 2048,
+#: cap0 24,576, arity 4096: the entry, merge-0 into one node of 2^24 slots,
+#: the finalize; monotone_chain runs in merge-0 and the finalize);
+#: hull3d_plan(n, M) (P = C(128, 3) = 341,376 triples, write funnels of
+#: d 4096 and L 2: level 0 is 84 x 128 = 10,752 nodes x 4096 slots; at
+#: n 256 level 0 would have 172,800 nodes and go dense); lp_plan(n, d, M)
+#: (C(256, 3) = 2,763,520 bases, min-funnel level 0 675 nodes x 4096)
+HULL2D = (1 << 24, 8192)
+HULL3D = (128, 8192)
+LP = (256, 3, 8192)
+LP_C = (1.0, -0.5, 0.25)
+#: merge-0 runs the monotone_chain check holds against the plain version,
+#: and the points of a run whose every point is extreme: x = sinh(t),
+#: y = x^2 for t evenly spaced in [-20, 20], strictly convex in float32
+CHAIN_CHECKED = 16
+CHAIN_EXTREME = 65_536
+#: the LP optimum against scipy's HiGHS in float64: float32 bases solved
+#: and tested in float32 agree to a few float32 ulps of the vertex
+LP_RTOL = 1e-4
 
 
 def emit(**rec) -> None:
@@ -421,8 +469,9 @@ def lm_host_timings(torch, model, prompt, requests, prefill_reps: int = 5):
 
 
 class Recorder:
-    """Stands in for kshuffle's kernel module: records each kernel call's
-    inputs, then forwards to the real dispatch."""
+    """Stands in for the kernel module of kshuffle or of the 2-D hull's
+    chain: records each kernel call's inputs, then forwards to the real
+    dispatch."""
 
     def __init__(self, ops):
         self.ops = ops
@@ -435,6 +484,10 @@ class Recorder:
     def bitonic_sort(self, keys, values):
         self.calls.append(("bitonic_sort", keys, values))
         return self.ops.bitonic_sort(keys, values)
+
+    def monotone_chain(self, pts, counts):
+        self.calls.append(("monotone_chain", pts, counts))
+        return self.ops.monotone_chain(pts, counts)
 
 
 def rel_close(got, want, tol: float) -> bool:
@@ -1097,12 +1150,15 @@ SHUFFLE_KERNELS = ("bincount_tiles", "bitonic_sort",
                    "bincount_tiles.single_pass")
 
 
-def kernel_query(torch, ops, engine, run, n_shuffles: int, ctx: str):
+def kernel_query(torch, ops, engine, run, n_shuffles: int, ctx: str,
+                 others=None):
     """``run(engine)`` once, with the launch counts and the engine's route
     log set to 0 just before it and read just after: every shuffle routed
     to the kernels, each kernel launched once a shuffle, every
-    ``bincount_tiles`` launch single-pass, no other kernel.  Returns the
-    result and the two kernels' launches."""
+    ``bincount_tiles`` launch single-pass, and no other kernel but those
+    of ``others`` (name: launches), each exactly that often.  Returns the
+    result and the launches of the two shuffle kernels and of ``others``."""
+    others = dict(others or {})
     ops.reset_launches()
     engine.route_log.reset()
     res = run(engine)
@@ -1115,10 +1171,12 @@ def kernel_query(torch, ops, engine, run, n_shuffles: int, ctx: str):
         check(launches[name] == n_shuffles,
               f"{ctx}: {name} launched {launches[name]} times for "
               f"{n_shuffles} shuffles")
-    others = {k: v for k, v in launches.items()
-              if v and not k.startswith(("bincount_tiles", "bitonic_sort"))}
-    check(not others, f"{ctx}: other kernels launched: {others}")
-    return res, {k: launches[k] for k in SHUFFLE_KERNELS}
+    other = {k: v for k, v in launches.items()
+             if (v or k in others)
+             and not k.startswith(("bincount_tiles", "bitonic_sort"))}
+    check(other == others, f"{ctx}: other kernels launched: {other}, "
+                           f"want {others}")
+    return res, {**{k: launches[k] for k in SHUFFLE_KERNELS}, **others}
 
 
 def n_plan_shuffles(plan) -> int:
@@ -1402,6 +1460,320 @@ def search_timings(torch, queries) -> list:
                "launches": qd["launches"], "kernel_event_ms": kern}
         rows.append(row)
         emit(phase="search-timings", **row)
+    return rows
+
+
+def chain_work(pts, counts, h):
+    """Bytes and operations ``monotone_chain`` needs on these inputs: the
+    live points and the counts read once, the (V, L, 2) hulls and the
+    counts h written once; 8 flops a turn test, and about 4 c - h tests
+    for a run of c points whose hull has h (each chain tests once a push
+    and once a pop)."""
+    V, L, _ = pts.shape
+    nbytes = int(counts.sum()) * 8 + V * 4 + V * L * 8 + V * 4
+    nops = 8 * int((4 * counts.long() - h.long()).clamp_min(0).sum())
+    return nbytes, nops
+
+
+def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
+    """Phases hull2d, geometry-chain, hull3d and lp: the paper's geometry
+    at full size on the kernel engine and the dense one, with the same
+    draw, each answer held against scipy in float64 on the host; and
+    ``monotone_chain`` against its plain version at the 2-D hull's two
+    calls and on a run whose every point is extreme.  Returns the queries
+    to time, the chain's summary row and the launches of each path."""
+    import numpy as np
+    from scipy.optimize import linprog
+    from scipy.spatial import ConvexHull
+    from repro_torch.core import (convex_hull_3d_oracle, hull2d_plan,
+                                  hull3d_plan, lp_plan, tree_height)
+    from repro_torch.core.geometry import chain as geo_chain
+    from repro_torch.kernels import chain as chain_kernel
+    # the 3-D hull's facet test and the LP's feasibility product are
+    # float32 matmuls: true float32, set here rather than by earlier phases
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(23)
+    queries = []
+
+    def geometry_query(name, plan, args, key, n_shuffles, chain_launches,
+                       outputs, answer, run=None, **rec):
+        # kernel engine, then the dense engine on the same draw: outputs
+        # and CostAccum equal; then the answer against scipy
+        exe, dense_exe = engine.compile(plan), dense.compile(plan)
+        t0 = time.perf_counter()
+        res, launches = kernel_query(
+            torch, ops, engine, run or (lambda e: exe(*args, key=key)),
+            n_shuffles, name, others={"monotone_chain": chain_launches})
+        first_s = time.perf_counter() - t0
+        ref = dense_exe(*args, key=key)
+        torch.cuda.synchronize()
+        for label, got, dns in outputs(res, ref):
+            check(torch.equal(got, dns), f"{name}: {label} kernel vs dense")
+        same_accum(torch, res.stats, ref.stats, name)
+        check(int(res.stats.dropped) == 0, f"{name}: dropped "
+                                           f"{int(res.stats.dropped)}")
+        t0 = time.perf_counter()
+        found = answer(res)
+        scipy_answer = found.pop("scipy")
+        emit(phase=name, schedule=[list(r) for r in plan.schedule()],
+             shuffles=n_shuffles, launches=launches,
+             route_log=[n_shuffles, 0], stats=accum_dict(res.stats),
+             first_query_s=first_s, answer_s=time.perf_counter() - t0,
+             **found, **rec)
+        queries.append({"name": name, "exe": exe, "dense_exe": dense_exe,
+                        "args": args, "key": key, "launches": launches,
+                        "scipy": scipy_answer})
+        return res
+
+    # -- hull2d: §1.4 + §4.3, 2^24 points --------------------------------
+    n, M = HULL2D
+    pts_np = rng.standard_normal((n, 2), dtype=np.float32)
+    pts = torch.from_numpy(pts_np).to(dev)
+    plan = hull2d_plan(n, M)
+    # the rounds that chain: merge-0 and the finalize at full size
+    chain_stages = [st.name for st in plan.stages
+                    if st.name.startswith(("merge-", "finalize"))]
+    recorder = Recorder(ops)
+
+    def run_recorded(e):
+        geo_chain.ops = recorder
+        try:
+            return e.compile(plan)(pts, key=5)
+        finally:
+            geo_chain.ops = ops
+
+    def hull2d_answer(res):
+        # a certificate on the card in float64, then scipy's vertex set
+        h = int(res.count)
+        hull = res.points[:h].double()
+        p64 = pts.double()
+        nxt, nxt2 = hull.roll(-1, 0), hull.roll(-2, 0)
+        turn = ((nxt[:, 0] - hull[:, 0]) * (nxt2[:, 1] - nxt[:, 1])
+                - (nxt[:, 1] - hull[:, 1]) * (nxt2[:, 0] - nxt[:, 0]))
+        check(h >= 3 and bool((turn > 0).all()),
+              "hull2d: the hull is not strictly convex and counter-clockwise")
+        rest = hull[1:]
+        check(bool(((rest[:, 0] > hull[0, 0]) | ((rest[:, 0] == hull[0, 0])
+                                                 & (rest[:, 1] > hull[0, 1])))
+                   .all()), "hull2d: the hull does not start at its lex-min")
+        for v in hull:
+            check(bool((p64 == v).all(1).any()),
+                  f"hull2d: vertex {v.tolist()} is not an input point")
+        outside = min(float(((b[0] - a[0]) * (p64[:, 1] - a[1])
+                             - (b[1] - a[1]) * (p64[:, 0] - a[0])).min())
+                      for a, b in zip(hull, nxt))
+        check(outside >= 0, f"hull2d: an input point lies outside the hull "
+                            f"(cross {outside})")
+        t0 = time.perf_counter()
+        ch = ConvexHull(pts_np.astype(np.float64))
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        want = pts_np[ch.vertices].astype(np.float64)
+        got = hull.cpu().numpy()
+        check(np.array_equal(got[np.lexsort(got.T[::-1])],
+                             want[np.lexsort(want.T[::-1])]),
+              "hull2d: vertex set differs from scipy's ConvexHull")
+        return {"vertices": h, "min_inside_cross": outside,
+                "scipy": {"ms": scipy_ms, "calls": 1},
+                "answer": "scipy.spatial.ConvexHull's vertex set (float64); "
+                          "on the card in float64: strictly convex, CCW "
+                          "from the lex-min, every vertex an input point, "
+                          "every input point inside"}
+
+    geometry_query(
+        "hull2d", plan, (pts,), 5, n_plan_shuffles(plan), len(chain_stages),
+        lambda r, d: [("points", r.points, d.points),
+                      ("count", r.count, d.count)],
+        hull2d_answer, run=run_recorded, n=n, M=M, V=plan.n_nodes)
+    paths = {"hull2d": queries[-1]["launches"]}
+
+    # -- monotone_chain against its plain version ------------------------
+    # The kernel's time at each call of the query above (merge-0: 2048
+    # runs; the finalize: one run) beside its bound.  Then the kernel
+    # against its plain version, bit for bit, on CHAIN_CHECKED of merge-0's
+    # runs, on every later call, and on one run whose every point is
+    # extreme (the lower chain keeps them all, the upper chain pops at
+    # every step).  The plain loop runs on host copies: each of its steps is
+    # a few dozen small tensor operations and a host read, which cost more
+    # as launches on the card than on the host.
+    calls = [c[1:] for c in recorder.calls]
+    check(len(calls) == len(chain_stages),
+          f"hull2d: {len(calls)} monotone_chain calls recorded")
+
+    def timed(label, cp, cc, h):
+        nbytes, nops = chain_work(cp, cc, h)
+        return {"call": label, "shape": list(cp.shape),
+                "live_points": int(cc.sum()), "hull_points": int(h.sum()),
+                "ms": event_ms(
+                    lambda: chain_kernel.monotone_chain_cuda(cp, cc), torch),
+                "bytes": nbytes, "ops": nops,
+                "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3}
+
+    main_calls = [timed(label, cp, cc,
+                        chain_kernel.monotone_chain_cuda(cp, cc)[1])
+                  for label, (cp, cc) in zip(chain_stages, calls)]
+    pick = torch.linspace(0, calls[0][0].shape[0] - 1, CHAIN_CHECKED,
+                          device=dev).long()
+    t = torch.linspace(-20, 20, CHAIN_EXTREME, dtype=torch.float64,
+                       device=dev)
+    x = torch.sinh(t).float()
+    checked = ([(f"{chain_stages[0]}, {CHAIN_CHECKED} of its runs",
+                 (calls[0][0][pick].contiguous(), calls[0][1][pick]))]
+               + list(zip(chain_stages[1:], calls[1:]))
+               + [("all-extreme",
+                   (torch.stack([x, x * x], 1)[None].contiguous(),
+                    torch.tensor([CHAIN_EXTREME], dtype=torch.int32,
+                                 device=dev)))])
+    max_err = 0.0
+    per_call = []
+    for label, (cp, cc) in checked:
+        got = chain_kernel.monotone_chain_cuda(cp, cc)
+        got = [g.cpu() for g in got]
+        t0 = time.perf_counter()
+        want = chain_kernel.monotone_chain_plain(cp.cpu(), cc.cpu())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"monotone_chain {label}: shape/dtype")
+            if g.numel():
+                max_err = max(max_err,
+                              (g.double() - w.double()).abs().max().item())
+            check(torch.equal(g, w),
+                  f"monotone_chain {label}: differs from the plain version")
+        if label == "all-extreme":
+            check(int(got[1][0]) == CHAIN_EXTREME,
+                  f"monotone_chain: {int(got[1][0])} of {CHAIN_EXTREME} "
+                  f"points kept on the all-extreme run")
+        per_call.append({**timed(label, cp, cc, got[1].to(dev)),
+                         "plain_host_ms": plain_ms})
+    del recorder, calls, checked
+    emit(phase="geometry-chain", main_path=main_calls, checked=per_call,
+         max_abs_err=max_err,
+         note="kernel ms: CUDA-event medians of 7 after a warm-up, one call "
+              "per event pair; plain_host_ms: one call of the plain version "
+              "on host copies of the inputs, host clock; equal bit for bit")
+    # the summary row: kernel, plain version and bound on the same inputs,
+    # the checked calls of the main path; the kernel at the query's own
+    # calls beside it as main_path_ms
+    rows = per_call[:-1]
+    nbytes = sum(r["bytes"] for r in rows)
+    nops = sum(r["ops"] for r in rows)
+    chain_row = {
+        "name": "monotone_chain", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/monotone_chain.cu",
+        "replaces": "src/repro/core/geometry/chain.py:60",
+        "replaces_note": "no Pallas kernel: the JAX package computes the "
+                         "chain as this lax.scan, outside any kernel",
+        "launches": paths["hull2d"]["monotone_chain"],
+        "max_abs_err": max_err,
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_host_ms"] for r in rows),
+        "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3,
+        "bound_by": ("bytes" if nbytes / mem_rate >= nops / ALU_RATE
+                     else "operations"),
+        "library_ms": None,
+        "inputs": [r["call"] for r in rows],
+        "plain_note": "plain version on host copies, host clock, one call",
+        "main_path_ms": sum(r["ms"] for r in main_calls),
+        "main_path_bound_ms": max(
+            sum(r["bytes"] for r in main_calls) / mem_rate,
+            sum(r["ops"] for r in main_calls) / ALU_RATE) * 1e3,
+        "per_call": [{k: r.get(k) for k in ("call", "shape", "ms",
+                                             "plain_host_ms", "bound_ms")}
+                     for r in main_calls + per_call]}
+    del pts
+
+    # -- hull3d: Theorem 3.2 on C(128, 3) facet processors ----------------
+    n3, M3 = HULL3D
+    p3_np = rng.standard_normal((n3, 3), dtype=np.float32)
+    p3 = torch.from_numpy(p3_np).to(dev)
+    plan3 = hull3d_plan(n3, M3)
+    levels3 = tree_height(math.comb(n3, 3), max(2, M3 // 2))
+
+    def hull3d_answer(res):
+        got = np.flatnonzero(res.mask.cpu().numpy())
+        p64 = p3_np.astype(np.float64)
+        check(np.array_equal(got, np.sort(ConvexHull(p64).vertices)),
+              "hull3d: vertices differ from scipy's ConvexHull")
+        t0 = time.perf_counter()
+        check(np.array_equal(got, convex_hull_3d_oracle(p3_np)),
+              "hull3d: vertices differ from convex_hull_3d_oracle")
+        return {"vertices": int(got.size),
+                "oracle_s": time.perf_counter() - t0,
+                "scipy": {"fn": lambda: ConvexHull(p64), "calls": 5},
+                "answer": "scipy.spatial.ConvexHull(points).vertices and "
+                          "convex_hull_3d_oracle, float64"}
+
+    geometry_query(
+        "hull3d", plan3, (p3,), None, 3 * levels3, 0,
+        lambda r, d: [("mask", r.mask, d.mask)], hull3d_answer,
+        n=n3, M=M3, processors=math.comb(n3, 3), funnel_levels=levels3)
+    paths["hull3d"] = queries[-1]["launches"]
+
+    # -- lp: fixed-dimensional LP by Min-CRCW over C(256, 3) bases --------
+    nl, dl, Ml = LP
+    A_np = rng.standard_normal((nl, dl), dtype=np.float32)
+    b_np = rng.uniform(1, 2, nl).astype(np.float32)
+    c_np = np.asarray(LP_C, np.float32)
+    args = tuple(torch.from_numpy(v).to(dev) for v in (c_np, A_np, b_np))
+    plan_lp = lp_plan(nl, dl, Ml)
+    levels_lp = tree_height(math.comb(nl, dl), max(2, Ml // 2))
+
+    def highs():
+        return linprog(c_np.astype(np.float64), A_ub=A_np.astype(np.float64),
+                       b_ub=b_np.astype(np.float64),
+                       bounds=[(None, None)] * dl, method="highs")
+
+    def lp_answer(res):
+        ref = highs()
+        check(ref.status == 0, f"lp: HiGHS status {ref.status}")
+        obj = float(res.objective)
+        check(abs(obj - ref.fun) <= LP_RTOL * abs(ref.fun),
+              f"lp: objective {obj} vs HiGHS {ref.fun}")
+        return {"objective": obj, "highs_objective": float(ref.fun),
+                "x": res.x.tolist(), "highs_x": ref.x.tolist(),
+                "scipy": {"fn": highs, "calls": 5},
+                "answer": f"scipy.optimize.linprog(method='highs'), float64, "
+                          f"objective within {LP_RTOL} relative"}
+
+    geometry_query(
+        "lp", plan_lp, args, None, levels_lp, 0,
+        lambda r, d: [("x", r.x, d.x), ("objective", r.objective,
+                                        d.objective)],
+        lp_answer, n=nl, d=dl, M=Ml, bases=math.comb(nl, dl),
+        funnel_levels=levels_lp)
+    paths["lp"] = queries[-1]["launches"]
+    return queries, chain_row, paths
+
+
+def geometry_timings(torch, queries, chain_row) -> list:
+    """Phase geometry-timings: host-clock medians of 5 after a warm-up of
+    each query on the kernel engine and the dense engine, and of scipy's
+    answer on the host (the 2-D hull's scipy call is timed once, in its
+    check: a few seconds a call); the launches of each query, and for the
+    2-D hull ``monotone_chain``'s CUDA-event ms at its two calls beside
+    their bound."""
+    rows = []
+    for qd in queries:
+        exe, dense_exe, args, key = (qd["exe"], qd["dense_exe"], qd["args"],
+                                     qd["key"])
+        sp = qd["scipy"]
+        row = {"query": qd["name"],
+               "kernel_engine_ms": host_ms(lambda: exe(*args, key=key),
+                                           torch),
+               "dense_engine_ms": host_ms(lambda: dense_exe(*args, key=key),
+                                          torch),
+               "scipy_ms": sp["ms"] if "ms" in sp
+               else statistics.median(host_times(sp["fn"], torch)),
+               "scipy_calls": sp["calls"], "launches": qd["launches"]}
+        if qd["name"] == "hull2d":
+            row["monotone_chain"] = {
+                "ms": chain_row["main_path_ms"],
+                "bound_ms": chain_row["main_path_bound_ms"],
+                "launches": chain_row["launches"]}
+        rows.append(row)
+        emit(phase="geometry-timings", **row)
     return rows
 
 
@@ -1858,6 +2230,18 @@ def main() -> int:
         by_path[r["query"]] = r["launches"]
     emit(phase="search-summary", seconds=time.perf_counter() - t0,
          launches_by_path=by_path)
+    # -- 20-23. the geometry ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    queries, chain_row, geo_paths = geometry_phases(torch, dev, ops, engine,
+                                                    dense, mem_rate)
+    geometry_timings(torch, queries, chain_row)
+    del queries
+    emit(phase="geometry-summary", seconds=time.perf_counter() - t0,
+         launches_by_path=geo_paths)
+    by_path.update(geo_paths)
+    summary.append(chain_row)
     for row in summary[:2]:
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in by_path.items()}

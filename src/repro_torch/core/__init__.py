@@ -1,14 +1,15 @@
 """The paper's round machine in PyTorch: cost model, mailboxes and the
-Shuffle, the engines, plans, and the paper's sorting, searching and
-simulation algorithms (§2.1 prefix sums, §3.1 BSP, §3.2 funnels and CRCW,
-§4.1 multisearch, §4.2 queues, §4.3 sample sort).
+Shuffle, the engines, plans, and the paper's sorting, searching,
+simulation and geometry algorithms (§2.1 prefix sums, §3.1 BSP, §3.2
+funnels and CRCW, §4.1 multisearch, §4.2 queues, §4.3 sample sort, §1.4
+2-D and 3-D convex hulls and fixed-dimensional LP).
 
 ``LocalEngine`` runs on the card unless given ``device="cpu"``; with
 ``shuffle_impl="kernel"`` (``get_engine("kernel")``) its Shuffle runs the
 hand-written CUDA kernels of :mod:`repro_torch.kernels`.
 
-The names match the JAX package's ``repro.core`` except the geometry, the
-TPU ``HardwareModel`` and ``ShardedEngine``, which are not ported."""
+The names match the JAX package's ``repro.core`` except the TPU
+``HardwareModel`` and ``ShardedEngine``, which are not ported."""
 
 from .costmodel import CostAccum, MRCost, RoundStats, log_M, tree_height
 from .mrmodel import (Mailbox, ShuffleStats, empty_like, make_mailbox,
@@ -19,7 +20,8 @@ from .plan import (Plan, PlanStage, PlanState, account_stage, compute_stage,
                    custom_stage, entry_stage, execute_plan, round_stage)
 from .api import (BoundedCache, CacheInfo, Executable, compile_plan,
                   pad_batch, sort_plan, multisearch_plan, prefix_plan,
-                  PrefixResult, funnel_write_plan, bsp_plan, BSPResult)
+                  PrefixResult, funnel_write_plan, bsp_plan, BSPResult,
+                  hull2d_plan, hull3d_plan, lp_plan)
 from .prefix import (tree_prefix_sum, prefix_sum_opt, random_indexing,
                      prefix_cost_bound, max_leaf_occupancy)
 from .funnel import (funnel_write, funnel_read, funnel_read_accum,
@@ -33,6 +35,13 @@ from .sortmr import (EngineSortResult, brute_force_sort, quantile_splitters,
                      sort_plan_escalating)
 from .bsp import BSPProgram, run_bsp
 from .queues import QueueState, make_queues, enqueue, dequeue, run_queued
+from .geometry import (EngineHullResult, Hull3DResult, LPResult,
+                       convex_hull_2d, convex_hull_2d_mr, convex_hull_3d,
+                       convex_hull_3d_mr, convex_hull_3d_oracle,
+                       convex_hull_oracle, hull3d_round_bound,
+                       hull_round_bound, linear_program_mr,
+                       linear_program_nd, linear_program_oracle,
+                       lp_round_bound)
 
 __all__ = [
     "CostAccum", "MRCost", "RoundStats", "log_M", "tree_height",
@@ -45,6 +54,7 @@ __all__ = [
     "BoundedCache", "CacheInfo", "Executable", "compile_plan", "pad_batch",
     "sort_plan", "multisearch_plan", "prefix_plan", "PrefixResult",
     "funnel_write_plan", "bsp_plan", "BSPResult",
+    "hull2d_plan", "hull3d_plan", "lp_plan",
     "tree_prefix_sum", "prefix_sum_opt", "random_indexing",
     "prefix_cost_bound", "max_leaf_occupancy",
     "funnel_write", "funnel_read", "funnel_read_accum",
@@ -56,4 +66,9 @@ __all__ = [
     "sort_plan_escalating",
     "BSPProgram", "run_bsp",
     "QueueState", "make_queues", "enqueue", "dequeue", "run_queued",
+    "EngineHullResult", "Hull3DResult", "LPResult",
+    "convex_hull_2d", "convex_hull_2d_mr", "convex_hull_3d",
+    "convex_hull_3d_mr", "convex_hull_3d_oracle", "convex_hull_oracle",
+    "hull3d_round_bound", "hull_round_bound", "linear_program_mr",
+    "linear_program_nd", "linear_program_oracle", "lp_round_bound",
 ]

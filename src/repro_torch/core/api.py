@@ -213,9 +213,13 @@ from .multisearch import multisearch_plan                        # noqa: E402
 from .prefix import prefix_plan, PrefixResult                    # noqa: E402
 from .funnel import funnel_write_plan                            # noqa: E402
 from .bsp import bsp_plan, BSPResult                             # noqa: E402
+from .geometry.hull2d import hull2d_plan                         # noqa: E402
+from .geometry.hull3d import hull3d_plan                         # noqa: E402
+from .geometry.lp import lp_plan                                 # noqa: E402
 
 __all__ = [
     "CacheInfo", "BoundedCache", "Executable", "compile_plan", "pad_batch",
     "sort_plan", "multisearch_plan", "prefix_plan", "PrefixResult",
     "funnel_write_plan", "bsp_plan", "BSPResult",
+    "hull2d_plan", "hull3d_plan", "lp_plan",
 ]

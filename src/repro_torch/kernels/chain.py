@@ -1,0 +1,142 @@
+"""Andrew's monotone chain over a batch of runs — the reducer of the 2-D
+convex hull (:mod:`repro_torch.core.geometry.chain`), reached through
+:func:`repro_torch.kernels.ops.monotone_chain`.
+
+``monotone_chain(pts, counts)`` takes a (V, L, 2) float32 batch of runs,
+each lex-sorted by (x, y) and deduplicated, whose live points are a prefix
+of ``counts[v]`` slots, and returns
+
+- ``hull`` (V, L, 2) float32: each run's strict hull CCW from its lex-min,
+  the lower chain without its last point followed by the upper chain
+  without its last point, zero from slot ``h`` on;
+- ``h`` (V,) int32: the hull's vertex count (a run of 0 or 1 points is its
+  own hull).
+
+Pops on cross <= 0, so collinear points are left out — the JAX package's
+convention.  The JAX package computes this outside any Pallas kernel, as a
+``lax.scan`` with a ``lax.while_loop`` of pops (``src/repro/core/geometry/
+chain.py:31-61``); the port runs it on the card as the hand-written kernel
+of ``csrc/monotone_chain.cu`` (:func:`monotone_chain_cuda`), and
+:func:`monotone_chain_plain` is plain PyTorch, for the CPU and as the
+kernel's yardstick on the card.  The two are equal bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel since the last reset (ops.reset_launches)
+launches = 0
+
+
+def _check(pts: torch.Tensor, counts: torch.Tensor) -> None:
+    if pts.ndim != 3 or pts.shape[2] != 2:
+        raise ValueError(f"monotone_chain expects (V, L, 2) points, got "
+                         f"{tuple(pts.shape)}")
+    if counts.shape != pts.shape[:1]:
+        raise ValueError(f"monotone_chain expects ({pts.shape[0]},) counts, "
+                         f"got {tuple(counts.shape)}")
+    if pts.dtype != torch.float32:
+        raise ValueError(f"monotone_chain takes float32 points, got "
+                         f"{pts.dtype}")
+
+
+def _turn(ax, ay, bx, by, px, py) -> torch.Tensor:
+    """(b - a) x (p - a), each operation rounded on its own, in the JAX
+    package's operand order."""
+    return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+
+
+def monotone_chain_plain(pts: torch.Tensor, counts: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: one slot loop over the runs' live prefixes, vectorized
+    over 2V chains (each run's lower chain reads its points forward, its
+    upper chain backward), each step popping while any chain still turns,
+    as JAX's vmapped scan does.  The top two stack entries of each chain
+    are kept beside the stack, as the kernel keeps them in registers.
+    Reads the longest run on the host."""
+    _check(pts, counts)
+    V, L, _ = pts.shape
+    dev = pts.device
+    cnt = counts.long().clamp(0, L)
+    if V == 0 or L == 0:
+        return torch.zeros_like(pts), cnt.to(torch.int32)
+    lane_cnt = torch.cat([cnt, cnt])
+    upper = torch.arange(2 * V, device=dev) >= V
+    xs = torch.cat([pts[..., 0], pts[..., 0]])          # (2V, L) per lane
+    ys = torch.cat([pts[..., 1], pts[..., 1]])
+    sx, sy = torch.zeros_like(xs), torch.zeros_like(ys)  # the stacks
+    top = torch.zeros((2 * V,), dtype=torch.long, device=dev)
+    # stack[top - 2] and stack[top - 1] of each chain, where they exist
+    ax, ay, bx, by = (torch.zeros((2 * V,), dtype=pts.dtype, device=dev)
+                      for _ in range(4))
+    for i in range(int(cnt.max())):
+        live = i < lane_cnt
+        slot = torch.where(upper, lane_cnt - 1 - i, i).clamp(0, L - 1)
+        px = xs.gather(1, slot[:, None])[:, 0]
+        py = ys.gather(1, slot[:, None])[:, 0]
+        t = top
+        while True:
+            turning = live & (t >= 2) & (_turn(ax, ay, bx, by, px, py) <= 0)
+            if not bool(turning.any()):
+                break
+            t = t - turning.long()
+            bx, by = torch.where(turning, ax, bx), torch.where(turning, ay, by)
+            below = (t - 2).clamp_min(0)[:, None]
+            ax = torch.where(turning, sx.gather(1, below)[:, 0], ax)
+            ay = torch.where(turning, sy.gather(1, below)[:, 0], ay)
+        at = t.clamp_max(L - 1)[:, None]
+        sx.scatter_(1, at, torch.where(live[:, None], px[:, None],
+                                       sx.gather(1, at)))
+        sy.scatter_(1, at, torch.where(live[:, None], py[:, None],
+                                       sy.gather(1, at)))
+        ax, ay = torch.where(live, bx, ax), torch.where(live, by, ay)
+        bx, by = torch.where(live, px, bx), torch.where(live, py, by)
+        top = torch.where(live, t + 1, top)
+    stack = torch.stack([sx, sy], -1)
+    lo_top, up_top = top[:V], top[V:]
+    h = torch.where(cnt >= 2, lo_top + up_top - 2, cnt)
+    n_lower = (lo_top - 1).clamp_min(0)
+    i = torch.arange(L, device=dev)[None, :]
+    up_slot = (i - n_lower[:, None]).clamp(0, L - 1)
+    upper_chain = torch.gather(stack[V:], 1,
+                               up_slot[..., None].expand(V, L, 2))
+    hull = torch.where((i < n_lower[:, None])[..., None], stack[:V],
+                       upper_chain)
+    hull = torch.where((i < h[:, None])[..., None], hull, 0.0)
+    return hull, h.to(torch.int32)
+
+
+def monotone_chain_cuda(pts: torch.Tensor, counts: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/monotone_chain.cu`` on CUDA tensors (one block a run);
+    raises on any failure to build or launch.  A batch with no run or no
+    slot launches nothing."""
+    global launches
+    _check(pts, counts)
+    if pts.device.type != "cuda" or counts.device != pts.device \
+            or counts.dtype != torch.int32:
+        raise ValueError("monotone_chain_cuda takes CUDA float32 points and "
+                         f"int32 counts on one device, got {pts.dtype} on "
+                         f"{pts.device} and {counts.dtype} on "
+                         f"{counts.device}")
+    V, L, _ = pts.shape
+    if V == 0 or L == 0:
+        return torch.zeros_like(pts), torch.zeros_like(counts)
+    if V >= 1 << 31 or L >= 1 << 31:
+        raise ValueError(f"monotone_chain_cuda: {V} runs of {L} slots: both "
+                         f"must stay below 2^31")
+    pts, counts = pts.contiguous(), counts.contiguous()
+    hull = torch.empty_like(pts)
+    h = torch.empty_like(counts)
+    upper = torch.empty_like(pts)
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    err = _build.library().repro_monotone_chain(
+        pts.data_ptr(), counts.data_ptr(), V, L, hull.data_ptr(),
+        h.data_ptr(), upper.data_ptr(), stream)
+    _build.check(err, "monotone_chain")
+    launches += 1
+    return hull, h

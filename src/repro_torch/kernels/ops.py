@@ -12,6 +12,7 @@ import torch
 
 from . import bincount as _bincount
 from . import bitonic_sort as _bitonic
+from . import chain as _chain
 from . import flash_attention as _flash
 from . import prefix_scan as _prefix
 from . import ssm_scan as _ssm
@@ -85,6 +86,16 @@ def bincount(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
     return _bincount.bincount_plain(ids, n_buckets)
 
 
+def monotone_chain(pts: torch.Tensor, counts: torch.Tensor):
+    """Andrew's monotone chain over (V, L, 2) float32 lex-sorted,
+    deduplicated runs whose live points are a prefix of ``counts`` (V,)
+    int32 slots: (hulls (V, L, 2) CCW from each lex-min with zero padding,
+    vertex counts (V,) int32)."""
+    if _route(pts, "monotone_chain"):
+        return _chain.monotone_chain_cuda(pts, counts)
+    return _chain.monotone_chain_plain(pts, counts)
+
+
 def launches() -> Dict[str, int]:
     """CUDA launches of each kernel since the last :func:`reset_launches`,
     and of each route of the kernels that have two, as ``kernel.route``."""
@@ -93,6 +104,7 @@ def launches() -> Dict[str, int]:
             "flash_attention": _flash.launches,
             "ssm_scan": _ssm.launches,
             "prefix_scan": _prefix.launches,
+            "monotone_chain": _chain.launches,
             **{f"bincount_tiles.{r}": n
                for r, n in _bincount.route_launches.items()},
             **{f"flash_attention.{r}": n
@@ -107,3 +119,4 @@ def reset_launches() -> None:
     _flash.route_launches.update(wgmma=0, cuda_core=0)
     _ssm.launches = 0
     _prefix.launches = 0
+    _chain.launches = 0

@@ -15,7 +15,10 @@ also at their edges: ``prefix_scan`` one below, at and above its tile,
 unaligned row tails and bases, a row of 4096 tiles, float32 of mixed
 magnitudes; ``bincount_tiles`` at T = 1, G and G + 1 where the group size G
 changes with V, across its route boundary, on ids all outside [0, V), and
-on the single-pass route at the shuffle's shape.
+on the single-pass route at the shuffle's shape.  ``monotone_chain`` equals
+its plain version bit for bit on the 2-D hull's degenerate runs,
+integer-grid runs, Gaussian runs and a run whose every point is extreme;
+the three geometry plans on the kernel engine equal the dense engine.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -450,3 +453,126 @@ def test_plan_families_on_the_card_match_the_cpu(cuda, family):
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert g.device.type == "cuda"
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _chain_batches():
+    """name -> (V, L, 2) lex-sorted, deduplicated, compacted runs and their
+    counts, made on the CPU: the 2-D hull's degenerate cases, integer-grid
+    runs (every orientation test exact), Gaussian runs, and runs of 0, 1
+    and 2 points."""
+    from repro_torch.core.geometry.chain import _compact, sort_dedup_runs
+    rng = np.random.default_rng(99)
+    degenerate = [[[0, 0], [1, 1], [2, 2], [3, 3]],
+                  [[0, 0], [1, 1], [2, 2], [3, 3], [0, 0], [3, 3]],
+                  [[2, 2]] * 5, [[1, 2], [1, 2]], [[3, 4]],
+                  [[1, 1], [0, 0]], [[0, 0], [3, 0], [3, 3], [0, 3], [1, 1],
+                                     [2, 2]], []]
+    batches = {
+        "degenerate": [np.asarray(r, np.float32).reshape(-1, 2)
+                       for r in degenerate],
+        "grid": [rng.integers(-1024, 1024, (k, 2)).astype(np.float32)
+                 for k in (3, 100, 2000, 5000)]
+        + [rng.integers(-4, 4, (k, 2)).astype(np.float32)
+           for k in (50, 700)],
+        "gauss": [rng.normal(size=(k, 2)).astype(np.float32)
+                  for k in (1, 2, 17, 1500, 4096, 9000)],
+    }
+    out = {}
+    for name, runs in batches.items():
+        cap = max(len(r) for r in runs) + 3
+        pts = np.zeros((len(runs), cap, 2), np.float32)
+        valid = np.zeros((len(runs), cap), bool)
+        for v, r in enumerate(runs):
+            pts[v, :len(r)] = r
+            valid[v, :len(r)] = True
+        out[name] = _compact(*sort_dedup_runs(torch.from_numpy(pts),
+                                              torch.from_numpy(valid)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["degenerate", "grid", "gauss", "parabola"])
+def test_monotone_chain_kernel_matches_plain(cuda, name):
+    """Bit for bit, hulls and counts: the kernel's orientation test rounds
+    each operation on its own, as the plain version's does."""
+    from repro_torch.kernels import chain
+    if name == "parabola":
+        # integer points on y = x^2: every point is extreme, so the lower
+        # chain is the whole run and the upper chain pops at every step
+        x = np.arange(-2048, 2048, dtype=np.float32)
+        pts = torch.from_numpy(np.stack([x, x * x], 1))[None]
+        counts = torch.tensor([4096], dtype=torch.int32)
+    else:
+        pts, counts = _chain_batches()[name]
+    ops.reset_launches()
+    got_h, got_c = chain.monotone_chain_cuda(pts.to(cuda), counts.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launches()["monotone_chain"] == 1
+    want_h, want_c = chain.monotone_chain_plain(pts, counts)
+    assert torch.equal(got_c.cpu(), want_c)
+    assert torch.equal(got_h.cpu(), want_h)
+    if name == "parabola":
+        assert want_c.tolist() == [4096]
+
+
+@pytest.mark.cuda
+def test_monotone_chain_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import chain
+    pts = torch.zeros((2, 4, 2), device=cuda)
+    with pytest.raises(ValueError, match="int32 counts"):
+        chain.monotone_chain_cuda(pts, torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError, match="float32 points"):
+        chain.monotone_chain_cuda(pts.double(),
+                                  torch.zeros(2, dtype=torch.int32,
+                                              device=cuda))
+    ops.reset_launches()
+    hull, h = chain.monotone_chain_cuda(torch.zeros((3, 0, 2), device=cuda),
+                                        torch.zeros(3, dtype=torch.int32,
+                                                    device=cuda))
+    assert hull.shape == (3, 0, 2) and h.tolist() == [0, 0, 0]
+    assert ops.launches()["monotone_chain"] == 0
+
+
+def _geometry_plans():
+    """(name, plan, inputs, key) at small sizes, one of each geometry
+    plan family."""
+    from repro_torch.core import hull2d_plan, hull3d_plan, lp_plan
+    rng = np.random.default_rng(78)
+    A = rng.normal(size=(24, 3)).astype(np.float32)
+    return [
+        ("hull2d", hull2d_plan(6000, 64),
+         (rng.normal(size=(6000, 2)).astype(np.float32),), 3),
+        ("hull3d", hull3d_plan(16, 64),
+         (rng.normal(size=(16, 3)).astype(np.float32),), None),
+        ("lp", lp_plan(24, 3, 64),
+         (np.array([1.0, -0.5, 0.25], np.float32), A,
+          rng.uniform(1, 2, 24).astype(np.float32)), None),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["hull2d", "hull3d", "lp"])
+def test_geometry_plans_on_the_card_match_the_dense_engine(cuda, family):
+    """Each geometry plan on the card's kernel engine: every shuffle on the
+    kernels, ``monotone_chain`` launched once a merge or finalize round of
+    the 2-D hull, outputs and CostAccum equal to the card's dense engine
+    on the same draw."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import LocalEngine, get_engine
+    _, plan, inputs, key = next(f for f in _geometry_plans()
+                                if f[0] == family)
+    eng = get_engine("kernel", device=cuda)
+    ops.reset_launches()
+    got = eng.compile(plan)(*inputs, key=key)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    assert eng.route_log.dense == 0 and eng.route_log.kernel > 0
+    assert launches["bincount_tiles"] == eng.route_log.kernel
+    chain_rounds = sum(s.name.startswith(("merge", "finalize"))
+                       for s in plan.stages)
+    assert launches["monotone_chain"] == chain_rounds
+    assert (chain_rounds > 0) == (family == "hull2d")
+    want = LocalEngine(device=cuda).compile(plan)(*inputs, key=key)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)

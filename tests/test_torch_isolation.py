@@ -28,9 +28,9 @@ def test_no_jax_or_repro_imports(path):
 def test_sorts_on_cpu_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` and ``import repro``
     fail, the port imports and sorts on the CPU through the kernel engine,
-    runs a multisearch, a physical prefix, a write funnel and a BSP plan
-    there, prefills and serves a reduced TinyLlama, and prefills and
-    decodes a reduced zamba2 and RWKV6."""
+    runs a multisearch, a physical prefix, a write funnel, a BSP plan, a
+    2-D hull, a 3-D hull and an LP there, prefills and serves a reduced
+    TinyLlama, and prefills and decodes a reduced zamba2 and RWKV6."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -66,6 +66,26 @@ def test_sorts_on_cpu_with_jax_blocked():
         res = eng.compile(bsp_plan(BSPProgram(step), 2, 2, 8,
                                    torch.tensor(0.0)))(np.zeros(8, np.float32))
         assert res.dropped_per_step.tolist() == [0, 0]
+        from repro_torch.core import (convex_hull_3d_oracle,
+                                      convex_hull_oracle, hull2d_plan,
+                                      hull3d_plan, linear_program_oracle,
+                                      lp_plan)
+        p2 = np.random.default_rng(3).normal(size=(200, 2)).astype(np.float32)
+        res = eng.compile(hull2d_plan(200, 16))(p2, key=4)
+        h = int(res.count)
+        assert int(res.stats.dropped) == 0
+        assert np.array_equal(res.points[:h].numpy(), convex_hull_oracle(p2))
+        p3 = np.random.default_rng(5).normal(size=(9, 3)).astype(np.float32)
+        res = eng.compile(hull3d_plan(9, 8))(p3)
+        assert np.flatnonzero(res.mask.numpy()).tolist() == \
+            convex_hull_3d_oracle(p3).tolist()
+        rng = np.random.default_rng(6)
+        A = rng.normal(size=(9, 3)).astype(np.float32)
+        b = rng.uniform(1, 2, 9).astype(np.float32)
+        c = np.array([1.0, -0.5, 0.25], np.float32)
+        res = eng.compile(lp_plan(9, 3, 16))(c, A, b)
+        assert abs(float(res.objective)
+                   - linear_program_oracle(c, A, b)[1]) < 1e-4
         assert eng.route_log.dense == 0 and eng.route_log.kernel > 0
         from repro_torch.configs import get_config
         from repro_torch.models import build_model

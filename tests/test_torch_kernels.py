@@ -14,8 +14,9 @@ from repro.kernels.bincount import bincount as jax_bincount
 from repro.kernels.bincount import bincount_tiles as jax_bincount_tiles
 from repro.kernels.bitonic_sort import bitonic_sort as jax_bitonic_sort
 from repro.kernels.prefix_scan import prefix_scan as jax_prefix_scan
-from repro_torch.kernels import (bincount, bitonic_sort, flash_attention, ops,
-                                 prefix_scan, ref, ssm_scan)
+from repro_torch.kernels import (bincount, bitonic_sort, chain,
+                                 flash_attention, ops, prefix_scan, ref,
+                                 ssm_scan)
 
 RNG = np.random.default_rng(1234)
 
@@ -152,9 +153,12 @@ def test_cpu_tensors_never_launch():
     ops.ssm_scan(torch.ones((1, 3, 2)), torch.zeros((1, 3, 2)))
     ops.prefix_scan(torch.zeros((2, 4), dtype=torch.int32))
     ops.bincount(torch.zeros((4,), dtype=torch.int32), 3)
+    ops.monotone_chain(torch.zeros((2, 4, 2)),
+                       torch.tensor([4, 0], dtype=torch.int32))
     assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0,
                               "flash_attention": 0, "ssm_scan": 0,
                               "prefix_scan": 0, "bincount": 0,
+                              "monotone_chain": 0,
                               "bincount_tiles.single_pass": 0,
                               "bincount_tiles.global": 0,
                               "flash_attention.wgmma": 0,
@@ -174,3 +178,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         prefix_scan.prefix_scan_cuda(torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         bincount.bincount_cuda(torch.zeros((4,), dtype=torch.int32), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        chain.monotone_chain_cuda(torch.zeros((2, 4, 2)),
+                                  torch.zeros((2,), dtype=torch.int32))
