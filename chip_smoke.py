@@ -138,6 +138,31 @@ exits non-zero:
               the kernel and the dense engine and of scipy's answer (the
               2-D hull's scipy call once), with launches, and
               ``monotone_chain``'s CUDA-event ms beside its bound.
+24. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
+              Function) against autograd through the plain version, da and
+              dx for a seeded dh, at the zamba2 and rwkv6 training shapes
+              (8, 16, 262144) and (8, 32, 131072), T = 1, T off the unroll,
+              D off the block and bfloat16 inputs, within 2e-4 (float32)
+              and 2e-2 (bfloat16); CUDA-event medians of the kernel and of
+              the plain backward at the training shapes, beside the bound;
+25. train-parity — zamba2-1.2b and rwkv6-1.6b at full width and 2 layers,
+              float32 compute, TF32 off, one batch of 8 x 512: the loss and
+              every gradient leaf through the kernels against the same
+              model under ``plain_ssm_scan()`` (neither kernel launched
+              there), loss within 1e-4 relative, each leaf within 1e-3 of
+              its largest plain gradient;
+26. train   — zamba2-1.2b at full width and depth through the port's
+              ``Trainer`` (float32 params, bf16 compute, remat "full",
+              AdamW, 8 x 2048 tokens, warmup 2), 8 steps with the launch
+              counts reset just before and read just after (76 forward and
+              38 backward ``ssm_scan`` launches a step, no flash); losses
+              finite and the last below the first; host-clock ms of each
+              step, tokens/s, peak device memory, then one more step under
+              torch.profiler;
+27. train-resume — zamba2-1.2b at full width and 2 layers: 4 steps
+              against 2 steps, a checkpoint, a fresh ``Trainer`` resumed
+              from it and 2 more, final losses within 1e-5 (checkpoints in
+              a temporary directory, deleted afterwards).
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``; the summary's
@@ -148,7 +173,11 @@ sort, search, prefix, funnel, crcw, bsp, hull2d, hull3d and lp runs).
 ``monotone_chain``'s row sums the kernel, its plain version (one call on
 host copies: the slot loop takes seconds) and the bound over the checked
 main-path inputs (16 of merge-0's runs, the finalize's run), and gives the
-kernel's time at the query's own two calls as ``main_path_ms``.  A kernel's times and
+kernel's time at the query's own two calls as ``main_path_ms``.  The
+``ssm_scan`` row's launches add the training path's forward launches to
+the serving prefills' (``launches_by_path``), and ``ssm_scan.bwd`` is the
+backward kernel's row: its launches in phase train, its times and bound
+summed over the two training shapes.  A kernel's times and
 bound in the summary are sums over one call at each main-path shape: the
 two calls of a sort query, TinyLlama's and the hybrid's prefill attention,
 the two ``ssm_scan`` and ``prefix_scan`` shapes; the sort's, ``ssm_scan``'s,
@@ -272,6 +301,24 @@ CHAIN_EXTREME = 65_536
 #: the LP optimum against scipy's HiGHS in float64: float32 bases solved
 #: and tested in float32 agree to a few float32 ulps of the vertex
 LP_RTOL = 1e-4
+#: the training slice: zamba2-1.2b trained at full width and depth on
+#: batches of (global_batch, seq_len), TRAIN_STEPS steps; the 2-layer
+#: kernel-vs-plain gradient check and the resume check
+TRAIN_SHAPE = (8, 2048)
+TRAIN_STEPS = 8
+TRAIN_PARITY = (8, 512)
+#: ssm_scan backward (b, t, d, a dtype, x dtype): the zamba2 and rwkv6
+#: training shapes (8 x 2048 tokens: 16 chunks of 128, 32 of 64), then
+#: T = 1, T off the kernel's unroll of 8, D off its block of 256, and
+#: bfloat16 a, x or both
+SSM_BWD_MAIN = ((LM_B, 16, 262144, "float32", "float32"),
+                (LM_B, 32, 131072, "float32", "float32"))
+SSM_BWD_EDGE = ((2, 1, 16, "float32", "float32"),
+                (1, 13, 300, "float32", "float32"),
+                (2, 100, 300, "float32", "float32"),
+                (3, 64, 32, "bfloat16", "float32"),
+                (1, 16, 4, "float32", "bfloat16"),
+                (2, 33, 300, "bfloat16", "bfloat16"))
 
 
 def emit(**rec) -> None:
@@ -828,16 +875,20 @@ def ssm_kernel_phase(torch, dev) -> dict:
 @contextlib.contextmanager
 def plain_ssm_scan():
     """Within the block, the models' ``ops.ssm_scan`` calls run its plain
-    version; fails if the kernel was launched there all the same."""
+    version, and autograd differentiates it; fails if the forward or the
+    backward kernel was launched there all the same."""
     from repro_torch.kernels import ops, ssm_scan
-    kernel, before = ops.ssm_scan, ops.launches()["ssm_scan"]
+    keys = ("ssm_scan", "ssm_scan.bwd")
+    kernel = ops.ssm_scan
+    before = {k: ops.launches()[k] for k in keys}
     ops.ssm_scan = ssm_scan.ssm_scan_plain
     try:
         yield
     finally:
         ops.ssm_scan = kernel
-    check(ops.launches()["ssm_scan"] == before,
-          "the ssm_scan kernel ran where its plain version should have")
+    after = {k: ops.launches()[k] for k in keys}
+    check(after == before, f"an ssm_scan kernel ran where its plain version "
+                           f"should have: {before} -> {after}")
 
 
 def block_prefill_vs_decode(torch, dev, cfg, lp, chunk: int) -> dict:
@@ -1777,6 +1828,265 @@ def geometry_timings(torch, queries, chain_row) -> list:
     return rows
 
 
+def ssm_bwd_inputs(torch, dev, gen, shape):
+    """a in [0.8, 1), x and a cotangent dh, seeded, in the shape's dtypes."""
+    b, t, d, a_dt, x_dt = shape
+    a = (0.8 + 0.2 * torch.rand(b, t, d, device=dev, generator=gen)
+         ).to(getattr(torch, a_dt))
+    x = torch.randn(b, t, d, device=dev, generator=gen).to(getattr(torch,
+                                                                   x_dt))
+    dh = torch.randn(b, t, d, device=dev, generator=gen).to(x.dtype)
+    return a, x, dh
+
+
+def train_kernel_phase(torch, dev, mem_rate) -> dict:
+    """Phase train-kernels: ssm_scan's backward kernel (through the
+    autograd Function, forward kernel first) against autograd through the
+    plain version, da and dx for a seeded dh, at the two training shapes and
+    the edges, within 2e-4 in float32 and 2e-2 with a bfloat16 input; then
+    CUDA-event medians of the backward kernel and of the plain backward at
+    the training shapes, beside the bound.  Returns the summary totals."""
+    from repro_torch.kernels import ssm_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    checked, max_err = [], 0.0
+    for shape in SSM_BWD_MAIN + SSM_BWD_EDGE:
+        a, x, dh = ssm_bwd_inputs(torch, dev, gen, shape)
+        ka, kx = a.clone().requires_grad_(), x.clone().requires_grad_()
+        before = ssm_scan.bwd_launches
+        ssm_scan.SsmScan.apply(ka, kx).backward(dh)
+        torch.cuda.synchronize()
+        check(ssm_scan.bwd_launches == before + 1,
+              f"ssm_scan backward {shape}: kernel not launched")
+        pa, px = a.clone().requires_grad_(), x.clone().requires_grad_()
+        ssm_scan.ssm_scan_plain(pa, px).backward(dh)
+        tol = 2e-4 if shape[3:] == ("float32", "float32") else 2e-2
+        errs = []
+        # at T = 1, h does not depend on a: autograd leaves da unset
+        for name, got, want in (("da", ka.grad, pa.grad
+                                 if pa.grad is not None
+                                 else torch.zeros_like(pa)),
+                                ("dx", kx.grad, px.grad)):
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"ssm_scan backward {shape}: {name} {got.dtype} "
+                  f"{tuple(got.shape)}")
+            e = (got.float() - want.float()).abs().max().item()
+            check(rel_close(got, want, tol), f"ssm_scan backward {shape}: "
+                  f"{name} max abs err {e} over tolerance {tol}")
+            errs.append(e)
+        if shape[3:] == ("float32", "float32"):
+            max_err = max(max_err, *errs)
+        checked.append([*shape, *errs])
+        del a, x, dh, ka, kx, pa, px
+    per_call = []
+    for shape in SSM_BWD_MAIN:
+        a, x, dh = ssm_bwd_inputs(torch, dev, gen, shape)
+        h = ssm_scan.ssm_scan_cuda(a, x)
+        pa, px = a.clone().requires_grad_(), x.clone().requires_grad_()
+        hp = ssm_scan.ssm_scan_plain(pa, px)
+        nbytes = 5 * a.numel() * 4         # dh, a, h read; da, dx written
+        nops = 3 * a.numel()               # an FMA and a product a step
+        per_call.append({
+            "shape": list(shape[:3]),
+            "ms": event_ms(lambda: ssm_scan.ssm_scan_bwd_cuda(a, h, dh),
+                           torch),
+            "plain_ms": event_ms(lambda: torch.autograd.grad(
+                hp, (pa, px), dh, retain_graph=True), torch),
+            "library_ms": None, "bytes": nbytes, "ops": nops,
+            "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3})
+        del a, x, dh, h, pa, px, hp
+    emit(phase="train-kernels", checked=checked, max_abs_err_f32=max_err,
+         per_call=per_call,
+         columns="b t d a_dtype x_dtype da_err dx_err",
+         note=f"CUDA-event medians of {REPS} after a warm-up: the backward "
+              "kernel alone; plain_ms the backward of autograd through "
+              "ssm_scan_plain, its forward graph built once")
+    totals = {k: sum(r[k] for r in per_call)
+              for k in ("ms", "plain_ms", "bytes", "ops")}
+    return {"max_abs_err": max_err, "totals": totals, "per_call": per_call}
+
+
+def grads_of(torch, model, batch):
+    """(loss, {name: gradient}) of one loss_fn and backward."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def train_parity_phase(torch, dev) -> dict:
+    """Phase train-parity: zamba2-1.2b and rwkv6-1.6b at full width and 2
+    layers in float32 compute (TF32 off), one batch of TRAIN_PARITY: the
+    loss and every gradient leaf through the kernels against the same
+    model with ssm_scan's plain version; loss within 1e-4 relative, each
+    leaf max|d| <= 1e-3 max|g_plain|."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, _ in SSM_ARCHS:
+        cfg = get_config(arch, n_layers=2, compute_dtype="float32")
+        model = build_model(cfg, device=dev, seed=0)
+        b, s = TRAIN_PARITY
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 make_pipeline(cfg, b, s, seed=0).batch_at(0).items()}
+        ops.reset_launches()
+        loss_k, grads_k = grads_of(torch, model, batch)
+        launches = ops.launches()
+        with plain_ssm_scan():
+            loss_p, grads_p = grads_of(torch, model, batch)
+        # remat "full" (zamba2 always, rwkv6 under scan_layers): each
+        # layer's forward runs again in the backward
+        want = {"ssm_scan": 2 * cfg.n_layers,
+                "ssm_scan.bwd": cfg.n_layers, "flash_attention": 0}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{arch} train-parity launches {got}, want {want}")
+        check(math.isfinite(loss_k) and abs(loss_k - loss_p)
+              <= 1e-4 * abs(loss_p),
+              f"{arch}: loss through the kernels {loss_k}, plain {loss_p}")
+        leaves = {}
+        for name, gp in grads_p.items():
+            gk = grads_k[name]
+            e = (gk - gp).abs().max().item()
+            scale = gp.abs().max().item()
+            leaves[name] = [e, scale]
+            check(bool(torch.isfinite(gk).all()) and e <= 1e-3 * scale,
+                  f"{arch}: gradient {name} max abs diff {e}, "
+                  f"max |g_plain| {scale}")
+        worst = max(leaves.items(), key=lambda kv: kv[1][0]
+                    / max(kv[1][1], 1e-30))
+        emit(phase="train-parity", arch=arch, layers=cfg.n_layers,
+             batch=b, seq=s, loss_kernel=loss_k, loss_plain=loss_p,
+             launches=got, leaves=len(leaves),
+             worst_leaf={"name": worst[0], "max_abs_diff": worst[1][0],
+                         "max_abs_plain": worst[1][1]},
+             columns_leaves="name: max|g_kernel - g_plain|, max|g_plain|",
+             leaves_detail=leaves)
+        out[arch] = {"loss": [loss_k, loss_p], "launches": got}
+        del model, grads_k, grads_p, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, dev) -> dict:
+    """Phase train: zamba2-1.2b at full width and depth through the port's
+    Trainer (float32 params, bf16 compute, remat "full", AdamW), the
+    launch counts reset just before the TRAIN_STEPS steps and read just
+    after; every logged loss finite and the last below the first; host-clock
+    ms of each step, peak device memory, then one more step under
+    torch.profiler.  Returns the launches and the timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import Trainer, TrainConfig
+    cfg = get_config("zamba2-1.2b")
+    b, s = TRAIN_SHAPE
+    tc = TrainConfig(arch=cfg, global_batch=b, seq_len=s, steps=TRAIN_STEPS,
+                     warmup_steps=2, log_every=1, seed=0)
+    t0 = time.perf_counter()
+    trainer = Trainer(tc, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    # -- the main path: counts reset just before, read just after --------
+    ops.reset_launches()
+    step_ms = []
+    for k in range(1, TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        trainer.train(steps=k)              # logs (reads) the loss each step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_shared = len(range(0, cfg.n_layers, cfg.shared_attn_period))
+    want = {"ssm_scan": 2 * cfg.n_layers * TRAIN_STEPS,
+            "ssm_scan.bwd": cfg.n_layers * TRAIN_STEPS, "flash_attention": 0}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"train launches {got}, want {want} (per step: "
+          f"{2 * cfg.n_layers} forward, {cfg.n_layers} backward)")
+    others = {k: v for k, v in launches.items()
+              if k.split(".")[0] not in want and v}
+    check(not others, f"train: other kernels launched: {others}")
+    losses = [loss for _, loss in trainer.history]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train: last loss {losses[-1]} not "
+          f"below the first {losses[0]}")
+    steady = step_ms[2:]
+    median_ms = statistics.median(steady)
+    prof = profiled(lambda: trainer.train(steps=trainer.step + 1), torch,
+                    named={"ssm_scan": "ssm_scan_kernel",
+                           "ssm_scan.bwd": "ssm_scan_bwd_kernel"})
+    prof["busy_share"] = prof["device_ms"] / median_ms
+    for k in ("ssm_scan", "ssm_scan.bwd"):
+        prof[k]["share"] = prof[k]["ms"] / prof["device_ms"]
+    timing = {"step_ms": step_ms, "median_step_ms_3_to_8": median_ms,
+              "tokens_per_s": b * s / (median_ms / 1e3),
+              "peak_mem_bytes": peak, "build_s": build_s,
+              "profiled_step": prof}
+    emit(phase="train", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=b, seq=s, steps=TRAIN_STEPS,
+         shared_blocks_per_step=n_shared, remat=cfg.remat,
+         compute_dtype=cfg.compute_dtype, optimizer=cfg.optimizer,
+         losses=losses, launches=got, launches_per_step={
+             k: v // TRAIN_STEPS for k, v in got.items()}, **timing,
+         note="host-clock ms of each Trainer step ending in a synchronize "
+              "(the loss is read each step: log_every 1); median over "
+              "steps 3-8; one more step under torch.profiler, busy_share = "
+              "device ms over the median step")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "timing": timing}
+
+
+def train_resume_phase(torch, dev) -> dict:
+    """Phase train-resume: zamba2-1.2b at full width and 2 layers (bf16
+    compute, AdamW), TRAIN_SHAPE batches: 4 steps uninterrupted, against 2
+    steps, a checkpoint, a fresh Trainer that resumes from it and 2 more
+    steps; the final losses within 1e-5.  The checkpoints go to a
+    temporary directory, deleted afterwards."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import Trainer, TrainConfig
+    cfg = get_config("zamba2-1.2b", n_layers=2)
+    b, s = TRAIN_SHAPE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        def tc(ckpt_dir, every):
+            return TrainConfig(arch=cfg, global_batch=b, seq_len=s, steps=4,
+                               warmup_steps=2, log_every=1, seed=0,
+                               ckpt_dir=ckpt_dir, ckpt_every=every)
+        whole = Trainer(tc(None, 1000), device=dev).train()
+        first = Trainer(tc(d, 2), device=dev)
+        first.train(steps=2)
+        del first
+        t0 = time.perf_counter()
+        resumed = Trainer(tc(d, 1000), device=dev)
+        check(resumed.maybe_resume() and resumed.step == 2,
+              f"train-resume: resumed at step {resumed.step}")
+        resume_s = time.perf_counter() - t0
+        rest = resumed.train()
+    diff = abs(whole["final_loss"] - rest["final_loss"])
+    check(diff <= 1e-5, f"train-resume: final loss {rest['final_loss']} vs "
+          f"uninterrupted {whole['final_loss']}")
+    emit(phase="train-resume", arch=cfg.name, layers=cfg.n_layers, batch=b,
+         seq=s, uninterrupted=whole["history"], resumed=rest["history"],
+         final_loss_diff=diff, resume_s=resume_s)
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"final_loss_diff": diff}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2242,6 +2552,40 @@ def main() -> int:
          launches_by_path=geo_paths)
     by_path.update(geo_paths)
     summary.append(chain_row)
+    # -- 24-27. training --------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bwd = train_kernel_phase(torch, dev, mem_rate)
+    parity = train_parity_phase(torch, dev)
+    trained = train_phase(torch, dev)
+    resume = train_resume_phase(torch, dev)
+    emit(phase="train-summary", seconds=time.perf_counter() - t0,
+         parity=parity, launches=trained["launches"],
+         resume_final_loss_diff=resume["final_loss_diff"])
+    t = bwd["totals"]
+    bytes_ms, ops_ms = t["bytes"] / mem_rate * 1e3, t["ops"] / ALU_RATE * 1e3
+    summary.append({
+        "name": "ssm_scan.bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:65",
+        "vjp": "src/repro/kernels/ops.py:95 (_ssm_scan_bwd runs the "
+               "kernel reversed)",
+        "launches": trained["launches"]["ssm_scan.bwd"],
+        "max_abs_err": bwd["max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "per_call": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "library_ms")}
+                     for r in bwd["per_call"]]})
+    for row in summary:
+        if row["name"] == "ssm_scan":
+            # the forward kernel's launches on the training path as well
+            row["launches_by_path"] = {
+                "serving": row["launches"],
+                "train": trained["launches"]["ssm_scan"]}
+            row["launches"] += trained["launches"]["ssm_scan"]
     for row in summary[:2]:
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in by_path.items()}

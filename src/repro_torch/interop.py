@@ -9,7 +9,9 @@ params nest (``model.init`` of the JAX package, read into numpy) becomes
 the port's model of the config's family (:class:`~repro_torch.models.DecoderLM`,
 :class:`~repro_torch.models.HybridLM` or :class:`~repro_torch.models.RWKVLM`)
 with :func:`lm_params_from_numpy` and goes back with
-:func:`lm_params_to_numpy`.
+:func:`lm_params_to_numpy`.  An optimizer state (``AdamWState`` or
+``AdafactorState`` of either package) goes over with
+:func:`opt_state_from_numpy` and back with :func:`opt_state_to_numpy`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from ._tree import tree_map
 from .core.costmodel import CostAccum
 from .core.mrmodel import Mailbox
 from .models.transformer import model_class
+from .optim import AdafactorState, AdamWState
 
 _ACCUM_DTYPES = {"rounds": torch.int32, "communication": torch.float32,
                  "internal_time": torch.float32, "max_reducer_io": torch.int32,
@@ -81,3 +84,27 @@ def lm_params_to_numpy(model):
     """The model's params nest as numpy arrays, the JAX package's names and
     shapes kept: the inverse of :func:`lm_params_from_numpy`."""
     return to_numpy(model.param_tree())
+
+
+#: the optimizer states by their fields
+_OPT_STATES = {AdamWState._fields: AdamWState,
+               AdafactorState._fields: AdafactorState}
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's ``AdamWState`` or ``AdafactorState`` on ``device`` (the
+    card unless the caller passes ``device="cpu"``) from a state of either
+    package read into numpy: a NamedTuple with the fields (step, m, v) or
+    (step, vr, vc).  Dtypes are kept (``step`` int32, the moments
+    float32)."""
+    fields = tuple(getattr(state, "_fields", ()))
+    if fields not in _OPT_STATES:
+        raise ValueError(f"no optimizer state has the fields {fields}")
+    dev = as_device(device, "optimizer state")
+    return _OPT_STATES[fields](*[tree_from_numpy(v, dev) for v in state])
+
+
+def opt_state_to_numpy(state):
+    """The optimizer state's fields as numpy arrays, the NamedTuple and
+    the nests kept: the inverse of :func:`opt_state_from_numpy`."""
+    return to_numpy(state)

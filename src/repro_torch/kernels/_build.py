@@ -58,6 +58,8 @@ _SIGNATURES = {
     "repro_flash_attention_route": ([_I64, ctypes.c_int], ctypes.c_int),
     "repro_ssm_scan": ([_PTR, _PTR, _PTR, _I64, _I64, _I64, ctypes.c_int,
                         ctypes.c_int, _PTR], ctypes.c_int),
+    "repro_ssm_scan_bwd": ([_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64,
+                            ctypes.c_int, ctypes.c_int, _PTR], ctypes.c_int),
     "repro_prefix_scan_scratch_bytes": ([_I64, _I64, ctypes.c_int], _I64),
     "repro_prefix_scan": ([_PTR, _PTR, _I64, _I64, ctypes.c_int, ctypes.c_int,
                            _PTR, _PTR], ctypes.c_int),

@@ -45,8 +45,20 @@ def bitonic_sort(keys: torch.Tensor, values: torch.Tensor):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention of q (b, hq, s, d) over k, v (b, hkv, s, d), hq a
-    multiple of hkv (GQA); returns (b, hq, s, d) in q's dtype."""
+    multiple of hkv (GQA); returns (b, hq, s, d) in q's dtype.
+
+    Forward only on the card: neither package has a backward for the flash
+    kernel (a gradient through the JAX Pallas kernel fails too), so a CUDA
+    call that would need a gradient raises instead of returning a result
+    that carries none.  Train with ``attn_impl="xla"``, as the JAX package
+    does.  On the CPU the plain version is differentiable by autograd."""
     if _route(q, "flash_attention"):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash_attention on CUDA has no backward kernel (nor has "
+                "the JAX package's Pallas kernel): train with "
+                "attn_impl='xla', or call it under torch.no_grad()")
         return _flash.flash_attention_cuda(q, k, v, causal)
     return _flash.flash_attention_plain(q, k, v, causal)
 
@@ -55,18 +67,12 @@ def ssm_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + x_t along axis 1 of (batch, seq, d), float32
     carry, h in x's dtype.
 
-    Forward only on the card: the JAX entry point is differentiable through
-    a custom VJP whose backward kernel comes with the training slice, so a
-    CUDA call that would need a gradient raises instead of returning a
-    result that silently carries none.  On the CPU the plain version is
-    differentiable by autograd."""
+    Differentiable on both routes, as the JAX entry point is through its
+    custom VJP: on the card the forward and the backward are the two
+    kernels of ``csrc/ssm_scan.cu`` (:class:`~.ssm_scan.SsmScan`); on the
+    CPU the plain version is differentiated by autograd."""
     if _route(x, "ssm_scan"):
-        if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
-            raise NotImplementedError(
-                "ssm_scan on CUDA is forward only: its backward kernel comes "
-                "with the training slice of the port; call it under "
-                "torch.no_grad() or on inputs that do not require grad")
-        return _ssm.ssm_scan_cuda(a, x)
+        return _ssm.SsmScan.apply(a, x)
     return _ssm.ssm_scan_plain(a, x)
 
 
@@ -98,11 +104,14 @@ def monotone_chain(pts: torch.Tensor, counts: torch.Tensor):
 
 def launches() -> Dict[str, int]:
     """CUDA launches of each kernel since the last :func:`reset_launches`,
-    and of each route of the kernels that have two, as ``kernel.route``."""
+    and of each route of the kernels that have two, as ``kernel.route``.
+    ``ssm_scan`` counts the forward kernel and ``ssm_scan.bwd`` the
+    backward kernel apart from it."""
     return {**_bincount.launches,
             "bitonic_sort": _bitonic.launches,
             "flash_attention": _flash.launches,
             "ssm_scan": _ssm.launches,
+            "ssm_scan.bwd": _ssm.bwd_launches,
             "prefix_scan": _prefix.launches,
             "monotone_chain": _chain.launches,
             **{f"bincount_tiles.{r}": n
@@ -118,5 +127,6 @@ def reset_launches() -> None:
     _flash.launches = 0
     _flash.route_launches.update(wgmma=0, cuda_core=0)
     _ssm.launches = 0
+    _ssm.bwd_launches = 0
     _prefix.launches = 0
     _chain.launches = 0

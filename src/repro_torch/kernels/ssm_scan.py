@@ -8,9 +8,13 @@ and ``h[:, -1] = 0``, the carry in float32.
 
 :func:`ssm_scan_cuda` launches the hand-written kernel of
 ``csrc/ssm_scan.cu`` (a and x float32 or bfloat16); :func:`ssm_scan_plain`
-is plain PyTorch, for the CPU and as the kernel's yardstick on the card.
-:func:`repro_torch.kernels.ops.ssm_scan` picks one by device.  Forward only:
-the backward kernel comes with the training slice of the port.
+is plain PyTorch, for the CPU and as the kernel's yardstick on the card,
+and differentiable by autograd.  :class:`SsmScan` is the differentiable
+kernel: its forward launches ``ssm_scan_cuda`` and saves a and h, its
+backward launches the adjoint kernel (:func:`ssm_scan_bwd_cuda`), the
+counterpart of the JAX package's custom VJP
+(``src/repro/kernels/ops.py:85-116``).
+:func:`repro_torch.kernels.ops.ssm_scan` picks one by device.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from . import _build
 
 #: launches of the CUDA kernel since the last reset (ops.reset_launches)
 launches = 0
+#: launches of the backward kernel since the last reset
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,3 +73,53 @@ def ssm_scan_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _build.check(err, "ssm_scan")
     launches += 1
     return h
+
+
+def ssm_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """Launch the backward kernel of ``csrc/ssm_scan.cu``: for h =
+    ssm_scan(a, x) and a cotangent dh (x's dtype), returns (da in a's
+    dtype, dx in x's dtype) with g_t = dh_t + a_{t+1} g_{t+1} (a_T = 1),
+    dx_t = g_t, da_t = g_t h_{t-1} (h_{-1} = 0), g in float32.  Raises on
+    an unsupported dtype and on any failure to build or launch."""
+    global bwd_launches
+    _check(a, h)
+    if h.shape != dh.shape or h.dtype != dh.dtype:
+        raise ValueError(f"ssm_scan backward: dh {tuple(dh.shape)} "
+                         f"{dh.dtype} does not match h {tuple(h.shape)} "
+                         f"{h.dtype}")
+    if not (a.device.type == h.device.type == dh.device.type == "cuda"):
+        raise ValueError("ssm_scan_bwd_cuda takes CUDA tensors, got "
+                         f"{a.device}, {h.device}, {dh.device}")
+    if a.dtype not in _DTYPES or h.dtype not in _DTYPES:
+        raise ValueError("ssm_scan_bwd_cuda takes float32 or bfloat16 a and "
+                         f"h, got {a.dtype}, {h.dtype}")
+    a, h, dh = a.contiguous(), h.contiguous(), dh.contiguous()
+    b, t, d = h.shape
+    da, dx = torch.empty_like(a), torch.empty_like(h)
+    if h.numel() == 0:
+        return da, dx
+    lib = _build.library()
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = lib.repro_ssm_scan_bwd(a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                                 da.data_ptr(), dx.data_ptr(), b, t, d,
+                                 _DTYPES[a.dtype], _DTYPES[h.dtype], stream)
+    _build.check(err, "ssm_scan backward")
+    bwd_launches += 1
+    return da, dx
+
+
+class SsmScan(torch.autograd.Function):
+    """ssm_scan on the card with its backward kernel: the forward launches
+    :func:`ssm_scan_cuda` and saves a and h; the backward launches
+    :func:`ssm_scan_bwd_cuda`."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        h = ssm_scan_cuda(a, x)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return ssm_scan_bwd_cuda(a, h, dh)

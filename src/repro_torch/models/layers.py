@@ -12,7 +12,9 @@ Norms, rotary angles and attention softmax compute in float32 and cast back.
 Attention has the JAX package's three execution paths, picked by
 :func:`sdpa`: plain einsum, query-chunked softmax for long sequences, and
 the flash kernel (``attn_impl="flash"``, more than one query), which is the
-hand-written CUDA kernel on the card (:mod:`repro_torch.kernels.ops`).
+hand-written CUDA kernel on the card (:mod:`repro_torch.kernels.ops`),
+forward only there: training runs ``attn_impl="xla"``.  The training loss
+is :func:`cross_entropy`.
 The JAX package's sharding constraints are identities on one device and
 are left out.
 """
@@ -203,13 +205,25 @@ def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor,
     return q, k, v
 
 
+def repeat_each(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``torch.repeat_interleave(x, n, dim)`` for an int ``n`` (each slice
+    along ``dim`` n times in a row), as a broadcast copy: its backward sums
+    the copies in a fixed order, where ``repeat_interleave``'s backward
+    adds them with atomics on the card, in an order that changes from run
+    to run."""
+    dim = dim % x.ndim
+    shape = tuple(x.shape)
+    wide = x.unsqueeze(dim + 1).expand(*shape[:dim + 1], n, *shape[dim + 1:])
+    return wide.reshape(*shape[:dim], shape[dim] * n, *shape[dim + 1:])
+
+
 def _repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
     """Broadcast GQA KV heads (axis 2) to the full head count: query head i
     reads KV head i // (h / kvh)."""
     kvh = k.shape[2]
     if kvh == h:
         return k
-    return torch.repeat_interleave(k, h // kvh, dim=2)
+    return repeat_each(k, h // kvh, dim=2)
 
 
 def _sdpa_einsum(q, k, v, causal: bool, q_offset: int = 0):
@@ -267,6 +281,16 @@ def sdpa(cfg: ArchConfig, q, k, v, causal: bool, q_offset: int = 0):
     return _sdpa_einsum(q, k, v, causal, q_offset=q_offset)
 
 
+def apply_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                    positions: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Training self-attention over the full sequence: y (b, s, d)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = sdpa(cfg, q, k, v, causal)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
+
+
 def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor):
     """Returns (y, (k, v)) — k and v in (b, s, kvh, hd)."""
@@ -307,3 +331,21 @@ def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
     out = torch.einsum("bngst,btnd->bsngd", w, cache_v.float())
     out = out.reshape(b, 1, h * hd).to(dt)
     return out @ p["wo"].to(dt), cache_k, cache_v
+
+
+# ------------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token CE with the z-loss regulariser, in float32; with
+    ``mask`` the mean over the positions where it is nonzero."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.float()
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from .layers import Params, _dense_init, _full, cdtype, pdtype
+from .layers import Params, _dense_init, _full, cdtype, pdtype, repeat_each
 
 RWKV_HEAD = 64          # dk = dv = 64
 DECAY_LORA = 64
@@ -126,7 +126,7 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
     tail = torch.exp(cum[:, :, -1:] - cum)                # (b,nc,q,h,dk)
     s_c = torch.einsum("bnjhk,bnjhv->bnhkv", kc * tail, vc)
     a_chunk = torch.exp(cum[:, :, -1])                    # (b,nc,h,dk)
-    flat_a = torch.repeat_interleave(a_chunk.reshape(b, nc, -1), hd, dim=-1)
+    flat_a = repeat_each(a_chunk.reshape(b, nc, -1), hd, dim=-1)
     flat_s = s_c.reshape(b, nc, n_heads * hd * hd)
     h_all = kops.ssm_scan(flat_a, flat_s)
     h_prev = torch.cat([torch.zeros_like(h_all[:, :1]), h_all[:, :-1]], 1)
@@ -140,9 +140,16 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
         # L_{t-1} relative to the chunk start (0 for t = 0)
         lwq = torch.cat([torch.zeros_like(cum_[:, :1]), cum_[:, :-1]], 1)
         # intra: A[t,j] = sum_i r_t[i] k_j[i] e^{L_{t-1}[i] - L_j[i]}, j < t;
-        # the (b,t,j,h,dk) ratio tensor is updated in place
-        ratio = (lwq[:, :, None] - cum_[:, None]).clamp_(-60.0, 60.0).exp_()
-        att = ratio.mul_(rc_[:, :, None]).mul_(kc_[:, None]).sum(-1)
+        # the (b,t,j,h,dk) ratio tensor is updated in place when no gradient
+        # is taken (serving), and computed out of place under autograd,
+        # which saves the intermediates for the backward
+        ratio = lwq[:, :, None] - cum_[:, None]
+        if torch.is_grad_enabled():
+            ratio = ratio.clamp(-60.0, 60.0).exp()
+            att = (ratio * rc_[:, :, None] * kc_[:, None]).sum(-1)
+        else:
+            ratio = ratio.clamp_(-60.0, 60.0).exp_()
+            att = ratio.mul_(rc_[:, :, None]).mul_(kc_[:, None]).sum(-1)
         att = torch.where(strict, att, 0.0)                    # (b,t,j,h)
         del ratio
         y_intra = torch.einsum("btjh,bjhv->bthv", att, vc_)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from .layers import Params, _dense_init, _full, cdtype, pdtype
+from .layers import Params, _dense_init, _full, cdtype, pdtype, repeat_each
 
 D_CONV = 4
 SSM_HEAD = 64
@@ -136,10 +136,10 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     tail = torch.exp(cum[:, :, -1:] - cum)                       # (b,nc,q,h)
     s_c = torch.einsum("bnjs,bnjhe->bnhse", bc, xh * tail[..., None])
     # inter-chunk scan: the kernel; a_chunk spread over each head's
-    # d_state * head-dim channels (jnp.repeat is repeat_interleave)
+    # d_state * head-dim channels (jnp.repeat: each value in a row)
     a_chunk = torch.exp(cum[:, :, -1])                           # (b,nc,h)
     flat_s = s_c.reshape(b, nc, n_heads * d_state * SSM_HEAD)
-    flat_a = torch.repeat_interleave(a_chunk, d_state * SSM_HEAD, dim=-1)
+    flat_a = repeat_each(a_chunk, d_state * SSM_HEAD, dim=-1)
     h_all = kops.ssm_scan(flat_a, flat_s)          # state AFTER each chunk
     h_prev = torch.cat([torch.zeros_like(h_all[:, :1]), h_all[:, :-1]], 1)
     h_prev = h_prev.reshape(b, nc, n_heads, d_state, SSM_HEAD)
@@ -149,9 +149,14 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     ys = []
     for c in range(nc):
         cc_, bc_, xh_, cum_ = cc[:, c], bc[:, c], xh[:, c], cum[:, c]
-        decay = torch.exp(cum_[:, :, None, :] - cum_[:, None, :, :])
+        # the decay from j to i, zero above the diagonal: masked before the
+        # exp, where the JAX package masks the product after it.  Above
+        # the diagonal cum_i - cum_j > 0 and its exp overflows at long
+        # chunks of strong decay; the masked-off inf then turns the
+        # backward's 0 * inf into NaN (the values are the same).
+        decay = torch.exp((cum_[:, :, None, :] - cum_[:, None, :, :])
+                          .masked_fill(~causal, float("-inf")))
         gmat = torch.einsum("bis,bjs->bij", cc_, bc_)[..., None] * decay
-        gmat = torch.where(causal, gmat, 0.0)
         y_in = torch.einsum("bijh,bjhe->bihe", gmat, xh_)
         y_x = torch.einsum("bis,bhse->bihe", cc_, h_prev[:, c]) \
             * torch.exp(cum_)[..., None]

@@ -1,9 +1,10 @@
 """Decoder-only LMs: the dense, hybrid (zamba2) and RWKV6 families of
 ``repro.models.transformer``.
 
-One model object per family serves the JAX package's serving API:
+One model object per family serves the JAX package's model API:
 
   model = build_model(cfg)                          # on cuda, seeded
+  loss, metrics = model.loss_fn(batch)              # train: {"ce": ...}
   logits, state = model.prefill(tokens, max_len)    # (B, V), decode state
   logits, state = model.decode_step(tok, state)     # one token per slot
   state = model.init_decode_state(batch, max_len)   # zeroed state
@@ -24,9 +25,18 @@ stored in ``cfg.param_dtype``:
   (layernorm), ``lm_head``, ``layers.{ln1, time, ln2, chan}``; state
   :class:`RWKVDecodeState`.
 
-Products run in ``cfg.compute_dtype`` from one copy of the weights cast at
-first use: exactly the leaves the JAX package casts with ``.astype`` to the
-compute dtype where it reads them (each class's ``CAST``).  Every other
+The parameters are trainable (``requires_grad``): ``loss_fn`` builds its
+graph on them and ``loss.backward()`` leaves each gradient in ``.grad``
+(:mod:`repro_torch.train` reads them there).  ``loss_fn`` casts ``CAST``'s
+leaves inside the graph on every call, and applies ``cfg.remat`` where the
+JAX package applies ``_remat``: per layer with
+``torch.utils.checkpoint.checkpoint`` for the dense family and the hybrid,
+and for RWKV6 under ``cfg.scan_layers``.
+
+Prefill and decode run under ``torch.no_grad()``.  Their products run in
+``cfg.compute_dtype`` from one copy of the weights cast at first use:
+exactly the leaves the JAX package casts with ``.astype`` to the compute
+dtype where it reads them (each class's ``CAST``).  Every other
 leaf stays as stored, because the JAX code reads it in float32 or the param
 dtype: norm params, Mamba2's ``A_log``, ``D``, ``dt_bias`` and
 ``norm_scale``, RWKV6's ``w0``, ``w_lora_a``, ``w_lora_b``, ``u`` and
@@ -51,18 +61,20 @@ slice of the port adds.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import as_device
-from .._tree import tree_map
+from .._tree import tree_flatten, tree_map, tree_unflatten
 from ..configs.base import ArchConfig
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
-from .layers import (Params, apply_embed, apply_lm_head, apply_mlp,
-                     apply_norm, attention_decode, attention_prefill, cdtype,
+from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
+                     apply_mlp, apply_norm, attention_decode,
+                     attention_prefill, cdtype, cross_entropy,
                      init_attention, init_embed, init_lm_head, init_mlp,
                      init_norm)
 
@@ -81,8 +93,7 @@ class ParamNest(nn.Module):
             if isinstance(val, dict):
                 self.add_module(name, ParamNest(val))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(val.detach()))
 
     def __getitem__(self, name: str):
         if name in self._parameters:
@@ -99,6 +110,13 @@ class ParamNest(nn.Module):
         under the JAX package's names and shapes."""
         out = {n: p.data for n, p in self._parameters.items()}
         out.update({n: m.param_tree() for n, m in self._modules.items()})
+        return out
+
+    def trainable_tree(self) -> Params:
+        """The nest of the parameters themselves, under the JAX package's
+        names: what a loss is built on and an optimizer updates."""
+        out = dict(self._parameters)
+        out.update({n: m.trainable_tree() for n, m in self._modules.items()})
         return out
 
 
@@ -165,6 +183,37 @@ class _LM(ParamNest):
             self._compute, self._compute_key = (tree, layers), key
         return self._compute
 
+    def train_params(self) -> Tuple[Params, List[Params]]:
+        """(whole nest, per-layer nests) of the trainable parameters with
+        ``CAST``'s leaves cast to the compute dtype inside the graph, so the
+        gradient reaches the stored parameters.  The layers are unbound from
+        their stack once: the backward stacks their gradients once."""
+        tree = _cast_tree(self.trainable_tree(), cdtype(self.cfg), self.CAST)
+        leaves, structure = tree_flatten(tree["layers"])
+        cols = [leaf.unbind(0) for leaf in leaves]
+        layers = [tree_unflatten(structure, [c[i] for c in cols])
+                  for i in range(self.cfg.n_layers)]
+        return tree, layers
+
+    def _remat(self, fn: Callable) -> Callable:
+        """``fn`` under ``cfg.remat``, as the JAX package's ``_remat``:
+        ``"none"`` saves what autograd saves; ``"full"`` keeps only the
+        layer's input and runs the layer again in the backward.  ``"dots"``
+        does the same as ``"full"``: PyTorch has no counterpart of JAX's
+        dots-saveable policy (keep the matmul outputs, recompute the
+        rest)."""
+        if self.cfg.remat == "none":
+            return fn
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def _batch_tensor(self, batch, key: str) -> Optional[torch.Tensor]:
+        v = batch.get(key)
+        return None if v is None else torch.as_tensor(v, device=self.device)
+
+    def _ce(self, logits: torch.Tensor, batch) -> torch.Tensor:
+        return cross_entropy(logits, self._batch_tensor(batch, "labels"),
+                             self._batch_tensor(batch, "loss_mask"))
+
     def _prompt(self, tokens, max_len: Optional[int]):
         tokens = torch.as_tensor(tokens, device=self.device)
         s = tokens.shape[1]
@@ -198,6 +247,13 @@ def _block_decode(p, cfg, x, ck, cv, pos):
     x = x + h
     x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
     return x, ck, cv
+
+
+def _block_train(p, cfg, positions, x):
+    h = apply_attention(p["attn"], cfg, apply_norm(p["attn_norm"], cfg, x),
+                        positions, causal=True)
+    x = x + h
+    return x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
 
 
 class DecoderLM(_LM):
@@ -237,10 +293,29 @@ class DecoderLM(_LM):
             v=torch.zeros(shape, dtype=dt, device=dev),
             pos=self._pos(batch_size, 0))
 
-    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, P: Params, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x)
-        return apply_lm_head(P.get("lm_head"), self.cfg, x,
-                             embed=P["embed"])[:, 0]
+        return apply_lm_head(P.get("lm_head"), self.cfg, x, embed=P["embed"])
+
+    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+        return self._head(P, x)[:, 0]
+
+    def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, {"ce", "aux"}) of the JAX dense ``loss_fn`` on ``batch``
+        (``tokens``, ``labels`` (B, S) int32, optional ``loss_mask``): the
+        mean next-token CE with z-loss; ``aux`` is 0 without experts."""
+        cfg = self.cfg
+        P, layers = self.train_params()
+        tokens = self._batch_tensor(batch, "tokens")
+        b, s = tokens.shape
+        x = apply_embed(P["embed"], cfg, tokens)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        for lp in layers:
+            x = self._remat(lambda h, lp=lp: _block_train(lp, cfg, positions,
+                                                          h))(x)
+        loss = self._ce(self._head(P, x), batch)
+        aux = torch.zeros((), device=self.device)
+        return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
@@ -340,9 +415,40 @@ class HybridLM(_LM):
             shared_v=torch.zeros(kv, dtype=cdtype(cfg), device=dev),
             pos=self._pos(batch_size, 0))
 
-    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, P: Params, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x)
-        return apply_lm_head(P["lm_head"], self.cfg, x)[:, 0]
+        return apply_lm_head(P["lm_head"], self.cfg, x)
+
+    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+        return self._head(P, x)[:, 0]
+
+    def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"ce": loss}) of the JAX hybrid ``loss_fn``: each layer,
+        under ``cfg.remat``, runs the shared attention + MLP block first
+        when its index is a multiple of ``shared_attn_period``, then its
+        Mamba2 block."""
+        cfg = self.cfg
+        P, layers = self.train_params()
+        tokens = self._batch_tensor(batch, "tokens")
+        b, s = tokens.shape
+        x = apply_embed(P["embed"], cfg, tokens)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        sp, shared_at = P["shared"], _shared_positions(cfg)
+
+        def body(lp, shared, h):
+            if shared:
+                a = apply_attention(sp["attn"], cfg,
+                                    apply_norm(sp["attn_norm"], cfg, h),
+                                    positions, causal=True)
+                h = _shared_block_tail(sp, cfg, h, a)
+            return h + ssm_mod.apply_mamba(lp["mamba"], cfg,
+                                           apply_norm(lp["norm"], cfg, h))
+
+        for i, lp in enumerate(layers):
+            x = self._remat(lambda h, lp=lp, sh=i in shared_at:
+                            body(lp, sh, h))(x)
+        loss = self._ce(self._head(P, x), batch)
+        return loss, {"ce": loss}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
@@ -449,9 +555,36 @@ class RWKVLM(_LM):
             x_chan=torch.zeros((L, batch_size, d), device=dev),
             pos=self._pos(batch_size, 0))
 
-    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, P: Params, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x, kind="layernorm")
-        return apply_lm_head(P["lm_head"], self.cfg, x)[:, 0]
+        return apply_lm_head(P["lm_head"], self.cfg, x)
+
+    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+        return self._head(P, x)[:, 0]
+
+    def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"ce": loss}) of the JAX RWKV6 ``loss_fn``: time mixing
+        with chunks of ``min(ssm_chunk, 64)``, then channel mixing, each
+        layer under ``cfg.remat`` when ``cfg.scan_layers`` (the JAX package
+        applies ``_remat`` to its ``lax.scan`` body only)."""
+        cfg = self.cfg
+        P, layers = self.train_params()
+        x = apply_embed(P["embed"], cfg, self._batch_tensor(batch, "tokens"))
+        chunk = min(cfg.ssm_chunk, 64)
+
+        def layer(lp, h):
+            h = h + rwkv_mod.apply_rwkv_time(
+                lp["time"], cfg, apply_norm(lp["ln1"], cfg, h,
+                                            kind="layernorm"), chunk=chunk)
+            return h + rwkv_mod.apply_rwkv_channel(
+                lp["chan"], cfg, apply_norm(lp["ln2"], cfg, h,
+                                            kind="layernorm"))
+
+        for lp in layers:
+            step = lambda h, lp=lp: layer(lp, h)
+            x = (self._remat(step) if cfg.scan_layers else step)(x)
+        loss = self._ce(self._head(P, x), batch)
+        return loss, {"ce": loss}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None

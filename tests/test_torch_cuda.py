@@ -7,8 +7,11 @@ memory, a row wider than shared memory), and requires exact agreement;
 tie-heavy rows (sorted keys, the same (key, value) pairs);
 ``flash_attention`` at the edge shapes, lengths off the wgmma tiles, every
 head dim and the two prefill shapes, within 2e-4 (float32) and 2e-2
-(bfloat16), and its launches counted by route; ``ssm_scan`` at the edge
-shapes and the zamba2 and RWKV6 prefill shapes within 2e-4; ``prefix_scan``
+(bfloat16), and its launches counted by route, and refusing a gradient;
+``ssm_scan`` at the edge shapes and the zamba2 and RWKV6 prefill shapes
+within 2e-4, and its backward kernel against autograd through the plain
+version at T = 1, T and D off the kernel's unroll and block, bfloat16
+inputs and the two training shapes; ``prefix_scan``
 exactly in int32 and, in float32, within twice ``torch.cumsum``'s own error
 against a float64 cumsum; ``bincount`` exactly.  The two look-back kernels
 also at their edges: ``prefix_scan`` one below, at and above its tile,
@@ -218,13 +221,69 @@ def test_ssm_scan_kernel_matches_plain(cuda, b, t, d, a_dtype, x_dtype):
 
 
 @pytest.mark.cuda
-def test_ssm_scan_kernel_refuses_a_gradient(cuda):
-    a = torch.rand(1, 4, 8, device=cuda, requires_grad=True)
-    x = torch.randn(1, 4, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.ssm_scan(a, x)
+@pytest.mark.parametrize("b,t,d,a_dtype,x_dtype", [
+    (2, 1, 16, torch.float32, torch.float32),        # T = 1
+    (1, 13, 8, torch.float32, torch.float32),        # T off the unroll of 8
+    (2, 100, 300, torch.float32, torch.float32),     # D off the block of 256
+    (3, 64, 32, torch.bfloat16, torch.float32),
+    (1, 16, 4, torch.float32, torch.bfloat16),
+    (2, 33, 300, torch.bfloat16, torch.bfloat16),
+    (8, 16, 262144, torch.float32, torch.float32),   # zamba2-1.2b training
+    (8, 32, 131072, torch.float32, torch.float32),   # rwkv6-1.6b training
+])
+def test_ssm_scan_backward_kernel_matches_plain_autograd(cuda, b, t, d,
+                                                         a_dtype, x_dtype):
+    """Under a gradient ``ops.ssm_scan`` launches the forward and the
+    backward kernel once each; da and dx for a seeded dh equal autograd
+    through the plain version within 2e-4 (float32) or 2e-2 (bfloat16),
+    in a's and x's dtypes."""
+    gen = torch.Generator(device=cuda).manual_seed(t * d + 1)
+    a = (0.8 + 0.2 * torch.rand(b, t, d, device=cuda, generator=gen)) \
+        .to(a_dtype)
+    x = torch.randn(b, t, d, device=cuda, generator=gen).to(x_dtype)
+    dh = torch.randn(b, t, d, device=cuda, generator=gen).to(x_dtype)
+    ops.reset_launches()
+    ka, kx = a.clone().requires_grad_(), x.clone().requires_grad_()
+    ops.ssm_scan(ka, kx).backward(dh)
+    torch.cuda.synchronize()
+    got = ops.launches()
+    assert (got["ssm_scan"], got["ssm_scan.bwd"]) == (1, 1)
+    pa, px = a.clone().requires_grad_(), x.clone().requires_grad_()
+    ssm_scan.ssm_scan_plain(pa, px).backward(dh)
+    assert ops.launches()["ssm_scan.bwd"] == 1
+    tol = 2e-4 if a_dtype == x_dtype == torch.float32 else 2e-2
+    if pa.grad is None:         # T = 1: h does not depend on a
+        pa.grad = torch.zeros_like(pa)
+    for got_g, want_g, dtype in ((ka.grad, pa.grad, a_dtype),
+                                 (kx.grad, px.grad, x_dtype)):
+        assert got_g.dtype == dtype and got_g.shape == want_g.shape
+        torch.testing.assert_close(got_g.float(), want_g.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_backward_wrapper_checks_its_inputs(cuda):
+    a = torch.rand(1, 4, 8, device=cuda)
+    h = torch.randn(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="does not match"):
+        ssm_scan.ssm_scan_bwd_cuda(a, h, h.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssm_scan.ssm_scan_bwd_cuda(a.double(), h.double(), h.double())
+    da, dx = ssm_scan.ssm_scan_bwd_cuda(a[:, :0], h[:, :0], h[:, :0])
+    assert da.shape == dx.shape == (1, 0, 8)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_gradient(cuda):
+    """Neither package has a backward for the flash kernel: under a
+    gradient the CUDA route raises and names ``attn_impl="xla"``."""
+    q = torch.randn(1, 2, 64, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 64, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="attn_impl='xla'"):
+        ops.flash_attention(q, k, k)
     with torch.no_grad():
-        assert ops.ssm_scan(a, x).shape == (1, 4, 8)
+        assert ops.flash_attention(q, k, k).shape == (1, 2, 64, 64)
+    assert ops.flash_attention(q.detach(), k, k).shape == (1, 2, 64, 64)
 
 
 @pytest.mark.cuda

@@ -30,7 +30,8 @@ def test_sorts_on_cpu_with_jax_blocked():
     fail, the port imports and sorts on the CPU through the kernel engine,
     runs a multisearch, a physical prefix, a write funnel, a BSP plan, a
     2-D hull, a 3-D hull and an LP there, prefills and serves a reduced
-    TinyLlama, and prefills and decodes a reduced zamba2 and RWKV6."""
+    TinyLlama, prefills and decodes a reduced zamba2 and RWKV6, and trains
+    a reduced zamba2 for 2 steps."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -111,6 +112,15 @@ def test_sorts_on_cpu_with_jax_blocked():
                                           state)
             assert bool(torch.isfinite(logits).all())
             assert state.pos.tolist() == [6, 6]
+        from repro_torch.train import Trainer, TrainConfig
+        import repro_torch.launch.train
+        tr = Trainer(TrainConfig(arch=get_config("zamba2-1.2b", reduced=True),
+                                 global_batch=2, seq_len=16, steps=2,
+                                 log_every=1, warmup_steps=1), device="cpu")
+        hist = tr.train()["history"]
+        assert [s for s, _ in hist] == [1, 2]
+        assert all(np.isfinite(l) for _, l in hist)
+        assert int(tr.opt_state.step) == 2
         assert not [m for m, mod in sys.modules.items() if mod is not None
                     and (m in ("jax", "repro")
                          or m.startswith(("jax.", "repro.")))]
@@ -130,7 +140,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_config
     from repro_torch.interop import lm_params_from_numpy, to_numpy
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
+    from repro_torch.train import Trainer, TrainConfig
     if torch.cuda.is_available():
         assert LocalEngine().device.type == "cuda"
         from repro_torch.core import make_queues, random_indexing
@@ -140,6 +152,7 @@ def test_entry_points_default_to_the_card():
         assert build_model(cfg).device.type == "cuda"
         assert lm_params_from_numpy(to_numpy(build_model(cfg).param_tree()),
                                     cfg).device.type == "cuda"
+        assert Trainer(TrainConfig(arch=cfg)).model.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalEngine()
@@ -158,6 +171,10 @@ def test_entry_points_default_to_the_card():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_main(["--arch", "tinyllama-1.1b", "--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(TrainConfig(arch=cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--arch", "zamba2-1.2b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_params_from_numpy(to_numpy(build_model(cfg, device="cpu")
                                       .param_tree()), cfg)

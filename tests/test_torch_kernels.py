@@ -151,13 +151,15 @@ def test_cpu_tensors_never_launch():
     ops.flash_attention(torch.zeros((1, 2, 4, 8)), torch.zeros((1, 1, 4, 8)),
                         torch.zeros((1, 1, 4, 8)))
     ops.ssm_scan(torch.ones((1, 3, 2)), torch.zeros((1, 3, 2)))
+    ops.ssm_scan(torch.ones((1, 3, 2)),
+                 torch.zeros((1, 3, 2), requires_grad=True)).sum().backward()
     ops.prefix_scan(torch.zeros((2, 4), dtype=torch.int32))
     ops.bincount(torch.zeros((4,), dtype=torch.int32), 3)
     ops.monotone_chain(torch.zeros((2, 4, 2)),
                        torch.tensor([4, 0], dtype=torch.int32))
     assert ops.launches() == {"bincount_tiles": 0, "bitonic_sort": 0,
                               "flash_attention": 0, "ssm_scan": 0,
-                              "prefix_scan": 0, "bincount": 0,
+                              "ssm_scan.bwd": 0, "prefix_scan": 0, "bincount": 0,
                               "monotone_chain": 0,
                               "bincount_tiles.single_pass": 0,
                               "bincount_tiles.global": 0,
@@ -174,6 +176,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention.flash_attention_cuda(*[torch.zeros((1, 2, 4, 64))] * 3)
     with pytest.raises(ValueError, match="CUDA"):
         ssm_scan.ssm_scan_cuda(torch.ones((1, 3, 2)), torch.zeros((1, 3, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan.ssm_scan_bwd_cuda(*[torch.zeros((1, 3, 2))] * 3)
     with pytest.raises(ValueError, match="CUDA"):
         prefix_scan.prefix_scan_cuda(torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):

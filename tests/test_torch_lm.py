@@ -320,7 +320,8 @@ def test_compute_copy_follows_parameter_changes(change):
         sd["layers.mlp.w_down"] = sd["layers.mlp.w_down"] * 2.0
         model.load_state_dict(sd)
     elif change == "in_place":                  # as an optimizer step does
-        model["layers"]["mlp"]["w_down"].mul_(2.0)
+        with torch.no_grad():                   # the params are trainable
+            model["layers"]["mlp"]["w_down"].mul_(2.0)
     else:
         model.double()
         assert model.compute_params()[0]["final_norm"]["scale"].dtype == \
