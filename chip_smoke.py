@@ -122,10 +122,18 @@ exits non-zero:
               on the card in float64, strictly convex, CCW from the
               lex-min, made of input points and holding every input point;
 21. geometry-chain — ``monotone_chain``'s CUDA-event ms at both calls of
-              the query beside its bound; then against its plain version
-              (run on host copies), bit for bit, on 16 of merge-0's 2048
-              runs, the finalize's run and a run of 65,536 points that are
-              all extreme;
+              the query beside its bound, one call per event pair and back
+              to back; then against its plain version (run on host copies),
+              bit for bit, on 16 of merge-0's 2048 runs, the finalize's run,
+              a run of 65,536 points that are all extreme, a chain deeper
+              than the kernel's shared-memory window that one point pops to
+              the bottom, and near-collinear runs (y = x / 3 in float32,
+              some moved by an ulp); each call's serial floor (the turn
+              tests of its longest chain, counted on the host, times 20
+              cycles at the highest SM clock); last 2^20 points all
+              extreme (``repro_torch.testing.extreme_run``), timed and
+              checked without the plain version: every point kept, the hull
+              equal to the run;
 22. hull3d / lp — ``hull3d_plan(128, 8192)`` (C(128, 3) facet processors,
               three CRCW steps) against ``ConvexHull(points).vertices`` and
               ``convex_hull_3d_oracle``; ``lp_plan(256, 3, 8192)`` against
@@ -165,15 +173,20 @@ exits non-zero:
               a temporary directory, deleted afterwards).
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
-power line, and ``{"ok": true, "device": {...}}``; the summary's
+power line, and ``{"ok": true, "device": {...}}``.  Every row of the
+summary gives ``ms`` (one call per event pair) and ``b2b_ms`` (20 calls
+between one event pair, over the calls, so that the host's gap before a
+call drops out).  The summary's
 ``flash_attention`` row also gives its launches by route and the float32
 route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
 sort, search, prefix, funnel, crcw, bsp, hull2d, hull3d and lp runs).
 ``monotone_chain``'s row sums the kernel, its plain version (one call on
 host copies: the slot loop takes seconds) and the bound over the checked
-main-path inputs (16 of merge-0's runs, the finalize's run), and gives the
-kernel's time at the query's own two calls as ``main_path_ms``.  The
+main-path inputs (16 of merge-0's runs, the finalize's run), with their
+serial floor (``serial_floor_ms``), and gives the kernel's time at the
+query's own two calls as ``main_path_ms`` (``main_path_b2b_ms``) and at
+2^20 extreme points as ``worst_case_ms``.  The
 ``ssm_scan`` row's launches add the training path's forward launches to
 the serving prefills' (``launches_by_path``), and ``ssm_scan.bwd`` is the
 backward kernel's row: its launches in phase train, its times and bound
@@ -298,6 +311,23 @@ LP_C = (1.0, -0.5, 0.25)
 #: y = x^2 for t evenly spaced in [-20, 20], strictly convex in float32
 CHAIN_CHECKED = 16
 CHAIN_EXTREME = 65_536
+#: the worst case of a chain call, timed and checked without the plain
+#: version: 2^20 points that are all extreme in float32
+#: (repro_torch.testing.extreme_run: x = sinh t stops being convex in
+#: float32 above 2^16 points)
+CHAIN_WORST = 1 << 20
+#: near-collinear runs (y = x / 3 in float32, a quarter moved by an ulp):
+#: runs x points, held to the plain version on host copies
+CHAIN_NEAR_COLLINEAR = (4, 6000)
+#: the dependent latency of one test-and-pop step of the chain, in SM
+#: cycles, from SASS latencies: the FADD, FMUL, FFMA and FSETP of the turn
+#: test and the branch on it, one after another, taken at 4 cycles each
+#: (the FP32 pipeline's latency between dependent instructions; a branch
+#: takes longer, so the floor is low), the register moves of the pop
+#: running beside them
+CHAIN_STEP_CYCLES = 20
+#: calls between one pair of CUDA events for a back-to-back reading
+B2B_CALLS = 20
 #: the LP optimum against scipy's HiGHS in float64: float32 bases solved
 #: and tested in float32 agree to a few float32 ulps of the vertex
 LP_RTOL = 1e-4
@@ -384,6 +414,36 @@ def event_ms(fn, torch, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def b2b_ms(fn, torch, calls: int = B2B_CALLS, reps: int = 3) -> float:
+    """Device ms of one call of fn() run back to back: ``calls`` calls
+    between one pair of CUDA events, divided by ``calls`` (median of
+    ``reps``), after a warm-up.  Unlike event_ms, the host's gap before a
+    call hides behind the calls in flight."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (MHz), from ``nvidia-smi``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def host_times(fn, torch, reps: int = 5) -> list:
@@ -581,6 +641,8 @@ def flash_timing(torch, dev, shape, mem_rate) -> dict:
     q, k, v = flash_inputs(torch, dev, shape, torch.bfloat16, 7)
     kern_ms = event_ms(lambda: flash.flash_attention_cuda(q, k, v, True),
                        torch)
+    kern_b2b = b2b_ms(lambda: flash.flash_attention_cuda(q, k, v, True),
+                      torch)
     plain_ms = event_ms(lambda: flash.flash_attention_plain(q, k, v, True),
                         torch)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -603,6 +665,7 @@ def flash_timing(torch, dev, shape, mem_rate) -> dict:
     flops = 4 * b * hq * d * s * (s + 1) // 2     # unmasked pairs only
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     return {"shape": list(shape), "flash_ms": kern_ms,
+            "flash_b2b_ms": kern_b2b,
             "flash_f32_ms": kern32_ms, "plain_ms": plain_ms,
             "sdpa_ms": sdpa_ms, "sdpa_f32_ms": sdpa32_ms,
             "sdpa_f32_max_abs_err": sdpa32_err,
@@ -1131,8 +1194,9 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
     gen.manual_seed(31)
     per_call = []
 
-    def row(name, shape, kern, plain, library, nbytes, nops):
+    def row(name, shape, kern, plain, library, nbytes, nops, run):
         per_call.append({"kernel": name, "shape": shape, "ms": kern,
+                         "b2b_ms": b2b_ms(run, torch),
                          "plain_ms": plain, "library_ms": library,
                          "bytes": nbytes, "ops": nops,
                          "bytes_ms": nbytes / mem_rate * 1e3,
@@ -1146,7 +1210,8 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
         row("ssm_scan", list(shape),
             event_ms(lambda: ssm_scan.ssm_scan_cuda(a, x), torch),
             event_ms(lambda: ssm_scan.ssm_scan_plain(a, x), torch), None,
-            3 * a.numel() * 4, 2 * a.numel())
+            3 * a.numel() * 4, 2 * a.numel(),
+            lambda: ssm_scan.ssm_scan_cuda(a, x))
         del a, x
     for rows, n, dt, ex in SCAN_MAIN:
         x = scan_input(torch, dev, gen, rows, n, dt)
@@ -1154,7 +1219,8 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
             event_ms(lambda: prefix_scan.prefix_scan_cuda(x, ex), torch),
             event_ms(lambda: prefix_scan.prefix_scan_plain(x, ex), torch),
             event_ms(lambda: torch.cumsum(x, -1, dtype=x.dtype), torch),
-            2 * x.numel() * 4, x.numel())
+            2 * x.numel() * 4, x.numel(),
+            lambda: prefix_scan.prefix_scan_cuda(x, ex))
     n, V = BINCOUNT_MAIN
     ids = torch.randint(0, V, (n,), dtype=torch.int32, device=dev,
                         generator=gen)
@@ -1165,7 +1231,7 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
                                      torch),
         event_ms(lambda: bincount.bincount_plain(ids, V), torch),
         event_ms(lambda: torch.bincount(ids, minlength=V), torch),
-        n * 4 + V * 4, n)
+        n * 4 + V * 4, n, lambda: bincount.bincount_cuda(ids, V))
     emit(phase="ssm-timings", per_call=per_call, models=lm_timings,
          note=f"kernel rows: CUDA-event medians of {REPS} after a warm-up; "
               "models: host-clock medians ending in a synchronize, one "
@@ -1174,16 +1240,17 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
               "device ms over the unprofiled median wall ms")
     totals = {}
     for r in per_call:
-        t = totals.setdefault(r["kernel"], {"ms": 0.0, "plain_ms": 0.0,
+        t = totals.setdefault(r["kernel"], {"ms": 0.0, "b2b_ms": 0.0,
+                                            "plain_ms": 0.0,
                                             "library_ms": 0.0,
                                             "bytes_ms": 0.0, "ops_ms": 0.0})
-        for k in ("ms", "plain_ms", "bytes_ms", "ops_ms"):
+        for k in ("ms", "b2b_ms", "plain_ms", "bytes_ms", "ops_ms"):
             t[k] += r[k]
         t["library_ms"] = (None if r["library_ms"] is None
                            else t["library_ms"] + r["library_ms"])
         t.setdefault("per_call", []).append(
-            {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                               "library_ms")})
+            {k: r[k] for k in ("shape", "ms", "b2b_ms", "plain_ms",
+                               "bound_ms", "library_ms")})
     return totals
 
 
@@ -1526,6 +1593,43 @@ def chain_work(pts, counts, h):
     return nbytes, nops
 
 
+def chain_longest(pts, counts) -> int:
+    """Turn tests of the longest chain of one ``monotone_chain`` call: each
+    run's lower chain walked forward and upper chain backward on the host,
+    counting every test (one a pop, one that stops the pops), with the
+    kernel's arithmetic (float32 differences and second product, the first
+    product fused, subnormals flushed), so that it pops what the kernel
+    pops.  For the serial floor."""
+    import numpy as np
+    tiny = 2.0 ** -126
+
+    def f32(v):
+        v = float(np.float32(v))
+        return 0.0 if abs(v) < tiny else v
+
+    def turn(a, b, p):
+        q = f32(f32(b[1] - a[1]) * f32(p[0] - a[0]))
+        r = f32(b[0] - a[0]) * f32(p[1] - a[1]) - q
+        return 0.0 if abs(r) < tiny else r
+
+    P = pts.cpu().numpy().astype(np.float64)
+    C = counts.cpu().numpy().clip(0, P.shape[1])
+    longest = 0
+    for v in range(len(C)):
+        run = [tuple(p) for p in P[v, :C[v]]]
+        for order in (run, run[::-1]):
+            stack, tests = [], 0
+            for p in order:
+                while len(stack) >= 2:
+                    tests += 1
+                    if turn(stack[-2], stack[-1], p) > 0:
+                        break
+                    stack.pop()
+                stack.append(p)
+            longest = max(longest, tests)
+    return longest
+
+
 def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
     """Phases hull2d, geometry-chain, hull3d and lp: the paper's geometry
     at full size on the kernel engine and the dense one, with the same
@@ -1641,25 +1745,37 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
 
     # -- monotone_chain against its plain version ------------------------
     # The kernel's time at each call of the query above (merge-0: 2048
-    # runs; the finalize: one run) beside its bound.  Then the kernel
-    # against its plain version, bit for bit, on CHAIN_CHECKED of merge-0's
-    # runs, on every later call, and on one run whose every point is
-    # extreme (the lower chain keeps them all, the upper chain pops at
-    # every step).  The plain loop runs on host copies: each of its steps is
-    # a few dozen small tensor operations and a host read, which cost more
-    # as launches on the card than on the host.
+    # runs; the finalize: one run) beside its bound, one call per event pair
+    # and back to back.  Then the kernel against its plain version, bit for
+    # bit, on CHAIN_CHECKED of merge-0's runs, on every later call, on one
+    # run whose every point is extreme (the lower chain keeps them all, the
+    # upper chain pops at every step), on a chain deeper than the kernel's
+    # shared-memory window that one point pops to the bottom, and on
+    # near-collinear runs.  The plain loop runs on host copies: each of its
+    # steps is a few dozen small tensor operations and a host read, which
+    # cost more as launches on the card than on the host.  Last the worst
+    # case, 2^20 points all extreme, timed and checked without the plain
+    # version.  The serial floor of a call: the turn tests of its longest
+    # chain (counted on the host, chain_longest) times CHAIN_STEP_CYCLES at
+    # the card's highest SM clock.
+    from repro_torch import testing
     calls = [c[1:] for c in recorder.calls]
     check(len(calls) == len(chain_stages),
           f"hull2d: {len(calls)} monotone_chain calls recorded")
+    step_ns = CHAIN_STEP_CYCLES / sm_clock_mhz() * 1e3
 
-    def timed(label, cp, cc, h):
+    def timed(label, cp, cc, h, longest=None):
         nbytes, nops = chain_work(cp, cc, h)
-        return {"call": label, "shape": list(cp.shape),
-                "live_points": int(cc.sum()), "hull_points": int(h.sum()),
-                "ms": event_ms(
-                    lambda: chain_kernel.monotone_chain_cuda(cp, cc), torch),
-                "bytes": nbytes, "ops": nops,
-                "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3}
+        run = lambda: chain_kernel.monotone_chain_cuda(cp, cc)
+        rec = {"call": label, "shape": list(cp.shape),
+               "live_points": int(cc.sum()), "hull_points": int(h.sum()),
+               "ms": event_ms(run, torch), "b2b_ms": b2b_ms(run, torch),
+               "bytes": nbytes, "ops": nops,
+               "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3}
+        if longest is not None:
+            rec.update(longest_chain_tests=longest,
+                       serial_floor_ms=longest * step_ns / 1e6)
+        return rec
 
     main_calls = [timed(label, cp, cc,
                         chain_kernel.monotone_chain_cuda(cp, cc)[1])
@@ -1669,13 +1785,23 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
     t = torch.linspace(-20, 20, CHAIN_EXTREME, dtype=torch.float64,
                        device=dev)
     x = torch.sinh(t).float()
+    window = chain_kernel.kernel_shape(1, 1 << 14)["window"]
+    deep = testing.pack_runs([testing.deep_pop_run(
+        window + window // 2 + 3, "lower")])
+    rng_c = np.random.default_rng(29)
+    near = testing.pack_runs([testing.near_collinear_run(
+        CHAIN_NEAR_COLLINEAR[1], rng_c)
+        for _ in range(CHAIN_NEAR_COLLINEAR[0])])
+    on_dev = lambda pc: tuple(torch.from_numpy(a).to(dev) for a in pc)
     checked = ([(f"{chain_stages[0]}, {CHAIN_CHECKED} of its runs",
                  (calls[0][0][pick].contiguous(), calls[0][1][pick]))]
                + list(zip(chain_stages[1:], calls[1:]))
                + [("all-extreme",
                    (torch.stack([x, x * x], 1)[None].contiguous(),
                     torch.tensor([CHAIN_EXTREME], dtype=torch.int32,
-                                 device=dev)))])
+                                 device=dev))),
+                  ("deep-pop", on_dev(deep)),
+                  ("near-collinear", on_dev(near))])
     max_err = 0.0
     per_call = []
     for label, (cp, cc) in checked:
@@ -1696,18 +1822,47 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
             check(int(got[1][0]) == CHAIN_EXTREME,
                   f"monotone_chain: {int(got[1][0])} of {CHAIN_EXTREME} "
                   f"points kept on the all-extreme run")
-        per_call.append({**timed(label, cp, cc, got[1].to(dev)),
+        if label == "deep-pop":
+            check(got[1].tolist() == [3], f"monotone_chain deep-pop: hull "
+                                          f"of {got[1].tolist()} points")
+        per_call.append({**timed(label, cp, cc, got[1].to(dev),
+                                 chain_longest(cp, cc)),
                          "plain_host_ms": plain_ms})
-    del recorder, calls, checked
+    # the worst case: every point of 2^20 extreme, so the lower chain
+    # pushes every point and the upper chain pops at every step (n - 2
+    # tests each)
+    wp = torch.from_numpy(testing.extreme_run(CHAIN_WORST))[None].to(dev)
+    wc = torch.tensor([CHAIN_WORST], dtype=torch.int32, device=dev)
+    hull, h = chain_kernel.monotone_chain_cuda(wp, wc)
+    check(int(h[0]) == CHAIN_WORST and torch.equal(hull, wp),
+          f"monotone_chain worst case: {int(h[0])} of {CHAIN_WORST} points "
+          f"kept, hull equal to the run: {torch.equal(hull, wp)}")
+    nbytes, nops = chain_work(wp, wc, h)
+    worst = {"call": "all-extreme, 2^20", "shape": list(wp.shape),
+             "live_points": CHAIN_WORST, "hull_points": CHAIN_WORST,
+             "ms": event_ms(lambda: chain_kernel.monotone_chain_cuda(wp, wc),
+                            torch, reps=3),
+             "bytes": nbytes, "ops": nops,
+             "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3,
+             "longest_chain_tests": CHAIN_WORST - 2,
+             "serial_floor_ms": (CHAIN_WORST - 2) * step_ns / 1e6}
+    del wp, hull
     emit(phase="geometry-chain", main_path=main_calls, checked=per_call,
-         max_abs_err=max_err,
+         worst_case=worst, max_abs_err=max_err,
+         kernel_shape={"merge": chain_kernel.kernel_shape(
+             *calls[0][0].shape[:2]), "one run": chain_kernel.kernel_shape(
+                 *calls[-1][0].shape[:2])},
+         step_cycles=CHAIN_STEP_CYCLES, step_ns=step_ns,
          note="kernel ms: CUDA-event medians of 7 after a warm-up, one call "
-              "per event pair; plain_host_ms: one call of the plain version "
-              "on host copies of the inputs, host clock; equal bit for bit")
+              f"per event pair; b2b_ms: {B2B_CALLS} calls between one event "
+              "pair, over the calls; plain_host_ms: one call of the plain "
+              "version on host copies of the inputs, host clock; equal bit "
+              "for bit; serial_floor_ms: the longest chain's turn tests "
+              f"times {CHAIN_STEP_CYCLES} cycles at the highest SM clock")
     # the summary row: kernel, plain version and bound on the same inputs,
     # the checked calls of the main path; the kernel at the query's own
     # calls beside it as main_path_ms
-    rows = per_call[:-1]
+    rows = per_call[:len(chain_stages)]
     nbytes = sum(r["bytes"] for r in rows)
     nops = sum(r["ops"] for r in rows)
     chain_row = {
@@ -1719,20 +1874,25 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
         "launches": paths["hull2d"]["monotone_chain"],
         "max_abs_err": max_err,
         "ms": sum(r["ms"] for r in rows),
+        "b2b_ms": sum(r["b2b_ms"] for r in rows),
         "plain_ms": sum(r["plain_host_ms"] for r in rows),
         "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3,
         "bound_by": ("bytes" if nbytes / mem_rate >= nops / ALU_RATE
                      else "operations"),
+        "serial_floor_ms": sum(r["serial_floor_ms"] for r in rows),
         "library_ms": None,
         "inputs": [r["call"] for r in rows],
         "plain_note": "plain version on host copies, host clock, one call",
         "main_path_ms": sum(r["ms"] for r in main_calls),
+        "main_path_b2b_ms": sum(r["b2b_ms"] for r in main_calls),
         "main_path_bound_ms": max(
             sum(r["bytes"] for r in main_calls) / mem_rate,
             sum(r["ops"] for r in main_calls) / ALU_RATE) * 1e3,
-        "per_call": [{k: r.get(k) for k in ("call", "shape", "ms",
-                                             "plain_host_ms", "bound_ms")}
-                     for r in main_calls + per_call]}
+        "worst_case_ms": worst["ms"],
+        "per_call": [{k: r.get(k) for k in ("call", "shape", "ms", "b2b_ms",
+                                             "plain_host_ms", "bound_ms",
+                                             "serial_floor_ms")}
+                     for r in main_calls + per_call + [worst]]}
     del pts
 
     # -- hull3d: Theorem 3.2 on C(128, 3) facet processors ----------------
@@ -1890,6 +2050,8 @@ def train_kernel_phase(torch, dev, mem_rate) -> dict:
             "shape": list(shape[:3]),
             "ms": event_ms(lambda: ssm_scan.ssm_scan_bwd_cuda(a, h, dh),
                            torch),
+            "b2b_ms": b2b_ms(lambda: ssm_scan.ssm_scan_bwd_cuda(a, h, dh),
+                             torch),
             "plain_ms": event_ms(lambda: torch.autograd.grad(
                 hp, (pa, px), dh, retain_graph=True), torch),
             "library_ms": None, "bytes": nbytes, "ops": nops,
@@ -1902,7 +2064,7 @@ def train_kernel_phase(torch, dev, mem_rate) -> dict:
               "kernel alone; plain_ms the backward of autograd through "
               "ssm_scan_plain, its forward graph built once")
     totals = {k: sum(r[k] for r in per_call)
-              for k in ("ms", "plain_ms", "bytes", "ops")}
+              for k in ("ms", "b2b_ms", "plain_ms", "bytes", "ops")}
     return {"max_abs_err": max_err, "totals": totals, "per_call": per_call}
 
 
@@ -2372,12 +2534,14 @@ def main() -> int:
 
     # -- 6. timings ---------------------------------------------------------
     per_call = []
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                     "bytes": 0, "ops": 0} for name in max_err}
+    totals = {name: {"ms": 0.0, "b2b_ms": 0.0, "plain_ms": 0.0,
+                     "library_ms": 0.0, "bytes": 0, "ops": 0}
+              for name in max_err}
     for name, a, b in recorder.calls:
         if name == "bincount_tiles":
             T, tile_n = a.shape
             kern = event_ms(lambda: bincount.bincount_tiles_cuda(a, b), torch)
+            b2b = b2b_ms(lambda: bincount.bincount_tiles_cuda(a, b), torch)
             plain = event_ms(lambda: bincount.bincount_tiles_plain(a, b),
                              torch)
             library = None
@@ -2389,6 +2553,7 @@ def main() -> int:
             rows, n = a.shape
             kern = event_ms(lambda: bitonic_sort.bitonic_sort_cuda(a, b),
                             torch)
+            b2b = b2b_ms(lambda: bitonic_sort.bitonic_sort_cuda(a, b), torch)
             plain = event_ms(lambda: bitonic_sort.bitonic_sort_plain(a, b),
                              torch)
 
@@ -2404,12 +2569,14 @@ def main() -> int:
             nops = rows * (n_pad // 2) * L * (L + 1) // 2
         t = totals[name]
         t["ms"] += kern
+        t["b2b_ms"] += b2b
         t["plain_ms"] += plain
         t["library_ms"] = None if library is None else t["library_ms"] + library
         t["bytes"] += nbytes
         t["ops"] += nops
         per_call.append({"kernel": name, "shape": list(a.shape), "ms": kern,
-                         "plain_ms": plain, "library_ms": library,
+                         "b2b_ms": b2b, "plain_ms": plain,
+                         "library_ms": library,
                          "bytes": nbytes, "ops": nops,
                          "bound_ms": max(nbytes / mem_rate,
                                          nops / ALU_RATE) * 1e3})
@@ -2460,11 +2627,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
+            "b2b_ms": t["b2b_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
-            "per_call": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                            "bound_ms", "library_ms")}
+            "per_call": [{k: r[k] for k in ("shape", "ms", "b2b_ms",
+                                            "plain_ms", "bound_ms",
+                                            "library_ms")}
                          for r in per_call if r["kernel"] == name]})
 
     tinyllama = lm_phases(torch, dev, mem_rate)
@@ -2497,6 +2666,7 @@ def main() -> int:
                            + [r["flash"]["max_abs_err"] for r in lms
                               if r["flash"]]),
         "ms": sum(t["flash_ms"] for t in parts),
+        "b2b_ms": sum(t["flash_b2b_ms"] for t in parts),
         "plain_ms": sum(t["plain_ms"] for t in parts),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2523,7 +2693,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": entry["max_abs_err"][name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
+            "b2b_ms": t["b2b_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
@@ -2573,11 +2743,13 @@ def main() -> int:
                "kernel reversed)",
         "launches": trained["launches"]["ssm_scan.bwd"],
         "max_abs_err": bwd["max_abs_err"], "ms": t["ms"],
+        "b2b_ms": t["b2b_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "per_call": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                        "bound_ms", "library_ms")}
+        "per_call": [{k: r[k] for k in ("shape", "ms", "b2b_ms",
+                                        "plain_ms", "bound_ms",
+                                        "library_ms")}
                      for r in bwd["per_call"]]})
     for row in summary:
         if row["name"] == "ssm_scan":

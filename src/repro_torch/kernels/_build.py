@@ -64,6 +64,7 @@ _SIGNATURES = {
     "repro_prefix_scan": ([_PTR, _PTR, _I64, _I64, ctypes.c_int, ctypes.c_int,
                            _PTR, _PTR], ctypes.c_int),
     "repro_bincount": ([_PTR, _I64, _I64, _PTR, _PTR], ctypes.c_int),
+    "repro_monotone_chain_shape": ([_I64, _I64, _PTR], ctypes.c_int),
     "repro_monotone_chain": ([_PTR, _PTR, _I64, _I64, _PTR, _PTR, _PTR,
                               _PTR], ctypes.c_int),
 }

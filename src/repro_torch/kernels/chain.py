@@ -13,16 +13,25 @@ of ``counts[v]`` slots, and returns
   own hull).
 
 Pops on cross <= 0, so collinear points are left out — the JAX package's
-convention.  The JAX package computes this outside any Pallas kernel, as a
-``lax.scan`` with a ``lax.while_loop`` of pops (``src/repro/core/geometry/
-chain.py:31-61``); the port runs it on the card as the hand-written kernel
-of ``csrc/monotone_chain.cu`` (:func:`monotone_chain_cuda`), and
-:func:`monotone_chain_plain` is plain PyTorch, for the CPU and as the
-kernel's yardstick on the card.  The two are equal bit for bit.
+convention.  The cross product rounds as the JAX package's does under XLA
+on the CPU, which computes it with one fused multiply-add and flushes
+subnormal values to zero (:func:`_turn`).  The JAX package computes this
+outside any Pallas kernel, as a ``lax.scan`` with a ``lax.while_loop`` of
+pops (``src/repro/core/geometry/chain.py:31-61``); the port runs it on the
+card as the hand-written kernel of ``csrc/monotone_chain.cu``
+(:func:`monotone_chain_cuda`), and :func:`monotone_chain_plain` is plain
+PyTorch, for the CPU and as the kernel's yardstick on the card.  The two
+are equal bit for bit.
+
+On the card each chain's input arrives in stages of shared memory and its
+stack keeps a window of entries there; :func:`kernel_shape` names the stage
+size, ring depth and window a launch takes (the rule is in the source's
+header).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -44,10 +53,27 @@ def _check(pts: torch.Tensor, counts: torch.Tensor) -> None:
                          f"{pts.dtype}")
 
 
+#: the smallest normal float32; XLA flushes anything smaller to zero
+_TINY = 2.0 ** -126
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal values flushed to zero, as XLA's float32 arithmetic does."""
+    return torch.where(t.abs() < _TINY, 0.0, t)
+
+
 def _turn(ax, ay, bx, by, px, py) -> torch.Tensor:
-    """(b - a) x (p - a), each operation rounded on its own, in the JAX
-    package's operand order."""
-    return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+    """(b - a) x (p - a) as the JAX package's chain computes it under XLA
+    on the CPU, for coordinates already flushed (:func:`_ftz`): the four
+    differences and the second product rounded to float32, the first
+    product exact and fused into the subtraction (an fma: XLA contracts
+    ``u * v - w * z`` into one), and every result below the smallest normal
+    float32 flushed to zero.  In float64 the first product is exact and the
+    subtraction rounds once; cast back to float32 and flushed, the result
+    is zero or of the fma's sign wherever the chain reads it (``<= 0``)."""
+    x, y = _ftz(bx - ax), _ftz(py - ay)
+    q = _ftz(_ftz(by - ay) * _ftz(px - ax))
+    return _ftz((x.double() * y.double() - q.double()).float())
 
 
 def monotone_chain_plain(pts: torch.Tensor, counts: torch.Tensor
@@ -56,8 +82,8 @@ def monotone_chain_plain(pts: torch.Tensor, counts: torch.Tensor
     over 2V chains (each run's lower chain reads its points forward, its
     upper chain backward), each step popping while any chain still turns,
     as JAX's vmapped scan does.  The top two stack entries of each chain
-    are kept beside the stack, as the kernel keeps them in registers.
-    Reads the longest run on the host."""
+    are kept beside the stack, as the kernel keeps the top of its stack in
+    registers.  Reads the longest run on the host."""
     _check(pts, counts)
     V, L, _ = pts.shape
     dev = pts.device
@@ -66,9 +92,14 @@ def monotone_chain_plain(pts: torch.Tensor, counts: torch.Tensor
         return torch.zeros_like(pts), cnt.to(torch.int32)
     lane_cnt = torch.cat([cnt, cnt])
     upper = torch.arange(2 * V, device=dev) >= V
-    xs = torch.cat([pts[..., 0], pts[..., 0]])          # (2V, L) per lane
-    ys = torch.cat([pts[..., 1], pts[..., 1]])
+    # (2V, L) per lane; the tests read them flushed, as XLA flushes every
+    # operand, and the hulls are the input points as they are: the stacks
+    # hold the flushed coordinates and the slot each entry came from
+    raw_x = torch.cat([pts[..., 0], pts[..., 0]])
+    raw_y = torch.cat([pts[..., 1], pts[..., 1]])
+    xs, ys = _ftz(raw_x), _ftz(raw_y)
     sx, sy = torch.zeros_like(xs), torch.zeros_like(ys)  # the stacks
+    s_slot = torch.zeros_like(xs, dtype=torch.long)
     top = torch.zeros((2 * V,), dtype=torch.long, device=dev)
     # stack[top - 2] and stack[top - 1] of each chain, where they exist
     ax, ay, bx, by = (torch.zeros((2 * V,), dtype=pts.dtype, device=dev)
@@ -93,10 +124,13 @@ def monotone_chain_plain(pts: torch.Tensor, counts: torch.Tensor
                                        sx.gather(1, at)))
         sy.scatter_(1, at, torch.where(live[:, None], py[:, None],
                                        sy.gather(1, at)))
+        s_slot.scatter_(1, at, torch.where(live[:, None], slot[:, None],
+                                           s_slot.gather(1, at)))
         ax, ay = torch.where(live, bx, ax), torch.where(live, by, ay)
         bx, by = torch.where(live, px, bx), torch.where(live, py, by)
         top = torch.where(live, t + 1, top)
-    stack = torch.stack([sx, sy], -1)
+    stack = torch.stack([raw_x.gather(1, s_slot), raw_y.gather(1, s_slot)],
+                        -1)
     lo_top, up_top = top[:V], top[V:]
     h = torch.where(cnt >= 2, lo_top + up_top - 2, cnt)
     n_lower = (lo_top - 1).clamp_min(0)
@@ -130,6 +164,8 @@ def monotone_chain_cuda(pts: torch.Tensor, counts: torch.Tensor
         raise ValueError(f"monotone_chain_cuda: {V} runs of {L} slots: both "
                          f"must stay below 2^31")
     pts, counts = pts.contiguous(), counts.contiguous()
+    if pts.data_ptr() % 8:           # the kernel copies points as float2
+        pts = pts.clone()
     hull = torch.empty_like(pts)
     h = torch.empty_like(counts)
     upper = torch.empty_like(pts)
@@ -140,3 +176,14 @@ def monotone_chain_cuda(pts: torch.Tensor, counts: torch.Tensor
     _build.check(err, "monotone_chain")
     launches += 1
     return hull, h
+
+
+def kernel_shape(V: int, L: int) -> Dict[str, int]:
+    """The stage size (points), ring depth (stages) and window size (stack
+    entries) that a launch of :func:`monotone_chain_cuda` over V runs of L
+    slots takes on the current CUDA device; asks the built library."""
+    out = (ctypes.c_int * 3)()
+    err = _build.library().repro_monotone_chain_shape(int(V), int(L),
+                                                      ctypes.addressof(out))
+    _build.check(err, "monotone_chain shape")
+    return {"stage": out[0], "depth": out[1], "window": out[2]}

@@ -18,10 +18,17 @@ also at their edges: ``prefix_scan`` one below, at and above its tile,
 unaligned row tails and bases, a row of 4096 tiles, float32 of mixed
 magnitudes; ``bincount_tiles`` at T = 1, G and G + 1 where the group size G
 changes with V, across its route boundary, on ids all outside [0, V), and
-on the single-pass route at the shuffle's shape.  ``monotone_chain`` equals
-its plain version bit for bit on the 2-D hull's degenerate runs,
-integer-grid runs, Gaussian runs and a run whose every point is extreme;
-the three geometry plans on the kernel engine equal the dense engine.
+on the single-pass route at the shuffle's shape; ``bincount`` also on
+views at offsets 1-3, every n from 1 to 17, one bucket, every id ignored,
+both sides of its route boundary and two streams at once.
+``monotone_chain`` equals its plain version bit for bit on the 2-D hull's
+degenerate runs, integer-grid runs, Gaussian runs, a run whose every point
+is extreme (and 2^18 such points against the run itself), runs one below,
+at and above each stage, ring and window size the launch takes, chains
+that pop below the shared-memory window, near-collinear float32 runs, x
+ties, subnormal coordinates, clamped counts and a merge-shaped batch of
+2048 runs; the three geometry plans on the kernel engine equal the dense
+engine.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -338,6 +345,83 @@ def test_bincount_kernel_all_dropped(cuda):
     assert not ops.bincount(ids, 7).any()
 
 
+def _bincount_held(ids, n_buckets):
+    got = ops.bincount(ids, n_buckets)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (n_buckets,)
+    assert torch.equal(got, bincount.bincount_plain(ids, n_buckets))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [3, 6, (1 << 20) + 5])
+def test_bincount_kernel_on_offset_views(cuda, offset, n):
+    """ids a view 4, 8 or 12 bytes past a 16-byte boundary: the scalar
+    head and tail around the 16-byte loads."""
+    gen = torch.Generator(device=cuda).manual_seed(offset * n)
+    base = torch.randint(-3, 2051, (n + 4,), dtype=torch.int32, device=cuda,
+                         generator=gen)
+    ids = base[offset:offset + n]
+    assert ids.is_contiguous() and ids.data_ptr() % 16 == 4 * offset
+    _bincount_held(ids, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, 18))
+def test_bincount_kernel_at_small_n(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    ids = torch.randint(-2, 10, (n,), dtype=torch.int32, device=cuda,
+                        generator=gen)
+    _bincount_held(ids, 8)
+
+
+@pytest.mark.cuda
+def test_bincount_kernel_on_one_bucket(cuda):
+    n = (1 << 22) + 3
+    ids = torch.full((n,), 1234, dtype=torch.int32, device=cuda)
+    got = _bincount_held(ids, 2048)
+    assert int(got[1234]) == n and int(got.sum()) == n
+
+
+@pytest.mark.cuda
+def test_bincount_kernel_ignores_every_id_outside(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    outside = torch.tensor([-(1 << 31), -5, -1, 2048, 2049, (1 << 31) - 1],
+                           dtype=torch.int32, device=cuda)
+    ids = outside[torch.randint(0, 6, ((1 << 20) + 1,), device=cuda,
+                                generator=gen)]
+    assert not _bincount_held(ids, 2048).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_buckets", [48 * 1024, 48 * 1024 + 1])
+def test_bincount_kernel_at_its_route_boundary(cuda, n_buckets):
+    gen = torch.Generator(device=cuda).manual_seed(n_buckets)
+    ids = torch.randint(-3, n_buckets + 3, ((1 << 20) + 7,),
+                        dtype=torch.int32, device=cuda, generator=gen)
+    _bincount_held(ids, n_buckets)
+
+
+@pytest.mark.cuda
+def test_bincount_kernel_on_two_streams_at_once(cuda):
+    """Two calls in flight on two streams: each equals torch.bincount."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ids = [torch.randint(0, V, (n,), dtype=torch.int32, device=cuda,
+                         generator=gen)
+           for n, V in (((1 << 22) + 1, 2048), (1 << 22, 3000))]
+    now = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s, x, V in zip(streams, ids, (2048, 3000)):
+        s.wait_stream(now)
+        with torch.cuda.stream(s):
+            got.append(ops.bincount(x, V))
+    torch.cuda.synchronize()
+    for g, x, V in zip(got, ids, (2048, 3000)):
+        assert torch.equal(g, torch.bincount(x, minlength=V).to(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_buckets", [2048, 2049, 4096, 4097, 6144, 8192,
                                        8193, 12288, 16385, 48 * 1024,
@@ -590,6 +674,119 @@ def test_monotone_chain_kernel_refuses_what_it_does_not_take(cuda):
                                                     device=cuda))
     assert hull.shape == (3, 0, 2) and h.tolist() == [0, 0, 0]
     assert ops.launches()["monotone_chain"] == 0
+
+
+def _chain_held(cuda, pts, counts):
+    """One launch of the kernel on (V, L, 2) numpy runs and (V,) counts,
+    equal bit for bit to the plain version on host copies; returns the
+    plain version's (hulls, counts)."""
+    from repro_torch.kernels import chain
+    pts, counts = torch.from_numpy(pts), torch.from_numpy(counts)
+    ops.reset_launches()
+    got_h, got_c = chain.monotone_chain_cuda(pts.to(cuda), counts.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launches()["monotone_chain"] == 1
+    want_h, want_c = chain.monotone_chain_plain(pts, counts)
+    assert torch.equal(got_c.cpu(), want_c)
+    assert torch.equal(got_h.cpu(), want_h)
+    return want_h, want_c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [9, 2048])
+def test_monotone_chain_kernel_across_its_stage_and_window_sizes(cuda, V):
+    """Runs one shorter than, as long as and one longer than a stage, a
+    full ring of stages and the window the launch takes: Gaussian runs, and
+    runs whose every point stays on the lower or the upper chain's stack."""
+    from repro_torch import testing
+    from repro_torch.kernels import chain
+    shape = chain.kernel_shape(V, 1 << 14)
+    sizes = (shape["stage"], shape["stage"] * shape["depth"],
+             shape["window"])
+    lengths = sorted({x + d for x in sizes for d in (-1, 0, 1)})
+    assert chain.kernel_shape(V, lengths[-1]) == shape
+    rng = np.random.default_rng(V)
+    makers = (lambda k: testing.gauss_run(k, rng),
+              lambda k: testing.parabola_run(k, 1.0),
+              lambda k: testing.parabola_run(k, -1.0))
+    runs = [makers[v % 3](lengths[v % len(lengths)]) for v in range(V)]
+    _chain_held(cuda, *testing.pack_runs(runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 2048])
+@pytest.mark.parametrize("side", ["lower", "upper"])
+def test_monotone_chain_kernel_pops_below_its_window(cuda, V, side):
+    """A chain deeper than the shared-memory window, then one point that
+    pops it to the bottom: the pops cross the window into device memory."""
+    from repro_torch import testing
+    from repro_torch.kernels import chain
+    window = chain.kernel_shape(V, 1 << 14)["window"]
+    depth = window + window // 2 + 3
+    pts, counts = testing.pack_runs([testing.deep_pop_run(depth, side)] * V)
+    assert chain.kernel_shape(V, pts.shape[1])["window"] == window
+    _, h = _chain_held(cuda, pts, counts)
+    assert h.tolist() == [3] * V
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["near-collinear", "x-ties", "subnormal"])
+@pytest.mark.parametrize("V", [3, 2048])
+def test_monotone_chain_kernel_on_float32_edge_families(cuda, family, V):
+    """Points of y = x / 3 rounded to float32, some moved by one ulp;
+    columns of points that share x; and Gaussian points scaled into the
+    subnormal range, whose differences and products the turn test flushes
+    to zero as XLA does."""
+    from repro_torch import testing
+    rng = np.random.default_rng(len(family) * V)
+    n = 6000 if V == 3 else 700
+    make = {"near-collinear": testing.near_collinear_run,
+            "x-ties": testing.x_ties_run,
+            "subnormal": lambda k, g: testing.lex_unique(
+                testing.gauss_run(k, g) * np.float32(1e-38))}[family]
+    _chain_held(cuda, *testing.pack_runs([make(n, rng) for _ in range(V)]))
+
+
+@pytest.mark.cuda
+def test_monotone_chain_kernel_keeps_every_point_of_an_extreme_run(cuda):
+    """2^18 points all extreme in float32 (``testing.extreme_run``): the
+    lower chain keeps every point and the upper chain none, so the hull is
+    the run; too long for the plain version's slot loop, held to the run."""
+    from repro_torch import testing
+    from repro_torch.kernels import chain
+    run = torch.from_numpy(testing.extreme_run(1 << 18))[None].to(cuda)
+    hull, h = chain.monotone_chain_cuda(
+        run, torch.tensor([1 << 18], dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert h.tolist() == [1 << 18] and torch.equal(hull, run)
+
+
+@pytest.mark.cuda
+def test_monotone_chain_kernel_clamps_counts(cuda):
+    """Counts of 0, 1 and 2, counts above L (clamped to L) and below 0
+    (clamped to 0), on full rows of sorted points."""
+    from repro_torch import testing
+    rng = np.random.default_rng(5)
+    L = 300
+    counts = np.asarray([0, 1, 2, L + 5, L + 4000, -3, 3, L], np.int32)
+    pts, _ = testing.pack_runs([testing.gauss_run(L, rng)
+                                for _ in counts], L)
+    _, h = _chain_held(cuda, pts, counts)
+    assert h.tolist()[:3] == [0, 1, 2] and h[5] == 0
+
+
+@pytest.mark.cuda
+def test_monotone_chain_kernel_on_a_merge_shaped_batch(cuda):
+    """2048 runs of mixed lengths, shaped like the 2-D hull's merge-0 with
+    a smaller L: most runs partly live, some empty, some full."""
+    from repro_torch import testing
+    rng = np.random.default_rng(2048)
+    L = 1200
+    pts, _ = testing.pack_runs([testing.gauss_run(L, rng)
+                                for _ in range(2048)], L)
+    counts = rng.integers(0, L + 1, 2048).astype(np.int32)
+    counts[:6] = [0, 1, 2, L, L - 1, L]
+    _chain_held(cuda, pts, counts)
 
 
 def _geometry_plans():

@@ -36,6 +36,7 @@ from repro_torch.core import (LocalEngine, MRCost, ReferenceEngine,
                               linear_program_oracle, lp_plan, lp_round_bound)
 from repro_torch.core.geometry import chain, hull3d, lp
 from repro_torch.core.geometry.util import combinations_array
+from repro_torch import testing
 from repro_torch.kernels.chain import monotone_chain_plain
 from repro_torch.testing import assert_same_accum
 
@@ -113,6 +114,86 @@ def test_hull_of_runs_matches_jax(case):
     assert got_h.dtype == torch.float32 and got_c.dtype == torch.int32
     np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+
+
+def _chain_edge_mailbox(case):
+    """A mailbox (with dead slots) of runs from one input family that the
+    card's chain kernel treats apart: chains deeper than its shared-memory
+    window that then pop to the bottom, near-collinear float32 points, x
+    ties, lengths across its stage sizes, runs of 0, 1 and 2 points, and
+    subnormal coordinates."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    runs = {
+        "deep-pop-lower": lambda: [testing.deep_pop_run(600, "lower"),
+                                   testing.deep_pop_run(300, "lower")],
+        "deep-pop-upper": lambda: [testing.deep_pop_run(600, "upper"),
+                                   testing.parabola_run(700, -1.0)],
+        "near-collinear": lambda: [testing.near_collinear_run(600, rng)
+                                   for _ in range(2)],
+        "x-ties": lambda: [testing.x_ties_run(500, rng) for _ in range(2)],
+        "lengths-1023-1025": lambda: [testing.gauss_run(k, rng)
+                                      for k in (1023, 1024, 1025)],
+        "lengths-2047-2049": lambda: [testing.gauss_run(k, rng)
+                                      for k in (2047, 2048, 2049)],
+        "counts-0-1-2": lambda: [[], [[1.5, -2.0]], [[0.5, 3.0], [-1.0, 2.0]],
+                                 testing.gauss_run(5, rng), []],
+        # subnormal coordinates: XLA flushes them to zero in the tests and
+        # keeps them as they are in the hull
+        "subnormal": lambda: [[[0, 0], [1e-40, 5], [1, 1e-41], [2, 3]],
+                              testing.lex_unique(testing.gauss_run(300, rng)
+                                                 * np.float32(1e-38))],
+    }[case]()
+    cap = max(len(r) for r in runs) + 9
+    return _with_dead_slots(runs, len(case), cap)
+
+
+@pytest.mark.parametrize("case", ["deep-pop-lower", "deep-pop-upper",
+                                  "near-collinear", "x-ties",
+                                  "lengths-1023-1025", "lengths-2047-2049",
+                                  "counts-0-1-2", "subnormal"])
+def test_hull_of_runs_matches_jax_on_chain_edge_families(case):
+    """The card kernel's yardstick, monotone_chain_plain through
+    hull_of_runs, against the JAX scan on the families the card tests
+    use: hulls and counts bit for bit."""
+    pts, valid = _chain_edge_mailbox(case)
+    want_h, want_c = jax_chain.hull_of_runs(jnp.asarray(pts),
+                                            jnp.asarray(valid))
+    got_h, got_c = chain.hull_of_runs(torch.from_numpy(pts),
+                                      torch.from_numpy(valid))
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    if case.startswith("deep-pop"):
+        assert got_c.tolist()[0] == 3
+
+
+@pytest.mark.parametrize("n", [4, 5, 4099, 9000])
+def test_extreme_run_is_its_own_hull_in_both_packages(n):
+    """Every point of ``testing.extreme_run`` is a vertex of its hull, in
+    order, under the JAX chain and the port's."""
+    run = testing.extreme_run(n)
+    pts, valid = run[None], np.ones((1, n), bool)
+    want_h, want_c = jax_chain.hull_of_runs(jnp.asarray(pts),
+                                            jnp.asarray(valid))
+    got_h, got_c = chain.hull_of_runs(torch.from_numpy(pts),
+                                      torch.from_numpy(valid))
+    assert int(want_c[0]) == int(got_c[0]) == n
+    np.testing.assert_array_equal(np.asarray(want_h)[0], run)
+    np.testing.assert_array_equal(got_h[0].numpy(), run)
+
+
+def test_extreme_run_keeps_every_turn_at_its_full_size():
+    """At 2^20 points (the card's worst-case run) every test of three
+    consecutive points turns left under the chain's float32 turn test, and
+    every test of the upper chain, which walks back from the last point,
+    pops: the lower chain keeps every point and the upper chain none."""
+    from repro_torch.kernels.chain import _turn
+    r = torch.from_numpy(testing.extreme_run(1 << 20))
+    a, b, p = r[:-2], r[1:-1], r[2:]
+    assert bool((_turn(a[:, 0], a[:, 1], b[:, 0], b[:, 1], p[:, 0], p[:, 1])
+                 > 0).all())
+    last = r[-1].expand(len(b), 2)
+    assert bool((_turn(last[:, 0], last[:, 1], b[:, 0], b[:, 1], a[:, 0],
+                       a[:, 1]) <= 0).all())
 
 
 @pytest.mark.parametrize("name", sorted(DEGENERATE_2D))

@@ -163,6 +163,25 @@ def test_bincount_matches_jax(n, n_buckets, block_t):
                                   .numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["offset-1", "offset-2", "offset-3",
+                                  "one-bucket"])
+def test_bincount_matches_jax_on_offset_views_and_one_bucket(case):
+    """ids a view 1-3 elements into a longer vector (the card kernel's
+    scalar head and tail), and every id in one bucket."""
+    if case == "one-bucket":
+        ids = np.full(1000, 37, np.int32)
+        got = ops.bincount(_t(ids), 64)
+    else:
+        off = int(case[-1])
+        base = RNG.integers(-3, 67, 1003 + off).astype(np.int32)
+        ids = base[off:off + 1003]
+        view = _t(base)[off:off + 1003]
+        assert view.storage_offset() == off
+        got = ops.bincount(view, 64)
+    want = np.asarray(jax_ops.bincount(jnp.asarray(ids), 64, block_t=256))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_bincount_all_dropped_like_jax():
     ids = np.array([-1] * 20 + [7] * 20, np.int32)
     want = np.asarray(jax_ops.bincount(jnp.asarray(ids), 7, block_t=16))
