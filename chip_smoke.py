@@ -146,20 +146,46 @@ exits non-zero:
               the kernel and the dense engine and of scipy's answer (the
               2-D hull's scipy call once), with launches, and
               ``monotone_chain``'s CUDA-event ms beside its bound.
-24. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
+24. recovery — the sort of 2^24 keys and the 2-D hull of 2^24 points
+              through ``run_plan_with_recovery`` on the kernel engine, a
+              shard failure injected at the second shuffle attempt (the
+              local sort, merge-0) and recovered from checkpoints taken
+              after every stage (the sort with synchronous and with
+              asynchronous writes); the sort killed there and resumed on
+              the dense engine from its newest checkpoint: outputs and
+              CostAccum equal the fault-free run bit for bit, the launches
+              of each run (the replay included), the bytes of each
+              checkpoint, host ms of the fault-free and recovered sorts;
+25. obs     — the same two queries under a recording ``Tracer`` on the
+              kernel engine: the measured schedule equals the declared
+              one, outputs and CostAccum equal the untraced query, the
+              trace round-trips through JSON-lines and the Chrome trace;
+              host ms per stage and traced against untraced query ms (the
+              untraced sort within the noise of phase sort-timings);
+26. query-service — the JAX package's observability demo on the card
+              (48 queries, shard failures at attempts 3 and 11, max_batch
+              4, Poisson arrivals at 800 qps on a virtual clock), traced
+              and untraced, against ``run_sequential`` on the dense
+              engine; a closed loop of the default traffic (192 queries,
+              max_batch 16) on the wall clock; a device-bound mix (sort
+              and 2-D hull of 2^22 at M 8192, multisearch of 65,536
+              queries over 1,024 pivots at M 64; 32 queries, max_batch 4),
+              each result equal to the sequential one, its launches
+              counted;
+27. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
               Function) against autograd through the plain version, da and
               dx for a seeded dh, at the zamba2 and rwkv6 training shapes
               (8, 16, 262144) and (8, 32, 131072), T = 1, T off the unroll,
               D off the block and bfloat16 inputs, within 2e-4 (float32)
               and 2e-2 (bfloat16); CUDA-event medians of the kernel and of
               the plain backward at the training shapes, beside the bound;
-25. train-parity — zamba2-1.2b and rwkv6-1.6b at full width and 2 layers,
+28. train-parity — zamba2-1.2b and rwkv6-1.6b at full width and 2 layers,
               float32 compute, TF32 off, one batch of 8 x 512: the loss and
               every gradient leaf through the kernels against the same
               model under ``plain_ssm_scan()`` (neither kernel launched
               there), loss within 1e-4 relative, each leaf within 1e-3 of
               its largest plain gradient;
-26. train   — zamba2-1.2b at full width and depth through the port's
+29. train   — zamba2-1.2b at full width and depth through the port's
               ``Trainer`` (float32 params, bf16 compute, remat "full",
               AdamW, 8 x 2048 tokens, warmup 2), 8 steps with the launch
               counts reset just before and read just after (76 forward and
@@ -167,7 +193,7 @@ exits non-zero:
               finite and the last below the first; host-clock ms of each
               step, tokens/s, peak device memory, then one more step under
               torch.profiler;
-27. train-resume — zamba2-1.2b at full width and 2 layers: 4 steps
+30. train-resume — zamba2-1.2b at full width and 2 layers: 4 steps
               against 2 steps, a checkpoint, a fresh ``Trainer`` resumed
               from it and 2 more, final losses within 1e-5 (checkpoints in
               a temporary directory, deleted afterwards).
@@ -180,7 +206,8 @@ call drops out).  The summary's
 ``flash_attention`` row also gives its launches by route and the float32
 route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
-sort, search, prefix, funnel, crcw, bsp, hull2d, hull3d and lp runs).
+sort, search, prefix, funnel, crcw, bsp, hull2d, hull3d and lp runs, and
+the recovery, obs and query-service runs; ``monotone_chain``'s row too).
 ``monotone_chain``'s row sums the kernel, its plain version (one call on
 host copies: the slot loop takes seconds) and the bound over the checked
 main-path inputs (16 of merge-0's runs, the finalize's run), with their
@@ -1988,6 +2015,331 @@ def geometry_timings(torch, queries, chain_row) -> list:
     return rows
 
 
+#: the recovery, obs and query-service phases: the sort and 2-D hull of
+#: the main path (N_MAIN, M_MAIN and HULL2D), the splitter seeds
+SERVICE_SEEDS = (101, 5)
+#: the device-bound query mix: the service's sort, multisearch and 2-D hull
+#: families at chip_smoke's own sizes, four queries a dispatch
+SERVICE_MIX = dict(families=("sort", "multisearch", "hull2d"), n_queries=32,
+                   sort_n=1 << 22, sort_M=8192, hull_n=1 << 22, hull_M=8192,
+                   ms_queries=65_536, ms_pivots=1_024, ms_M=64)
+#: the JAX package's observability demo (examples/obs_demo.py): its
+#: traffic, its faults, Poisson arrivals at 800 qps, a 2 ms sort tier
+DEMO_TRAFFIC = dict(n_queries=48, seed=7)
+DEMO_FAULTS = dict(fail_at=(3, 11), seed=7)
+
+
+def _ckpt_bytes(ck) -> list:
+    """Bytes of each durable checkpoint of ``ck``, by round."""
+    return [[r, sum(p.stat().st_size for p in
+                    (ck.root / f"step_{r:08d}").glob("*.npy"))]
+            for r in ck.rounds()]
+
+
+def recovery_phase(torch, dev, ops, engine, dense, tmp):
+    """Phase recovery: the main-path sort and the 2-D hull through
+    ``run_plan_with_recovery`` on the kernel engine, a shard failure
+    injected at their second shuffle attempt (the sort's local sort, the
+    hull's merge-0) and recovered from round-boundary checkpoints (every
+    stage; synchronous, then asynchronous writes for the sort); then the
+    sort killed on the kernel engine and resumed on the dense one from its
+    newest checkpoint.  Outputs and CostAccum equal the fault-free run bit
+    for bit; launches counted per run (the replay included); host ms of
+    the fault-free and recovered runs; bytes of each checkpoint."""
+    import numpy as np
+    from repro_torch.core import execute_plan, hull2d_plan, sort_plan
+    from repro_torch.core.recovery import (Checkpointer, FaultConfig,
+                                           ShardFailure, resume_plan,
+                                           run_plan_with_recovery)
+    from repro_torch._tree import tree_leaves
+    sort_seed, hull_seed = SERVICE_SEEDS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sort_seed)
+    x = torch.randn(N_MAIN, device=dev, generator=gen)
+    pts = torch.from_numpy(np.random.default_rng(hull_seed).standard_normal(
+        (HULL2D[0], 2), dtype=np.float32)).to(dev)
+    queries = {"sort": (sort_plan(N_MAIN, M_MAIN), x, sort_seed),
+               "hull2d": (hull2d_plan(*HULL2D), pts, hull_seed)}
+    rec = {"n": N_MAIN, "M": M_MAIN, "hull2d": list(HULL2D)}
+    launches = {}
+
+    def same(got, want, ctx):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            check(g.device == w.device and torch.equal(g, w),
+                  f"{ctx}: differs from the fault-free run")
+
+    for name, (plan, data, key) in queries.items():
+        chain = sum(st.name.startswith(("merge-", "finalize"))
+                    for st in plan.stages)
+        n_shuffles = n_plan_shuffles(plan)
+        want, fault_free = kernel_query(
+            torch, ops, engine, lambda e: execute_plan(plan, e, (data,),
+                                                       key=key),
+            n_shuffles, f"recovery {name} fault-free",
+            others={"monotone_chain": chain} if chain else None)
+        check(int(want.stats.dropped) == 0, f"recovery {name}: dropped")
+        modes = {"sync": False, "async": True} if name == "sort" else \
+            {"sync": False}
+        for mode, async_save in modes.items():
+            ck = Checkpointer(tmp / f"{name}-{mode}", plan=plan, every=1,
+                              async_save=async_save)
+            # the failed attempt shuffles nothing; merge-0's reducer has
+            # run its chain before the shuffle fails, so the replay runs it
+            # once more
+            (got, rep), recovered = kernel_query(
+                torch, ops, engine, lambda e: run_plan_with_recovery(
+                    plan, e, (data,), key=key,
+                    faults=FaultConfig(fail_at=(1,)), checkpointer=ck),
+                n_shuffles, f"recovery {name} {mode}",
+                others={"monotone_chain": chain + 1} if chain else None)
+            same(got, want, f"recovery {name} {mode}")
+            check((rep.restarts, rep.failures_injected, rep.rounds_replayed)
+                  == (1, 1, 0), f"recovery {name} {mode}: {rep}")
+            check(rep.checkpoints_written == len(plan.stages),
+                  f"recovery {name} {mode}: {rep.checkpoints_written} "
+                  f"checkpoints")
+            rec[f"{name}_{mode}"] = {
+                "report": vars(rep), "checkpoint_bytes": _ckpt_bytes(ck),
+                "launches": recovered}
+            launches[f"{name}_{mode}"] = recovered
+        launches[f"{name}_fault_free"] = fault_free
+    # killed on the kernel engine at the local sort, no restarts allowed;
+    # resumed from the newest checkpoint (after the entry) on the dense one
+    plan, data, key = queries["sort"]
+    ck = Checkpointer(tmp / "sort-resume", plan=plan, every=1)
+    try:
+        run_plan_with_recovery(plan, engine, (data,), key=key,
+                               faults=FaultConfig(fail_at=(1,)),
+                               checkpointer=ck, max_restarts=0)
+        check(False, "recovery resume: the injected fault did not fire")
+    except ShardFailure:
+        pass
+    last = ck.latest()
+    want = execute_plan(plan, engine, (data,), key=key)
+    got, rep = resume_plan(plan, dense, (data,), key=key, checkpointer=ck)
+    same(got, want, "recovery resume on the dense engine")
+    check(rep.resumed_at_round == last and rep.restarts == 0,
+          f"recovery resume: {rep}")
+    rec["sort_resume_dense"] = {"resumed_at_round": last,
+                                "report": vars(rep)}
+    # host ms: fault-free, recovered with synchronous and with asynchronous
+    # checkpoint writes (a fresh directory each run)
+    runs = iter(range(10 ** 6))
+
+    def recovered(async_save):
+        ck = Checkpointer(tmp / f"timed-{next(runs)}", plan=plan, every=1,
+                          async_save=async_save)
+        run_plan_with_recovery(plan, engine, (data,), key=key,
+                               faults=FaultConfig(fail_at=(1,)),
+                               checkpointer=ck)
+
+    rec["sort_host_ms"] = {
+        "fault_free": host_ms(lambda: execute_plan(plan, engine, (data,),
+                                                   key=key), torch),
+        "recovered_sync": host_ms(lambda: recovered(False), torch, reps=3),
+        "recovered_async": host_ms(lambda: recovered(True), torch, reps=3)}
+    emit(phase="recovery", launches=launches, **rec)
+    return {"sort": launches["sort_sync"], "hull2d": launches["hull2d_sync"]}
+
+
+def obs_phase(torch, dev, ops, engine, sort_query_ms, tmp):
+    """Phase obs: the main-path sort and 2-D hull queries with a recording
+    Tracer on the kernel engine: the schedule measured from the trace
+    equals the declared one, outputs and CostAccum equal the untraced
+    query, the trace round-trips through JSON-lines and the Chrome trace;
+    host ms per stage (median of 5 traced queries; each stage span ends in
+    the host read of its measured rounds, so it holds its device work) and
+    traced against untraced query ms.  The untraced query stays within the
+    noise of phase sort-timings."""
+    import numpy as np
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import get_engine, hull2d_plan, sort_plan
+    from repro_torch.obs import (Tracer, read_jsonl, summarize,
+                                 write_chrome_trace, write_jsonl)
+    sort_seed, hull_seed = SERVICE_SEEDS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sort_seed)
+    x = torch.randn(N_MAIN, device=dev, generator=gen)
+    pts = torch.from_numpy(np.random.default_rng(hull_seed).standard_normal(
+        (HULL2D[0], 2), dtype=np.float32)).to(dev)
+    out, launches = {}, {}
+    for name, plan, data, key in (("sort", sort_plan(N_MAIN, M_MAIN), x,
+                                   sort_seed),
+                                  ("hull2d", hull2d_plan(*HULL2D), pts,
+                                   hull_seed)):
+        chain = sum(st.name.startswith(("merge-", "finalize"))
+                    for st in plan.stages)
+        tr = Tracer()
+        traced_engine = get_engine("kernel", device=dev, tracer=tr)
+        traced_exe = traced_engine.compile(plan)
+        exe = engine.compile(plan)
+        want = exe(data, key=key)
+        got, launches[name] = kernel_query(
+            torch, ops, traced_engine, lambda e: traced_exe(data, key=key),
+            n_plan_shuffles(plan), f"obs {name}",
+            others={"monotone_chain": chain} if chain else None)
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            check(torch.equal(g, w), f"obs {name}: traced output differs")
+        s = summarize(tr)
+        check(s["schedule_ok"] and s["routes"]["dense"] == 0,
+              f"obs {name}: {s['stages']} {s['routes']}")
+        n = write_jsonl(tr, tmp / f"{name}.jsonl")
+        back = read_jsonl(tmp / f"{name}.jsonl")
+        check(n == len(back) == len(tr)
+              and [e.signature() for e in back] == tr.signatures(),
+              f"obs {name}: JSON-lines round trip")
+        m = write_chrome_trace(tr, tmp / f"{name}.perfetto.json")
+        doc = json.loads((tmp / f"{name}.perfetto.json").read_text())
+        check(m == len(tr) == sum(r["ph"] != "M" for r in doc["traceEvents"]),
+              f"obs {name}: Chrome trace")
+        # per-stage host ms, median over 5 traced queries after the one
+        # above
+        stage_ms = {r["stage"]: [] for r in s["stages"]}
+        for _ in range(5):
+            tr.clear()
+            traced_exe(data, key=key)
+            torch.cuda.synchronize()
+            for r in summarize(tr)["stages"]:
+                stage_ms[r["stage"]].append(r["wall_s"] * 1e3)
+        out[name] = {
+            "stages": [{"stage": r["stage"],
+                        "declared_rounds": r["declared_rounds"],
+                        "measured_rounds": r["measured_rounds"],
+                        "items_sent": r["items_sent"],
+                        "host_ms": statistics.median(stage_ms[r["stage"]])}
+                       for r in s["stages"]],
+            "events": len(back), "chrome_trace_events": m,
+            "traced_ms": host_ms(lambda: traced_exe(data, key=key), torch),
+            "untraced_ms": host_ms(lambda: exe(data, key=key), torch)}
+    untraced = out["sort"]["untraced_ms"]
+    check(abs(untraced - sort_query_ms) <= max(3.0, 0.25 * sort_query_ms),
+          f"obs: untraced sort {untraced:.3f} ms against sort-timings "
+          f"{sort_query_ms:.3f} ms")
+    emit(phase="obs", sort_timings_ms=sort_query_ms, launches=launches,
+         **out)
+    return launches
+
+
+def query_service_phase(torch, dev, ops, engine, dense):
+    """Phase query-service: the JAX package's observability demo on the
+    card (its 48-query traffic, shard failures at shuffle attempts 3 and
+    11, max_batch 4, a 5 ms deadline with a 2 ms sort tier, Poisson
+    arrivals at 800 qps on a VirtualClock), traced and untraced: results
+    equal each other and run_sequential on the dense engine, both failures
+    in the trace, every stage on its schedule.  Then a closed loop of the
+    default traffic (192 queries, max_batch 16) on the wall clock against
+    run_sequential; then the device-bound mix SERVICE_MIX at max_batch 4,
+    each result equal to the sequential one, with its launches."""
+    from repro_torch.core import get_engine
+    from repro_torch.core.recovery import FaultConfig, with_faults
+    from repro_torch.obs import Tracer, summarize
+    from repro_torch.serve import QueryService, VirtualClock
+    from repro_torch.serve import loadgen
+    rec = {}
+
+    def demo(traced):
+        clock = VirtualClock()
+        tr = Tracer(clock=clock) if traced else None
+        eng = with_faults(get_engine("kernel", device=dev, tracer=tr),
+                          FaultConfig(**DEMO_FAULTS))
+        svc = QueryService(eng, max_batch=4, max_wait_ms=5.0, max_retries=2,
+                           clock=clock)
+        cfg = loadgen.TrafficConfig(**DEMO_TRAFFIC)
+        suite = loadgen.make_suite(eng, cfg)
+        wl = loadgen.make_workload(suite, cfg)
+        svc.register(suite["sort"][0], max_wait_ms=2.0)
+        t0 = time.perf_counter()
+        row = loadgen.run_open_loop(svc, wl, offered_qps=800.0, clock=clock,
+                                    process="poisson", seed=cfg.seed)
+        torch.cuda.synchronize()
+        row["wall_s"] = time.perf_counter() - t0
+        results = {t.uid - 1: t.value for t in svc.finished if not t.failed}
+        return row, results, tr, wl
+
+    row, traced, tr, wl = demo(True)
+    plain_row, plain, _, _ = demo(False)
+    loadgen.assert_results_equal(traced, plain, "demo traced vs untraced")
+    seq, _, _ = loadgen.run_sequential(dense, wl)
+    loadgen.assert_results_equal(traced, seq, "demo vs sequential (dense)")
+    s = summarize(tr)
+    check(s["schedule_ok"] and s["recovery"]["failures"] == 2
+          and s["serve"]["completed"] == 48 and s["routes"]["dense"] == 0,
+          f"demo: {s['recovery']} {s['serve']} {s['routes']}")
+    row.pop("metrics")
+    rec["demo"] = {"row": row, "untraced_row": plain_row,
+                   "dispatches": s["serve"]["dispatches"],
+                   "causes": s["serve"]["causes"],
+                   "requeued": s["serve"]["requeued"],
+                   "recovery": s["recovery"], "routes": s["routes"]}
+
+    # closed loop on the wall clock against sequential calls
+    cfg = loadgen.TrafficConfig()
+    wl = loadgen.make_workload(loadgen.make_suite(engine, cfg), cfg)
+    seq, seq_s, _ = loadgen.run_sequential(engine, wl)
+    svc = QueryService(engine, max_batch=16)
+    results, wall = loadgen.run_closed_loop(svc, wl)
+    loadgen.assert_results_equal(results, seq, "closed loop vs sequential")
+    st = svc.stats()
+    rec["closed_loop"] = {
+        "queries": len(wl), "max_batch": 16, "dispatches": st["dispatches"],
+        "mean_occupancy": st["mean_occupancy"], "wall_s": wall,
+        "queries_per_s": len(wl) / wall, "sequential_s": seq_s,
+        "sequential_queries_per_s": len(wl) / seq_s}
+
+    # the device-bound mix: every result equal to the sequential one
+    cfg = loadgen.TrafficConfig(**SERVICE_MIX)
+    wl = loadgen.make_workload(loadgen.make_suite(engine, cfg), cfg)
+    seq, seq_s, _ = loadgen.run_sequential(engine, wl)
+    svc = QueryService(engine, max_batch=4)
+    hulls = sum(q.family == "hull2d" for q in wl)
+    chain = sum(st.name.startswith(("merge-", "finalize"))
+                for st in wl[[q.family for q in wl].index("hull2d")]
+                .plan.stages) if hulls else 0
+    shuffles = sum(n_plan_shuffles(q.plan) for q in wl)
+    t0 = time.perf_counter()
+    (results, _), launches = kernel_query(
+        torch, ops, engine, lambda e: loadgen.run_closed_loop(svc, wl),
+        shuffles, "query-service mix",
+        others={"monotone_chain": hulls * chain} if hulls else None)
+    wall = time.perf_counter() - t0
+    loadgen.assert_results_equal(results, seq, "mix vs sequential")
+    st = svc.stats()
+    rec["mix"] = {
+        "traffic": SERVICE_MIX, "max_batch": 4,
+        "families": {f: sum(q.family == f for q in wl)
+                     for f in SERVICE_MIX["families"]},
+        "dispatches": st["dispatches"],
+        "mean_occupancy": st["mean_occupancy"], "wall_s": wall,
+        "queries_per_s": len(wl) / wall, "sequential_s": seq_s,
+        "sequential_queries_per_s": len(wl) / seq_s,
+        "dropped": sum(int(r.stats.dropped) for r in results.values()),
+        "launches": launches}
+    emit(phase="query-service", **rec)
+    return launches
+
+
+def service_phases(torch, dev, ops, engine, dense, sort_query_ms):
+    """Phases recovery, obs and query-service (checkpoints and traces in a
+    temporary directory, deleted afterwards).  Returns the launches of the
+    shuffle kernels and ``monotone_chain`` on each path."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_service_"))
+    try:
+        rec = recovery_phase(torch, dev, ops, engine, dense, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        obs = obs_phase(torch, dev, ops, engine, sort_query_ms, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        served = query_service_phase(torch, dev, ops, engine, dense)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"recovery-sort": rec["sort"], "recovery-hull2d": rec["hull2d"],
+            "obs-sort": obs["sort"], "obs-hull2d": obs["hull2d"],
+            "query-service": served}
+
+
 def ssm_bwd_inputs(torch, dev, gen, shape):
     """a in [0.8, 1), x and a cotangent dh, seeded, in the shape's dtypes."""
     b, t, d, a_dt, x_dt = shape
@@ -2722,7 +3074,20 @@ def main() -> int:
          launches_by_path=geo_paths)
     by_path.update(geo_paths)
     summary.append(chain_row)
-    # -- 24-27. training --------------------------------------------------
+    # -- 24-26. recovery, observability, the query service -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = service_phases(torch, dev, ops, engine, dense,
+                            sort_ms["kernel_engine"])
+    emit(phase="service-summary", seconds=time.perf_counter() - t0,
+         launches_by_path=served)
+    by_path.update(served)
+    chain_row["launches_by_path"] = {
+        "hull2d": chain_row["launches"],
+        **{path: n["monotone_chain"] for path, n in served.items()
+           if "monotone_chain" in n}}
+    # -- 27-30. training --------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

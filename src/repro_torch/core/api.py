@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .._tree import tree_leaves, tree_map
+from ..obs import NULL_TRACER
 from .plan import Plan, execute_plan
 
 
@@ -99,7 +100,13 @@ class Executable:
     """A Plan bound to one engine (obtain via ``engine.compile(plan)``).
 
     PyTorch runs eagerly, so there is nothing to trace: every call runs the
-    plan's stages on the engine's device.  ``trace_count`` counts calls."""
+    plan's stages on the engine's device.  ``trace_count`` counts calls.
+
+    With a recording tracer on the engine, each call records an
+    ``exe.call`` event (its host seconds) and counts ``exe.calls``; the
+    plan's ``plan.execute`` / ``plan.stage`` spans record inside it.  The
+    JAX package also records ``exe.compile`` when jax lowers the round
+    program; the port compiles nothing, so it never emits one."""
 
     #: distinct batch sizes whose callables are retained per executable
     batch_cache_size = 8
@@ -115,9 +122,20 @@ class Executable:
         """Number of runs of the round program."""
         return self._calls
 
-    def __call__(self, *inputs, key=None):
+    def _run(self, inputs, key):
         self._calls += 1
         return execute_plan(self.plan, self.engine, inputs, key=key)
+
+    def __call__(self, *inputs, key=None):
+        tr = getattr(self.engine, "tracer", NULL_TRACER)
+        if not tr.enabled:
+            return self._run(inputs, key)
+        t0 = tr.clock()
+        out = self._run(inputs, key)
+        tr.event("exe.call", _dur=tr.clock() - t0, plan=self.plan.name,
+                 backend=getattr(self.engine, "name", "?"))
+        tr.count("exe.calls")
+        return out
 
     # -- batching ------------------------------------------------------------
     def _batch_keys(self, keys, B: int) -> list:
@@ -136,7 +154,8 @@ class Executable:
         Inputs are stacked along a new leading axis of size B; ``keys`` is
         an optional length-B sequence of per-query keys.  The queries run
         one after another on the engine and their outputs are stacked, bit
-        for bit what B single calls give."""
+        for bit what B single calls give.  As in the JAX package, the rows
+        record no ``exe.call`` events."""
         B = int(n_queries)
         cached = self._batched.lookup(B)
         if cached is not None:
@@ -144,7 +163,7 @@ class Executable:
 
         def call(*inputs, keys=None):
             ks = self._batch_keys(keys, B)
-            outs = [self(*tree_map(lambda a: a[i], tuple(inputs)), key=ks[i])
+            outs = [self._run(tree_map(lambda a: a[i], tuple(inputs)), ks[i])
                     for i in range(B)]
             return tree_map(lambda *leaves: torch.stack(leaves), *outs)
 

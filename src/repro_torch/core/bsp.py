@@ -18,7 +18,7 @@ import torch
 from .._tree import tree_flatten, tree_leaves, tree_map
 from .costmodel import CostAccum, MRCost
 from .mrmodel import Mailbox
-from .plan import Plan, PlanState, custom_stage
+from .plan import Plan, PlanState, custom_stage, dtype_name
 
 
 class BSPProgram(NamedTuple):
@@ -67,7 +67,7 @@ def bsp_plan(prog: BSPProgram, n_supersteps: int, M: int, n_procs: int,
     leaves = [torch.as_tensor(l) for l in leaves]
     fingerprint = ("bsp", prog.superstep, n_supersteps, M, n_procs,
                    _structure_signature(structure),
-                   tuple((str(l.dtype), tuple(l.shape)) for l in leaves))
+                   tuple((dtype_name(l.dtype), tuple(l.shape)) for l in leaves))
 
     def prologue(inputs, keys, device):
         proc_state = tree_map(lambda x: torch.as_tensor(x, device=device),

@@ -122,8 +122,10 @@ class MREngine:
             exe = cache.store(key, Executable(plan, self))
             if tr.enabled:
                 tr.event("cache.miss", plan=plan.name, backend=self.name)
+                tr.count("plan_cache.misses")
         elif tr.enabled:
             tr.event("cache.hit", plan=plan.name, backend=self.name)
+            tr.count("plan_cache.hits")
         return exe
 
     def cache_info(self):
@@ -172,17 +174,27 @@ class MREngine:
     def run_rounds(self, f: RoundFn, box: Mailbox, n_rounds: int,
                    capacity: Optional[int] = None,
                    accum: Optional[CostAccum] = None,
-                   n_nodes: Optional[int] = None
+                   n_nodes: Optional[int] = None,
+                   checkpointer=None, round_offset: int = 0
                    ) -> Tuple[Mailbox, CostAccum]:
         """Drive R rounds, returning the final mailbox and accumulated cost.
 
         Every round runs at (n_nodes, capacity), so a first round whose
         target differs from the entry box is a shape-change round and the
-        rest are shape-uniform."""
+        rest are shape-uniform.
+
+        ``checkpointer`` (a :class:`repro_torch.core.recovery.Checkpointer`)
+        activates the ``checkpoint_every`` policy: after each round the
+        ``{"box", "accum"}`` state is offered to ``maybe_save`` under the
+        global round index ``round_offset + r + 1`` — the round-boundary
+        snapshot recovery replays from."""
         acc = accum if accum is not None else CostAccum.zero(self.device)
         for r in range(n_rounds):
             box, stats = self.run_round(f, box, r, capacity, n_nodes=n_nodes)
             acc = acc.add_round_stats(stats)
+            if checkpointer is not None:
+                checkpointer.maybe_save(round_offset + r + 1,
+                                        {"box": box, "accum": acc})
         return box, acc
 
     def run_program(self, prog: RoundProgram, box: Mailbox,
@@ -193,17 +205,22 @@ class MREngine:
                                n_nodes=prog.n_nodes)
 
     def run_stages(self, stages, box: Mailbox,
-                   accum: Optional[CostAccum] = None
+                   accum: Optional[CostAccum] = None,
+                   checkpointer=None, round_offset: int = 0
                    ) -> Tuple[Mailbox, CostAccum]:
         """Drive a heterogeneous round schedule: ``stages`` is a sequence of
         ``(round_fn, capacity)`` pairs or ``(round_fn, capacity, n_nodes)``
-        triples, each executed as one round."""
+        triples, each executed as one round.  ``checkpointer`` and
+        ``round_offset`` as in :meth:`run_rounds`."""
         acc = accum if accum is not None else CostAccum.zero(self.device)
         for r, stage in enumerate(stages):
             fn, cap = stage[0], stage[1]
             V = stage[2] if len(stage) > 2 else None
             box, stats = self.run_round(fn, box, r, capacity=cap, n_nodes=V)
             acc = acc.add_round_stats(stats)
+            if checkpointer is not None:
+                checkpointer.maybe_save(round_offset + r + 1,
+                                        {"box": box, "accum": acc})
         return box, acc
 
     # -- host-side validity check -------------------------------------------
@@ -347,6 +364,7 @@ class LocalEngine(MREngine):
             if tr.enabled:
                 tr.trace_event("shuffle.route", impl=impl, n=n,
                                n_nodes=int(n_nodes), backend=self.name)
+                tr.metrics.counter(f"shuffle.route.{impl}").inc()
         return fn(dests, payload, n_nodes, capacity)
 
 

@@ -29,7 +29,7 @@ import torch
 
 from .costmodel import CostAccum, MRCost, tree_height
 from .mrmodel import scatter_or_drop
-from .plan import Plan, PlanState, custom_stage, execute_plan
+from .plan import Plan, PlanState, custom_stage, dtype_name, execute_plan
 
 Semigroup = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -109,7 +109,7 @@ def funnel_write_plan(n_procs: int, n_cells: int, M: int, op: Semigroup, *,
     d = max(2, M // 2)
     L = tree_height(max(P, 2), d)
     fingerprint = ("funnel-write", P, N, M, op, _static_scalar(identity),
-                   str(dtype), bool(shape))
+                   dtype_name(dtype), bool(shape))
     n_groups_seq = []                    # groups alive after each level
     g = P
     for _ in range(L):

@@ -32,8 +32,8 @@ import torch
 
 from .costmodel import CostAccum, MRCost, log_M, tree_height
 from .mrmodel import scatter_or_drop
-from .plan import (Plan, account_stage, dtype_max, entry_stage, round_stage,
-                   torch_dtype)
+from .plan import (Plan, account_stage, dtype_max, dtype_name, entry_stage,
+                   round_stage, torch_dtype)
 from .prefix import random_indexing
 
 
@@ -189,7 +189,7 @@ def multisearch_plan(n_queries: int, n_pivots: int, M: int, *,
     if align is not None:
         V = int(align(V))
     cap = int(capacity) if capacity is not None else max(1, n_q)
-    fingerprint = ("multisearch", n_q, m, M, str(dtype), cap, pipelined, V,
+    fingerprint = ("multisearch", n_q, m, M, dtype_name(dtype), cap, pipelined, V,
                    bool(shape))
 
     def prologue(inputs, keys, device):

@@ -25,7 +25,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..obs import NULL_TRACER, round_event as _round_event
+from ..obs import NULL_TRACER, plan_token, round_event as _round_event
 from .costmodel import CostAccum
 from .mrmodel import Mailbox
 
@@ -166,6 +166,16 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def dtype_name(dtype) -> str:
+    """A dtype's name as numpy spells it (``'float32'``, ``'bfloat16'``):
+    the token plan fingerprints carry, equal to the JAX package's
+    ``str(dtype)``, so :func:`~repro_torch.obs.plan_token` and
+    :func:`~repro_torch.core.recovery.plan_digest` equal JAX's."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
+
+
 def dtype_max(dtype: torch.dtype):
     """The largest value of a torch dtype (the sort and search padding)."""
     if dtype.is_floating_point:
@@ -202,18 +212,70 @@ def _check_inputs(plan: Plan, inputs: Tuple) -> None:
                 f"rebuild the plan for this dtype")
 
 
-def execute_plan(plan: Plan, engine, inputs: Tuple, key=None):
+def execute_plan(plan: Plan, engine, inputs: Tuple, key=None,
+                 checkpointer=None):
     """Run a plan's stages in order on ``engine`` and return its outputs.
 
-    The prologue receives the engine's device and moves the inputs there."""
+    The prologue receives the engine's device and moves the inputs there.
+
+    ``checkpointer`` (a :class:`repro_torch.core.recovery.Checkpointer`)
+    turns on the ``checkpoint_every`` policy: after each stage the full
+    ``{"box", "carry", "accum"}`` state is offered to ``maybe_save`` at
+    that stage's cumulative round index, producing the round-boundary
+    snapshots :func:`~repro_torch.core.recovery.run_plan_with_recovery` and
+    :func:`~repro_torch.core.recovery.resume_plan` replay from.
+
+    With a recording tracer on the engine, each stage runs under a
+    ``plan.stage`` span inside one ``plan.execute`` span (reading the
+    measured deltas is a host sync: the opt-in cost of tracing).  The
+    default ``NULL_TRACER`` takes the plain loop, with no sync."""
     _check_inputs(plan, inputs)
     keys = plan.split_key(key)
     carry = plan.prologue(tuple(inputs), keys, engine.device)
     state = PlanState(box=None, carry=carry,
                       accum=CostAccum.zero(engine.device))
-    for stage in plan.stages:
-        state = stage.apply(engine, state)
+    if checkpointer is not None:
+        from .recovery import _apply_stages
+        state = _apply_stages(plan, engine, state, 0, checkpointer)
+    else:
+        tr = getattr(engine, "tracer", NULL_TRACER)
+        if tr.enabled:
+            state = _traced_stages(plan, engine, state, tr)
+        else:
+            for stage in plan.stages:
+                state = stage.apply(engine, state)
     return plan.epilogue(state)
+
+
+def _traced_apply(plan: Plan, engine, i: int, state: PlanState,
+                 tr) -> PlanState:
+    """Stage ``i`` under a ``plan.stage`` span that records its declared
+    schedule beside the measured ``CostAccum`` deltas (rounds, items sent,
+    drops), so :func:`repro_torch.obs.summarize` can check measured ==
+    declared.  A stage killed mid-apply by an injected fault records its
+    span with ``aborted=True``."""
+    stage = plan.stages[i]
+    r0 = int(state.accum.rounds)
+    c0 = float(state.accum.communication)
+    d0 = int(state.accum.dropped)
+    with tr.span("plan.stage", plan=plan.name, stage=stage.name,
+                 rounds=stage.rounds, capacity=stage.capacity,
+                 n_nodes=stage.n_nodes, shuffles=stage.shuffles) as sp:
+        state = stage.apply(engine, state)
+        sp["measured_rounds"] = int(state.accum.rounds) - r0
+        sp["items_sent"] = int(float(state.accum.communication) - c0)
+        sp["dropped"] = int(state.accum.dropped) - d0
+    return state
+
+
+def _traced_stages(plan: Plan, engine, state: PlanState, tr) -> PlanState:
+    """The observable stage loop of :func:`execute_plan`: one
+    ``plan.execute`` span wrapping one ``plan.stage`` span per stage."""
+    with tr.span("plan.execute", plan=plan.name, digest=plan_token(plan),
+                 backend=getattr(engine, "name", "?")):
+        for i in range(len(plan.stages)):
+            state = _traced_apply(plan, engine, i, state, tr)
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ import torch
 
 from .._device import as_device
 from .costmodel import CostAccum, MRCost, tree_height
-from .plan import Plan, account_stage, entry_stage, round_stage, torch_dtype
+from .plan import (Plan, account_stage, dtype_name, entry_stage, round_stage,
+                   torch_dtype)
 
 
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +80,7 @@ def prefix_plan(n: int, M: int, *, dtype=torch.int32,
     L = tree_height(max(n, 2), d)
     if physical:
         return _physical_prefix_plan(n, M, d, dtype, inclusive, shape)
-    fingerprint = ("prefix", n, M, str(dtype), bool(inclusive))
+    fingerprint = ("prefix", n, M, dtype_name(dtype), bool(inclusive))
 
     # Static accounting: only non-empty nodes communicate (implicit tree).
     up_costs = []
@@ -137,7 +138,7 @@ def _physical_prefix_plan(n: int, M: int, d: int, dtype: torch.dtype,
     while sizes[-1] > 1:
         sizes.append(-(-sizes[-1] // d))
     J = len(sizes) - 1                     # up rounds beyond the entry
-    fingerprint = ("prefix-physical", n, M, str(dtype), bool(inclusive),
+    fingerprint = ("prefix-physical", n, M, dtype_name(dtype), bool(inclusive),
                    bool(shape))
 
     def prologue(inputs, keys, device):

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from .costmodel import CostAccum, MRCost, log_M
-from .plan import (Plan, account_stage, dtype_max, entry_stage, round_stage,
-                   torch_dtype)
+from .plan import (Plan, account_stage, dtype_max, dtype_name, entry_stage,
+                   round_stage, torch_dtype)
 
 
 def brute_force_sort(x: torch.Tensor, M: int,
@@ -177,7 +177,7 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
     dtype = torch_dtype(dtype)
     if n <= 1:
         return Plan(
-            name="sort", fingerprint=("sort-trivial", n, str(dtype)),
+            name="sort", fingerprint=("sort-trivial", n, dtype_name(dtype)),
             n_nodes=1, stages=(),
             prologue=lambda inputs, keys, device: {
                 "x": torch.as_tensor(inputs[0], device=device)},
@@ -195,7 +195,7 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
     B = max(2, math.ceil(V ** (1.0 / levels))) if V > 1 else 1
     s = pivot_sample_size(n, V, oversample)       # static, = runtime sample
     piv_rounds = max(1, log_M(max(s, 2), M_eff))
-    fingerprint = ("sort", n, M, str(dtype), levels, oversample,
+    fingerprint = ("sort", n, M, dtype_name(dtype), levels, oversample,
                    float(slack), V, bool(shape))
 
     def group_nodes(d):

@@ -372,7 +372,10 @@ int repro_monotone_chain(const float* pts, const int* counts, long long V,
   const size_t smem = smem_bytes(s);
   void (*kern)(const float2*, const int*, int, int, int, float2*, int*,
                float2*) = s.depth == 4 ? chain_runs<4> : chain_runs<2>;
-  if (smem > 48 * 1024) {
+  // Above 48 KB a block's shared memory (the dynamic part and the static
+  // tops/bottoms) needs the opt-in; k = 3 or 4 asks exactly 48 KB of
+  // dynamic memory, which with the static words is past the default.
+  if (smem >= 48 * 1024) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;

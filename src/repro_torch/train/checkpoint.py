@@ -12,7 +12,8 @@ the JAX trainer wrote restores into this port's trainer and back.
     ``tree_flatten_with_path`` names them), and the metadata (step, config
     name, data seed).
   * *Async*: :class:`AsyncSaver` copies the tensors to host memory on the
-    caller's thread and writes them on a background thread.
+    caller's thread (CPU tensors too, so later in-place updates cannot
+    reach the writer) and writes them on a background thread.
 
 numpy has no bfloat16: a bfloat16 tensor is saved as float32 (exactly) and
 cast back to the target's dtype on restore.
@@ -70,6 +71,16 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _snapshot(leaf) -> np.ndarray:
+    """:func:`_host`, never a view of memory the caller may change after
+    the call (a CPU tensor's ``.numpy()`` shares its storage; the
+    optimizers update parameters in place)."""
+    arr = _host(leaf)
+    if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
+        return arr                       # .cpu() made the copy
+    return arr.copy()
+
+
 def _leaf_fname(index: int, key: str) -> str:
     """Collision-free tensor filename: an enumeration prefix plus a
     percent-quoted slice of the key (lookup goes through the manifest)."""
@@ -123,7 +134,7 @@ class AsyncSaver:
                    extra_meta=None) -> None:
         self.wait()
         leaves, structure = tree_flatten(tree)
-        host_tree = tree_unflatten(structure, [_host(x) for x in leaves])
+        host_tree = tree_unflatten(structure, [_snapshot(x) for x in leaves])
 
         def _work():
             try:

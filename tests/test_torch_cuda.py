@@ -28,7 +28,8 @@ at and above each stage, ring and window size the launch takes, chains
 that pop below the shared-memory window, near-collinear float32 runs, x
 ties, subnormal coordinates, clamped counts and a merge-shaped batch of
 2048 runs; the three geometry plans on the kernel engine equal the dense
-engine.
+engine.  The fault proxy keeps the card and the kernels, and a traced, a
+recovered and a served query on the card equal the plain ones.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -693,11 +694,13 @@ def _chain_held(cuda, pts, counts):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V", [9, 2048])
+@pytest.mark.parametrize("V", [9, 300, 500, 2048])
 def test_monotone_chain_kernel_across_its_stage_and_window_sizes(cuda, V):
     """Runs one shorter than, as long as and one longer than a stage, a
     full ring of stages and the window the launch takes: Gaussian runs, and
-    runs whose every point stays on the lower or the upper chain's stack."""
+    runs whose every point stays on the lower or the upper chain's stack.
+    At V 300 and 500 (three and four blocks an SM on 132 SMs) a block asks
+    exactly 48 KB of dynamic shared memory."""
     from repro_torch import testing
     from repro_torch.kernels import chain
     shape = chain.kernel_shape(V, 1 << 14)
@@ -832,3 +835,102 @@ def test_geometry_plans_on_the_card_match_the_dense_engine(cuda, family):
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert g.device.type == "cuda"
         assert torch.equal(g, w)
+
+
+def _sort_query(cuda, n=1 << 14, M=256, seed=3):
+    from repro_torch.core import sort_plan
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return sort_plan(n, M), torch.randn(n, device=cuda, generator=gen), seed
+
+
+@pytest.mark.cuda
+def test_fault_proxy_keeps_the_card_and_the_kernels(cuda, tmp_path):
+    """``with_faults`` of a kernel engine on the card keeps its device: a
+    recovered query's outputs live on the card, equal the fault-free run,
+    and every shuffle it ran (the replay included) launched both shuffle
+    kernels."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import execute_plan, get_engine
+    from repro_torch.core.recovery import (Checkpointer, FaultConfig,
+                                           run_plan_with_recovery,
+                                           with_faults)
+    eng = get_engine("kernel", device=cuda)
+    proxy = with_faults(eng, FaultConfig())
+    assert proxy.device == eng.device and proxy.device.type == "cuda"
+    plan, x, key = _sort_query(cuda)
+    want = execute_plan(plan, eng, (x,), key=key)
+    ops.reset_launches()
+    ck = Checkpointer(tmp_path, plan=plan, every=1)
+    got, rep = run_plan_with_recovery(plan, eng, (x,), key=key,
+                                      faults=FaultConfig(fail_at=(1,)),
+                                      checkpointer=ck)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    assert rep.restarts == 1 and rep.failures_injected == 1
+    # entry, the failed local-sort attempt (no shuffle), its replay
+    assert launches["bincount_tiles"] == launches["bitonic_sort"] == 2
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    tree, _ = ck.load(ck.latest(), device=cuda)
+    assert tree["box"].valid.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sort", "hull2d"])
+def test_traced_and_recovered_queries_on_the_card(cuda, family, tmp_path):
+    """A traced query and a recovered one (asynchronous checkpoints) on the
+    card's kernel engine equal the untraced fault-free query; the trace
+    keeps the schedule and sees only kernel routes."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import get_engine, hull2d_plan
+    from repro_torch.core.recovery import (Checkpointer, FaultConfig,
+                                           run_plan_with_recovery)
+    from repro_torch.obs import Tracer, summarize
+    if family == "sort":
+        plan, x, key = _sort_query(cuda)
+    else:
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(5)
+        x, key = torch.randn(1 << 14, 2, device=cuda, generator=gen), 5
+        plan = hull2d_plan(1 << 14, 256)
+    want = get_engine("kernel", device=cuda).compile(plan)(x, key=key)
+    tr = Tracer()
+    traced = get_engine("kernel", device=cuda, tracer=tr).compile(plan)(
+        x, key=key)
+    s = summarize(tr)
+    assert s["schedule_ok"] and s["routes"]["dense"] == 0
+    ck = Checkpointer(tmp_path, plan=plan, every=1, async_save=True)
+    recovered, rep = run_plan_with_recovery(
+        plan, get_engine("kernel", device=cuda), (x,), key=key,
+        faults=FaultConfig(fail_at=(1,)), checkpointer=ck)
+    assert rep.restarts == 1
+    for out in (traced, recovered):
+        for g, w in zip(tree_leaves(out), tree_leaves(want)):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_query_service_on_the_card_equals_sequential(cuda):
+    """A ``QueryService`` drain on the card's kernel engine: every result
+    equals the sequential call, on the card, and every shuffle launched
+    the kernels."""
+    from repro_torch.core import get_engine
+    from repro_torch.serve import QueryService, VirtualClock
+    from repro_torch.serve import loadgen
+    eng = get_engine("kernel", device=cuda)
+    cfg = loadgen.TrafficConfig(families=("sort", "multisearch", "hull2d"),
+                                n_queries=24, seed=2)
+    wl = loadgen.make_workload(loadgen.make_suite(eng, cfg), cfg)
+    seq, _, _ = loadgen.run_sequential(eng, wl)
+    ops.reset_launches()
+    eng.route_log.reset()
+    svc = QueryService(eng, max_batch=4, clock=VirtualClock())
+    results, _ = loadgen.run_closed_loop(svc, wl)
+    torch.cuda.synchronize()
+    loadgen.assert_results_equal(results, seq, "service vs sequential")
+    assert all(leaf.device.type == "cuda" for r in results.values()
+               for leaf in (r.stats.rounds,))
+    assert eng.route_log.dense == 0
+    assert ops.launches()["bitonic_sort"] == eng.route_log.kernel > 0
+    assert ops.launches()["monotone_chain"] > 0

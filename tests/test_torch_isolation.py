@@ -30,8 +30,9 @@ def test_sorts_on_cpu_with_jax_blocked():
     fail, the port imports and sorts on the CPU through the kernel engine,
     runs a multisearch, a physical prefix, a write funnel, a BSP plan, a
     2-D hull, a 3-D hull and an LP there, prefills and serves a reduced
-    TinyLlama, prefills and decodes a reduced zamba2 and RWKV6, and trains
-    a reduced zamba2 for 2 steps."""
+    TinyLlama, prefills and decodes a reduced zamba2 and RWKV6, trains
+    a reduced zamba2 for 2 steps, recovers a sort from an injected fault,
+    traces a sort, and drains a ``QueryService``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -121,6 +122,37 @@ def test_sorts_on_cpu_with_jax_blocked():
         assert [s for s, _ in hist] == [1, 2]
         assert all(np.isfinite(l) for _, l in hist)
         assert int(tr.opt_state.step) == 2
+        import tempfile
+        from repro_torch.core.recovery import (Checkpointer, FaultConfig,
+                                               run_plan_with_recovery)
+        from repro_torch.obs import Tracer, summarize, write_jsonl
+        plan = sort_plan(500, 16)
+        with tempfile.TemporaryDirectory() as d:
+            res, rep = run_plan_with_recovery(
+                plan, eng, (x,), key=1, faults=FaultConfig(fail_at=(1,)),
+                checkpointer=Checkpointer(d, plan=plan, every=1,
+                                          async_save=True))
+            assert rep.restarts == 1 and rep.checkpoints_written > 0
+            assert torch.equal(res.values,
+                               torch.sort(torch.from_numpy(x)).values)
+            tr = Tracer()
+            traced = get_engine("kernel", device="cpu", tracer=tr).compile(
+                plan)(x, key=1)
+            assert torch.equal(traced.values, res.values)
+            assert summarize(tr)["schedule_ok"]
+            assert write_jsonl(tr, d + "/t.jsonl") == len(tr)
+        from repro_torch.serve import QueryService, VirtualClock
+        from repro_torch.serve.loadgen import (TrafficConfig, make_suite,
+                                               make_workload, run_sequential,
+                                               assert_results_equal)
+        svc = QueryService(eng, max_batch=4, clock=VirtualClock())
+        wl = make_workload(make_suite(eng, TrafficConfig(n_queries=12)),
+                           TrafficConfig(n_queries=12))
+        tickets = [svc.submit(q.plan, *q.inputs, key=q.key) for q in wl]
+        svc.drain()
+        assert all(t.done and not t.failed for t in tickets)
+        assert_results_equal({q.uid: t.value for q, t in zip(wl, tickets)},
+                             run_sequential(eng, wl)[0], "service")
         assert not [m for m, mod in sys.modules.items() if mod is not None
                     and (m in ("jax", "repro")
                          or m.startswith(("jax.", "repro.")))]
