@@ -20,7 +20,12 @@ exits non-zero:
               pairs unchanged; ``bincount_tiles`` at T = 1, G and G + 1
               where its group size G changes with V, both sides of its
               route boundary, and on ids all outside [0, V), whole tiles of
-              one bucket and the two mixed, each call on its route;
+              one bucket and the two mixed, each call on its route; with a
+              batch axis (B, T, tile_n) at a sort query's tiles with B 4, a
+              group size that does not divide T and the global route, one
+              launch each, each query's tables also equal to its own
+              launch; what the network gives on tied, ``+inf`` and NaN
+              keys, recorded;
 4. shuffle  — the kernel shuffle against the dense shuffle at both calls of
               a main-path query: mailbox, validity and RoundStats identical;
 5. main     — the §4.3 sample sort of n = 2^24 float32 keys at M = 8192
@@ -28,12 +33,31 @@ exits non-zero:
               torch.sort, no drops, CostAccum equal to the dense engine fed
               the same sample, every shuffle routed to the kernels, and both
               kernels launched, every ``bincount_tiles`` launch on its
-              single-pass route; then a levels=2 query and exe.batch(4);
+              single-pass route; then a levels=2 query;
+5b. batch-* — every plan family's ``exe.batch(B)`` on the kernel engine
+              at this script's main sizes: B 4 for the sort of 2^24 keys,
+              the search, the physical prefix of 2^24 (inclusive and
+              exclusive), the bsp bucket sort of 2^23 keys and the 2-D hull
+              of 2^24 points, B 2 for the funnel, the 3-D hull and the LP
+              (below).  Each row of every output and stats field equals
+              its single call, with no drops (the sort and the 2-D hull,
+              whose entry capacity holds with high probability, record
+              their drops and hold each row that does not drop to its
+              answer); the launch counts and route
+              log, set to 0 just before and read just after, equal one
+              single query's (the batch is one program: one
+              ``bincount_tiles`` and one ``bitonic_sort`` a round, the 2-D
+              hull's ``monotone_chain`` once a chaining round), every
+              shuffle on the kernels; host-clock medians of 5 of the batch
+              against B single calls in a row; the sort's and the 2-D
+              hull's batch and single calls once each under torch.profiler;
 6. timings  — CUDA-event medians of each kernel, its plain version and its
               library yardstick at the main path's inputs, beside the
               bound, per call; ``bincount_tiles`` also on tiles whose ids
               all name one bucket (every shared-memory atomic of a warp on
-              one word); and host-clock medians of whole sort queries;
+              one word) and on four sort queries' entry tiles in one
+              launch, (4, 4096, 4096); and host-clock medians of whole sort
+              queries;
 7. lm-kernels — ``flash_attention`` against its plain version at TinyLlama's
               prefill shape (b 8, hq 32, hkv 4, s 2048, d 64, causal) in
               bfloat16 and float32, at the edge shapes of
@@ -171,7 +195,8 @@ exits non-zero:
               and 2-D hull of 2^22 at M 8192, multisearch of 65,536
               queries over 1,024 pivots at M 64; 32 queries, max_batch 4),
               each result equal to the sequential one, its launches
-              counted;
+              counted (one shuffle a round for each batched dispatch); the
+              service's queries/s beside sequential calls' for both;
 27. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
               Function) against autograd through the plain version, da and
               dx for a seeded dh, at the zamba2 and rwkv6 training shapes
@@ -206,8 +231,9 @@ call drops out).  The summary's
 ``flash_attention`` row also gives its launches by route and the float32
 route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
-sort, search, prefix, funnel, crcw, bsp, hull2d, hull3d and lp runs, and
-the recovery, obs and query-service runs; ``monotone_chain``'s row too).
+sort, the batch-* runs, search, prefix, funnel, crcw, bsp, hull2d, hull3d
+and lp runs, and the recovery, obs and query-service runs;
+``monotone_chain``'s row too).
 ``monotone_chain``'s row sums the kernel, its plain version (one call on
 host copies: the slot loop takes seconds) and the bound over the checked
 main-path inputs (16 of merge-0's runs, the finalize's run), with their
@@ -255,15 +281,17 @@ DECODE_WINDOW = 5                          # decode steps in a profiled window
 #: flash_attention shapes (b, hq, hkv, s_q, s_k, d, causal): TinyLlama's
 #: prefill, then the edge shapes of tests/test_kernels.py, one query
 #: against a 512-key cache, lengths off the wgmma kernel's tiles (128
-#: queries, 64 keys) at d 64 and 128, every head dim causal and ragged, and
-#: d 128 causal at s 2048
+#: queries, 64 keys) at d 64 and 128, every head dim causal and ragged,
+#: d 128 causal at s 2048, and the padded head dims 16 (reduced configs)
+#: and 112 (kimi-k2)
 FLASH_MAIN = (LM_B, 32, 4, LM_S, LM_S, 64, True)
 FLASH_EDGE = ((2, 4, 2, 128, 128, 64, True), (1, 2, 2, 200, 200, 32, False),
               (1, 8, 2, 256, 256, 64, True), (1, 2, 1, 100, 100, 48, True),
               (2, 4, 4, 64, 64, 128, False), (2, 4, 4, 1, 512, 64, False),
               (1, 4, 2, 300, 300, 128, True), (2, 4, 4, 200, 200, 64, False),
               (1, 2, 2, 77, 333, 128, False), (1, 4, 1, 129, 129, 32, True),
-              (1, 4, 4, 65, 65, 48, False), (2, 16, 4, LM_S, LM_S, 128, True))
+              (1, 4, 4, 65, 65, 48, False), (2, 16, 4, LM_S, LM_S, 128, True),
+              (1, 4, 2, 100, 100, 16, True), (2, 8, 2, 300, 300, 112, True))
 #: bitonic_sort row widths that cross the kernel's mechanisms: one block
 #: of 4096 elements holding many rows, the register chunks (16), the lane
 #: and warp bits of a layout, a row per block (4096 to 16384), and the
@@ -306,6 +334,12 @@ SCAN_REPEATS = 5
 #: bincount (n, n_buckets): the sort's destinations; then the awkward
 #: shapes of tests/test_kernels.py, and a histogram above shared memory
 BINCOUNT_MAIN = (1 << 24, 2048)
+#: batched bincount_tiles (B, T, tile_n, V): a sort query's tiles at B = 4
+#: on the single-pass route and, with V above 48 Ki buckets, on the global
+#: route; a group size G = 8 that does not divide T; and the global route
+#: with two 64-row chunks of its column scan a query
+BT_BATCH = ((4, 4096, 4096, 2048), (4, 4096, 4096, 1 << 16),
+            (4, 13, 1024, 2048), (4, 70, 16, 1 << 16))
 BINCOUNT_EDGE = ((0, 8), (13, 64), (31, 5), (6, 100), (1 << 20, 100000))
 #: the searching and simulation paths, each on the kernel engine beside the
 #: dense one: multisearch_plan(queries, pivots, M) (f 32, L 2, K 3, V 1060;
@@ -1302,12 +1336,16 @@ def kernel_query(torch, ops, engine, run, n_shuffles: int, ctx: str,
     to the kernels, each kernel launched once a shuffle, every
     ``bincount_tiles`` launch single-pass, and no other kernel but those
     of ``others`` (name: launches), each exactly that often.  Returns the
-    result and the launches of the two shuffle kernels and of ``others``."""
-    others = dict(others or {})
+    result and the launches of the two shuffle kernels and of ``others``.
+    ``n_shuffles`` and ``others`` may be functions of the result, for runs
+    whose shuffles are known only after the run (batched dispatches)."""
     ops.reset_launches()
     engine.route_log.reset()
     res = run(engine)
     torch.cuda.synchronize()
+    if callable(n_shuffles):
+        n_shuffles = n_shuffles(res)
+    others = dict((others(res) if callable(others) else others) or {})
     launches = ops.launches()
     route = engine.route_log.snapshot()
     check(route == (n_shuffles, 0),
@@ -2017,6 +2055,214 @@ def geometry_timings(torch, queries, chain_row) -> list:
 
 #: the recovery, obs and query-service phases: the sort and 2-D hull of
 #: the main path (N_MAIN, M_MAIN and HULL2D), the splitter seeds
+#: batch sizes of the batch phases: four queries of the device-bound
+#: families, two of the host-bound funnel, 3-D hull and LP
+BATCH_DEVICE, BATCH_HOST = 4, 2
+#: the sort's batch: SEEDS and one more seed
+BATCH_SEEDS = SEEDS + (404,)
+
+
+def batch_query(torch, ops, engine, name, plan, inputs, keys, shuffles: int,
+                others=None, whp: bool = False, answer=None,
+                profile: bool = False, **rec):
+    """Phase batch-<name>: ``exe.batch(B)`` of B stacked queries on the
+    kernel engine against B single calls.  The launch counts and the route
+    log are set to 0 just before one single call and read just after, then
+    the same for the batch: the batch launches each kernel exactly as often
+    as the one query (``shuffles`` shuffles; ``others``: the kernels
+    besides the shuffle's, with their launches a query), every shuffle on
+    the kernel route, every ``bincount_tiles`` launch single-pass.  Every
+    row of every output leaf and every stats field equals its single call,
+    with no drops.  Then host-clock medians of 5 of the batch and of B
+    single calls in a row, and with ``profile`` one run of each under
+    torch.profiler (device ms by kernel, launches).
+
+    The sort's and the 2-D hull's entry capacity holds with high
+    probability only (3 n / V slots a bucket between a random sample's
+    splitters, the JAX package's rule; ROADMAP Queue C).  For them
+    (``whp``) a row may drop, as its single call does bit for bit: the
+    drops are recorded, and ``answer(i, single)`` holds each row that
+    does not drop to its library answer."""
+    from repro_torch._tree import tree_leaves, tree_map
+    B = len(keys)
+    exe = engine.compile(plan)
+
+    def row(i):
+        return tree_map(lambda a: a[i], tuple(inputs))
+
+    def counted(run):
+        ops.reset_launches()
+        engine.route_log.reset()
+        out = run()
+        torch.cuda.synchronize()
+        return out, ops.launches(), engine.route_log.snapshot()
+
+    single0, one, route_one = counted(lambda: exe(*row(0), key=keys[0]))
+    out, launched, route = counted(lambda: exe.batch(B)(*inputs, keys=keys))
+    check(route == route_one == (shuffles, 0),
+          f"batch-{name}: routes {route}, one query {route_one}, want "
+          f"({shuffles}, 0)")
+    check(launched == one, f"batch-{name}: the batch launched {launched}, "
+                           f"one query {one}")
+    for k in SHUFFLE_KERNELS:
+        check(one[k] == route[0], f"batch-{name}: {k} launched {one[k]} "
+                                  f"times for {route[0]} shuffles")
+    other = {k: v for k, v in one.items()
+             if v and not k.startswith(("bincount_tiles", "bitonic_sort"))}
+    check(other == dict(others or {}),
+          f"batch-{name}: other kernels {other}, want {others}")
+    leaves = tree_leaves(out)
+    dropped = []
+    for i in range(B):
+        single = single0 if i == 0 else exe(*row(i), key=keys[i])
+        for j, (g, w) in enumerate(zip(leaves, tree_leaves(single))):
+            check(g.shape[1:] == w.shape and torch.equal(g[i], w),
+                  f"batch-{name}: row {i} leaf {j} differs from its "
+                  f"single call")
+        drops = int(single.stats.dropped)
+        dropped.append(drops)
+        check(whp or drops == 0, f"batch-{name}: row {i} dropped {drops}")
+        if answer is not None and drops == 0:
+            check(answer(i, single),
+                  f"batch-{name}: row {i} differs from its library answer")
+        del single
+    del out, leaves, single0
+    batch_ms = host_ms(lambda: exe.batch(B)(*inputs, keys=keys), torch)
+    seq_ms = host_ms(lambda: [exe(*row(i), key=keys[i]) for i in range(B)],
+                     torch)
+    if profile:
+        rec["profile"] = {
+            "batch": profiled(lambda: exe.batch(B)(*inputs, keys=keys),
+                              torch, top=8),
+            "sequential": profiled(
+                lambda: [exe(*row(i), key=keys[i]) for i in range(B)],
+                torch, top=8)}
+    launched = {k: v for k, v in launched.items() if v}
+    emit(phase=f"batch-{name}", B=B, shuffles=route[0], launches=launched,
+         route_log=list(route), dropped=dropped, batch_ms=batch_ms,
+         sequential_ms=seq_ms, sequential_over_batch=seq_ms / batch_ms,
+         queries_per_s=B / (batch_ms / 1e3),
+         sequential_queries_per_s=B / (seq_ms / 1e3),
+         timing=f"host-clock medians of 5 after a warm-up, each ending in "
+                f"a synchronize: batch({B}) against {B} single calls",
+         **rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
+def batch_phases(torch, dev, ops, engine) -> dict:
+    """Phases batch-*: every plan family's ``exe.batch(B)`` at chip_smoke's
+    main sizes on the kernel engine (see :func:`batch_query`).  Inputs are
+    drawn from a generator of their own.  Returns the launches of each
+    batch."""
+    import numpy as np
+    from repro_torch.core import (BSPProgram, bsp_plan, funnel_write_plan,
+                                  hull2d_plan, hull3d_plan, lp_plan,
+                                  multisearch_plan, prefix_plan, sort_plan,
+                                  tree_height)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    Bd, Bh = BATCH_DEVICE, BATCH_HOST
+    paths = {}
+
+    x = torch.randn(Bd, N_MAIN, device=dev, generator=gen)
+    plan = sort_plan(N_MAIN, M_MAIN)
+    paths["batch-sort"] = batch_query(
+        torch, ops, engine, "sort", plan, (x,), list(BATCH_SEEDS),
+        n_plan_shuffles(plan), n=N_MAIN, M=M_MAIN, whp=True, profile=True,
+        answer=lambda i, r: torch.equal(r.values, torch.sort(x[i]).values))
+    del x
+
+    nq, m, M = SEARCH
+    q = torch.randn(Bd, nq, device=dev, generator=gen)
+    piv = torch.randn(Bd, m, device=dev, generator=gen)
+    plan = multisearch_plan(nq, m, M)
+    paths["batch-search"] = batch_query(
+        torch, ops, engine, "search", plan, (q, piv), [5, 6, 7, 8],
+        n_plan_shuffles(plan), n_queries=nq, n_pivots=m, M=M, V=plan.n_nodes,
+        slots_a_query=plan.n_nodes * nq)
+    del q, piv
+
+    n, M = PREFIX
+    xi = torch.randint(-100, 100, (Bd, n), dtype=torch.int32, device=dev,
+                       generator=gen)
+    for inclusive in (True, False):
+        tag = "inclusive" if inclusive else "exclusive"
+        plan = prefix_plan(n, M, physical=True, inclusive=inclusive)
+        paths[f"batch-prefix-{tag}"] = batch_query(
+            torch, ops, engine, f"prefix-{tag}", plan, (xi,), [None] * Bd,
+            n_plan_shuffles(plan), n=n, M=M)
+    del xi
+
+    Pp, M, n = BSP
+    keys = torch.rand(Bd, Pp, n // Pp, device=dev, generator=gen)
+    inf = torch.tensor(float("inf"), device=dev)
+
+    def superstep(t, ids, st, inbox, ok):
+        # one query's bucket sort; a batch runs it under torch.func.vmap
+        if t == 0:
+            dests = (st["keys"] * Pp).to(torch.int32).clamp_max(Pp - 1)
+            return st, dests, st["keys"]
+        local = torch.sort(torch.where(ok, inbox, inf), dim=1).values
+        return ({"keys": local, "count": ok.sum(1)},
+                torch.full((Pp, 1), -1, dtype=torch.int32, device=dev),
+                torch.zeros((Pp, 1), device=dev))
+
+    plan = bsp_plan(BSPProgram(superstep), 2, M, Pp, torch.tensor(0.0))
+    paths["batch-bsp"] = batch_query(
+        torch, ops, engine, "bsp", plan, ({"keys": keys},), [None] * Bd,
+        n_plan_shuffles(plan), processors=Pp, M=M, n_keys=n)
+    del keys
+
+    n, M = HULL2D
+    pts = torch.randn(Bd, n, 2, device=dev, generator=gen)
+    plan = hull2d_plan(n, M)
+    chain = sum(st.name.startswith(("merge-", "finalize"))
+                for st in plan.stages)
+    paths["batch-hull2d"] = batch_query(
+        torch, ops, engine, "hull2d", plan, (pts,), [5, 6, 7, 8],
+        n_plan_shuffles(plan), others={"monotone_chain": chain}, whp=True,
+        profile=True, n=n, M=M)
+    del pts
+
+    P, N, M = FUNNEL
+    addrs = torch.randint(0, N, (Bh, P), dtype=torch.int32, device=dev,
+                          generator=gen)
+    addrs = torch.where(torch.rand(Bh, P, device=dev, generator=gen)
+                        < 1 / 16, -1, addrs)
+    vals = torch.randint(-1000, 1000, (Bh, P), dtype=torch.int32,
+                         device=dev, generator=gen)
+    mem0 = torch.randint(-1000, 1000, (Bh, N), dtype=torch.int32,
+                         device=dev, generator=gen)
+    plan = funnel_write_plan(P, N, M, torch.add, identity=0,
+                             dtype=torch.int32)
+    # one shuffle a funnel level; the root stage applies, it does not move
+    levels = sum(s.name.startswith("funnel-level") for s in plan.stages)
+    paths["batch-funnel"] = batch_query(
+        torch, ops, engine, "funnel", plan, (addrs, vals, mem0), [None] * Bh,
+        levels, P=P, N=N, M=M)
+    del addrs, vals, mem0
+
+    n3, M3 = HULL3D
+    p3 = torch.randn(Bh, n3, 3, device=dev, generator=gen)
+    paths["batch-hull3d"] = batch_query(
+        torch, ops, engine, "hull3d", hull3d_plan(n3, M3), (p3,),
+        [None] * Bh, 3 * tree_height(math.comb(n3, 3), max(2, M3 // 2)),
+        n=n3, M=M3, processors=math.comb(n3, 3))
+    del p3
+
+    nl, dl, Ml = LP
+    A = torch.randn(Bh, nl, dl, device=dev, generator=gen)
+    b = torch.rand(Bh, nl, device=dev, generator=gen) + 1
+    c = torch.tensor(np.asarray(LP_C, np.float32), device=dev).expand(Bh, -1)
+    paths["batch-lp"] = batch_query(
+        torch, ops, engine, "lp", lp_plan(nl, dl, Ml), (c, A, b),
+        [None] * Bh, tree_height(math.comb(nl, dl), max(2, Ml // 2)),
+        n=nl, d=dl, M=Ml, bases=math.comb(nl, dl))
+    return paths
+
+
 SERVICE_SEEDS = (101, 5)
 #: the device-bound query mix: the service's sort, multisearch and 2-D hull
 #: families at chip_smoke's own sizes, four queries a dispatch
@@ -2291,16 +2537,28 @@ def query_service_phase(torch, dev, ops, engine, dense):
     wl = loadgen.make_workload(loadgen.make_suite(engine, cfg), cfg)
     seq, seq_s, _ = loadgen.run_sequential(engine, wl)
     svc = QueryService(engine, max_batch=4)
-    hulls = sum(q.family == "hull2d" for q in wl)
-    chain = sum(st.name.startswith(("merge-", "finalize"))
-                for st in wl[[q.family for q in wl].index("hull2d")]
-                .plan.stages) if hulls else 0
-    shuffles = sum(n_plan_shuffles(q.plan) for q in wl)
+    plans = {q.plan.name: q.plan for q in wl}
+    chain = (sum(st.name.startswith(("merge-", "finalize"))
+                 for st in plans["hull2d"].stages) if "hull2d" in plans
+             else 0)
+
+    def dispatched():
+        # each dispatch is one batched program: its queries' outputs are
+        # views of one stacked tensor
+        return {(t.plan_name, t.value.stats.rounds.untyped_storage()
+                 .data_ptr()) for t in svc.finished}
+
+    def mix_shuffles(res):
+        return sum(n_plan_shuffles(plans[name]) for name, _ in dispatched())
+
+    def mix_chain(res):
+        hulls = sum(name == "hull2d" for name, _ in dispatched())
+        return {"monotone_chain": hulls * chain} if hulls else None
+
     t0 = time.perf_counter()
     (results, _), launches = kernel_query(
         torch, ops, engine, lambda e: loadgen.run_closed_loop(svc, wl),
-        shuffles, "query-service mix",
-        others={"monotone_chain": hulls * chain} if hulls else None)
+        mix_shuffles, "query-service mix", others=mix_chain)
     wall = time.perf_counter() - t0
     loadgen.assert_results_equal(results, seq, "mix vs sequential")
     st = svc.stats()
@@ -2309,6 +2567,8 @@ def query_service_phase(torch, dev, ops, engine, dense):
         "families": {f: sum(q.family == f for q in wl)
                      for f in SERVICE_MIX["families"]},
         "dispatches": st["dispatches"],
+        "shuffles": launches["bincount_tiles"],
+        "single_query_shuffles": sum(n_plan_shuffles(q.plan) for q in wl),
         "mean_occupancy": st["mean_occupancy"], "wall_s": wall,
         "queries_per_s": len(wl) / wall, "sequential_s": seq_s,
         "sequential_queries_per_s": len(wl) / seq_s,
@@ -2610,7 +2870,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import LocalEngine, get_engine, sort_plan
     from repro_torch.core import kshuffle
-    from repro_torch.core.mrmodel import shuffle as dense_shuffle
+    from repro_torch.core.mrmodel import shuffle_batch as dense_shuffle_batch
     from repro_torch.core.sortmr import pivot_sample_size, sample_indices
     from repro_torch.kernels import _build, bincount, bitonic_sort, ops
 
@@ -2722,6 +2982,35 @@ def main() -> int:
         held("bincount_tiles", got, bincount.bincount_tiles_plain(tiles, V),
              (T, tile_n, V, fill))
         checked.append(["bincount_tiles", T, tile_n, V, fill, route])
+    # The batch axis: B queries' (T, tile_n) tiles in one launch, the
+    # cross-tile prefix restarting at each query: at a sort query's tiles
+    # (4096 of 4096 ids) with B = 4 on both routes (V = 2048, and V above
+    # 48 Ki for the global route), with a group size G = 8 that does not
+    # divide T = 13, and on the global route with two chunks of its column
+    # scan a query.  Each query's tables also equal its own launch.
+    gen_q = torch.Generator(device=dev)
+    gen_q.manual_seed(4)
+    for B_, T, tile_n, V in BT_BATCH:
+        tiles = torch.randint(-1, V + 2, (B_, T, tile_n), dtype=torch.int32,
+                              device=dev, generator=gen_q)
+        route = ("single_pass" if bincount.group_tiles(T, tile_n, V, B_)
+                 else "global")
+        before = dict(bincount.route_launches)
+        got = bincount.bincount_tiles_cuda(tiles, V)
+        torch.cuda.synchronize()
+        check(bincount.route_launches[route] == before[route] + 1,
+              f"bincount_tiles {B_, T, tile_n, V}: not one launch on the "
+              f"{route} route")
+        held("bincount_tiles", got, bincount.bincount_tiles_plain(tiles, V),
+             (B_, T, tile_n, V, route))
+        for b in range(B_):
+            held("bincount_tiles", [g[b] for g in got],
+                 bincount.bincount_tiles_cuda(tiles[b], V),
+                 (B_, T, tile_n, V, route, f"query {b} alone"))
+        checked.append(["bincount_tiles batch", B_, T, tile_n, V, route])
+        del tiles, got
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def unique_rows(rows, n, dtype, gen):
         # distinct keys per row (the network is not stable; the shuffle's
@@ -2781,7 +3070,23 @@ def main() -> int:
             check(torch.equal(pairs(gk, gv), pairs(keys, vals)),
                   f"bitonic_sort ties {rows, n, dtype}: pairs changed")
             checked.append(["bitonic_sort ties", rows, n, str(dtype)])
-    emit(phase="kernels", checked=checked, max_abs_err=max_err)
+    # What the network gives where the plain version differs (see
+    # bitonic_sort_plain): tied keys, a +inf key in a row 3 wide (padded
+    # to 4 with the float32 maximum), a NaN key.  Recorded, not checked.
+    network = {}
+    for tag, row in (("ties", [1, 1, 1, 0]), ("inf", [float("inf"), 1.0,
+                                                      2.0]),
+                     ("nan", [float("nan"), 1.0, 0.0, 2.0])):
+        keys = torch.tensor([row], device=dev,
+                            dtype=torch.int32 if tag == "ties"
+                            else torch.float32)
+        gk, gv = bitonic_sort.bitonic_sort_cuda(
+            keys, torch.arange(len(row), dtype=torch.int32,
+                               device=dev)[None])
+        network[tag] = {"keys": [str(v) for v in gk[0].tolist()],
+                        "values": gv[0].tolist()}
+    emit(phase="kernels", checked=checked, max_abs_err=max_err,
+         bitonic_network=network)
 
     # -- 4. the kernel shuffle against the dense one at main-path calls -----
     x = torch.randn(N_MAIN, device=dev, generator=gen)
@@ -2797,16 +3102,19 @@ def main() -> int:
             super().__init__(shuffle_impl="kernel", device=dev)
             self.calls = []
 
-        def shuffle(self, dests, payload, n_nodes, capacity):
-            box, st = super().shuffle(dests, payload, n_nodes, capacity)
-            dbox, dst = dense_shuffle(dests, payload, n_nodes, capacity)
-            ctx = f"shuffle n={dests.numel()} V={n_nodes} cap={capacity}"
+        def shuffle_batch(self, dests, payload, n_nodes, capacity):
+            box, st = super().shuffle_batch(dests, payload, n_nodes,
+                                            capacity)
+            dbox, dst = dense_shuffle_batch(dests, payload, n_nodes,
+                                            capacity)
+            n = dests[0].numel()
+            ctx = f"shuffle n={n} V={n_nodes} cap={capacity}"
             check(torch.equal(box.payload, dbox.payload), ctx + " payload")
             check(torch.equal(box.valid, dbox.valid), ctx + " valid")
             for name, a, b in zip(st._fields, st, dst):
                 check(a.dtype == b.dtype == torch.int32 and torch.equal(a, b),
                       f"{ctx} RoundStats.{name} {a} vs {b}")
-            self.calls.append({"n": dests.numel(), "n_nodes": n_nodes,
+            self.calls.append({"n": n, "n_nodes": n_nodes,
                                "capacity": capacity,
                                "stats": [int(v) for v in st]})
             return box, st
@@ -2870,19 +3178,13 @@ def main() -> int:
          launches=grew, stats={k: float(v) for k, v in
                                res2.stats._asdict().items()})
 
-    n_b, B = 1 << 20, 4
-    exe_b = engine.compile(sort_plan(n_b, M_MAIN))
-    xs = torch.randn(B, n_b, device=dev, generator=gen)
-    keys = list(range(B))
-    out = exe_b.batch(B)(xs, keys=keys)
-    for i in range(B):
-        one = exe_b(xs[i], key=keys[i])
-        check(torch.equal(out.values[i], one.values), f"batch row {i}")
-        check(torch.equal(out.values[i], torch.sort(xs[i]).values),
-              f"batch row {i} sorted")
-        for name, a, b in zip(one.stats._fields, out.stats, one.stats):
-            check(torch.equal(a[i], b), f"batch row {i} CostAccum.{name}")
-    emit(phase="batch", n=n_b, B=B, ok=True)
+    # -- 5b. batched round programs: every family's exe.batch(B) ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch_paths = batch_phases(torch, dev, ops, engine)
+    emit(phase="batch-summary", seconds=time.perf_counter() - t0,
+         launches_by_path=batch_paths)
 
     # -- 6. timings ---------------------------------------------------------
     per_call = []
@@ -2891,7 +3193,7 @@ def main() -> int:
               for name in max_err}
     for name, a, b in recorder.calls:
         if name == "bincount_tiles":
-            T, tile_n = a.shape
+            T, tile_n = math.prod(a.shape[:-1]), a.shape[-1]
             kern = event_ms(lambda: bincount.bincount_tiles_cuda(a, b), torch)
             b2b = b2b_ms(lambda: bincount.bincount_tiles_cuda(a, b), torch)
             plain = event_ms(lambda: bincount.bincount_tiles_plain(a, b),
@@ -2940,7 +3242,7 @@ def main() -> int:
     for name, a, b in recorder.calls:
         if name != "bincount_tiles":
             continue
-        tiles = torch.randint(0, b, (a.shape[0], 1), dtype=torch.int32,
+        tiles = torch.randint(0, b, (*a.shape[:-1], 1), dtype=torch.int32,
                               device=dev, generator=gen_u).expand(
                                   a.shape).contiguous()
         held(name, bincount.bincount_tiles_cuda(tiles, b),
@@ -2948,8 +3250,24 @@ def main() -> int:
         one_bucket.append({"shape": list(a.shape), "ms": event_ms(
             lambda: bincount.bincount_tiles_cuda(tiles, b), torch)})
         del tiles
+    # bincount_tiles with a batch axis: four sort queries' entry tiles
+    # (4, 4096, 4096) into V buckets in one launch, beside the bound
+    tiles = torch.randint(-1, V, (4, N_MAIN // 4096, 4096), dtype=torch.int32,
+                          device=dev, generator=gen_u)
+    held("bincount_tiles", bincount.bincount_tiles_cuda(tiles, V),
+         bincount.bincount_tiles_plain(tiles, V), "a batch of four")
+    batch_bytes = tiles.numel() * 4 + 3 * math.prod(tiles.shape[:-1]) * V * 4
+    batched = {"shape": list(tiles.shape), "ms": event_ms(
+        lambda: bincount.bincount_tiles_cuda(tiles, V), torch),
+        "b2b_ms": b2b_ms(lambda: bincount.bincount_tiles_cuda(tiles, V),
+                         torch),
+        "plain_ms": event_ms(lambda: bincount.bincount_tiles_plain(tiles, V),
+                             torch),
+        "bound_ms": batch_bytes / mem_rate * 1e3, "bound_by": "bytes"}
+    del tiles
     emit(phase="kernel-timings", per_call=per_call,
          bincount_tiles_one_bucket=one_bucket,
+         bincount_tiles_batch_of_four=batched,
          note="ms, plain_ms, library_ms and bound_ms in the summary are sums "
               "over the two calls of one levels=1 query (entry, local-sort); "
               f"CUDA-event medians of {REPS} after a warm-up")
@@ -3057,7 +3375,7 @@ def main() -> int:
     queries, by_path = search_phases(torch, dev, ops, engine, dense)
     rows = search_timings(torch, queries)
     del queries
-    by_path = {"sort": launches_sort, **by_path}
+    by_path = {"sort": launches_sort, **batch_paths, **by_path}
     for r in rows:
         by_path[r["query"]] = r["launches"]
     emit(phase="search-summary", seconds=time.perf_counter() - t0,

@@ -6,7 +6,9 @@ a ``*_plan`` builder) is bound by ``MREngine.compile(plan)`` into an
 
 - ``exe(*inputs, key=...)`` runs one query, eagerly on the engine's device;
 - ``exe.batch(B)`` runs B independent queries, stacked on a new leading
-  axis, with outputs bit-identical to B single calls;
+  axis, with outputs bit-identical to B single calls: on a batchable
+  engine (``LocalEngine``) as one round program with a leading batch axis,
+  each round's shuffle one shuffle for the whole batch;
 - executables live in a **bounded per-engine plan cache**
   (:class:`BoundedCache`) with LRU eviction and hit/miss counters surfaced
   through ``engine.cache_info()``.
@@ -32,7 +34,8 @@ import torch
 
 from .._tree import tree_leaves, tree_map
 from ..obs import NULL_TRACER
-from .plan import Plan, execute_plan
+from ..obs import BatchTracer
+from .plan import Plan, execute_plan, execute_plan_batch
 
 
 class CacheInfo(NamedTuple):
@@ -100,7 +103,9 @@ class Executable:
     """A Plan bound to one engine (obtain via ``engine.compile(plan)``).
 
     PyTorch runs eagerly, so there is nothing to trace: every call runs the
-    plan's stages on the engine's device.  ``trace_count`` counts calls.
+    plan's stages on the engine's device.  ``trace_count`` counts runs of
+    the round program: a single call, or a batched call on a batchable
+    engine, is one run.
 
     With a recording tracer on the engine, each call records an
     ``exe.call`` event (its host seconds) and counts ``exe.calls``; the
@@ -152,20 +157,43 @@ class Executable:
         """Return a callable running ``n_queries`` independent queries.
 
         Inputs are stacked along a new leading axis of size B; ``keys`` is
-        an optional length-B sequence of per-query keys.  The queries run
-        one after another on the engine and their outputs are stacked, bit
-        for bit what B single calls give.  As in the JAX package, the rows
-        record no ``exe.call`` events."""
+        an optional length-B sequence of per-query keys.  Every output leaf
+        has a leading axis of size B, row b bit for bit what a single call
+        on query b gives.
+
+        On a :attr:`~repro_torch.core.engine.MREngine.batchable` engine the
+        B queries run as one round program (:func:`~repro_torch.core.plan.
+        execute_plan_batch`): each round is one shuffle for the batch, and
+        a draw that depends on a key runs once per query in the prologue.
+        A live tracer then records only the route decisions
+        (:class:`~repro_torch.obs.BatchTracer`), as the JAX package's
+        ``jit`` of a ``vmap`` does.  Otherwise the queries run one after
+        another and their outputs are stacked; their rows record as single
+        calls do, without ``exe.call`` events, as in the JAX package."""
         B = int(n_queries)
         cached = self._batched.lookup(B)
         if cached is not None:
             return cached
 
-        def call(*inputs, keys=None):
-            ks = self._batch_keys(keys, B)
-            outs = [self._run(tree_map(lambda a: a[i], tuple(inputs)), ks[i])
-                    for i in range(B)]
-            return tree_map(lambda *leaves: torch.stack(leaves), *outs)
+        if getattr(self.engine, "batchable", False):
+            def call(*inputs, keys=None):
+                ks = self._batch_keys(keys, B)
+                self._calls += 1
+                engine = self.engine
+                tr = engine.tracer
+                if not tr.enabled:
+                    return execute_plan_batch(self.plan, engine, inputs, ks)
+                engine.tracer = BatchTracer(tr)
+                try:
+                    return execute_plan_batch(self.plan, engine, inputs, ks)
+                finally:
+                    engine.tracer = tr
+        else:
+            def call(*inputs, keys=None):
+                ks = self._batch_keys(keys, B)
+                outs = [self._run(tree_map(lambda a: a[i], tuple(inputs)),
+                                  ks[i]) for i in range(B)]
+                return tree_map(lambda *leaves: torch.stack(leaves), *outs)
 
         return self._batched.store(B, call)
 

@@ -7,7 +7,10 @@ one MR round; message routing = the Shuffle.  M = ceil(N/P) bounds the
 per-processor message volume, matching the reducer I/O bound.
 
 A superstep is written in torch: it takes and returns tensors on the
-engine's device.
+engine's device.  It is written for one query, with the shapes below; a
+batch of B queries runs it under ``torch.func.vmap`` over the batch axis,
+with PyTorch's per-row fallback turned off, so an operation without a
+batching rule raises instead of looping over the rows.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 from .._tree import tree_flatten, tree_leaves, tree_map
 from .costmodel import CostAccum, MRCost
 from .mrmodel import Mailbox
-from .plan import Plan, PlanState, custom_stage, dtype_name
+from .plan import (Plan, PlanState, batch_of_one, custom_stage, dtype_name,
+                   row_of)
 
 
 class BSPProgram(NamedTuple):
@@ -70,16 +74,19 @@ def bsp_plan(prog: BSPProgram, n_supersteps: int, M: int, n_procs: int,
                    tuple((dtype_name(l.dtype), tuple(l.shape)) for l in leaves))
 
     def prologue(inputs, keys, device):
+        B = len(keys)
         proc_state = tree_map(lambda x: torch.as_tensor(x, device=device),
                               inputs[0])
         inbox = Mailbox(
             payload=tree_map(
-                lambda t: torch.zeros((n_procs, M) + tuple(t.shape),
+                lambda t: torch.zeros((B, n_procs, M) + tuple(t.shape),
                                       dtype=t.dtype, device=device),
                 tree_map(torch.as_tensor, msg_template)),
-            valid=torch.zeros((n_procs, M), dtype=torch.bool, device=device),
+            valid=torch.zeros((B, n_procs, M), dtype=torch.bool,
+                              device=device),
         )
-        state_items = sum(int(x.shape[0]) if x.ndim else 1
+        # one query's state items (leaves are (B, ...))
+        state_items = sum(int(x.shape[1]) if x.ndim > 1 else 1
                           for x in tree_leaves(proc_state))
         return {"proc_state": proc_state, "inbox": inbox,
                 "state_items": state_items, "drops": ()}
@@ -90,10 +97,10 @@ def bsp_plan(prog: BSPProgram, n_supersteps: int, M: int, n_procs: int,
             def apply(engine, state: PlanState) -> PlanState:
                 c = state.carry
                 proc_ids = engine.node_ids(n_procs)
-                proc_state, dests, msgs = prog.superstep(
-                    t, proc_ids, c["proc_state"], c["inbox"].payload,
+                proc_state, dests, msgs = _superstep(
+                    prog, t, proc_ids, c["proc_state"], c["inbox"].payload,
                     c["inbox"].valid)
-                inbox, stats = engine.shuffle(dests, msgs, n_procs, M)
+                inbox, stats = engine.shuffle_batch(dests, msgs, n_procs, M)
                 # kept state counts as send-to-self (the "keep" primitive)
                 accum = state.accum.add_round(
                     items_sent=stats.items_sent + c["state_items"],
@@ -110,14 +117,36 @@ def bsp_plan(prog: BSPProgram, n_supersteps: int, M: int, n_procs: int,
         drops = state.carry["drops"]
         return BSPResult(
             proc_state=state.carry["proc_state"],
-            dropped_per_step=(torch.stack([d.to(torch.int32) for d in drops])
+            dropped_per_step=(torch.stack([d.to(torch.int32) for d in drops],
+                                          dim=-1)
                               if drops else
-                              torch.zeros((0,), dtype=torch.int32)),
+                              torch.zeros(state.accum.rounds.shape + (0,),
+                                          dtype=torch.int32)),
             stats=state.accum)
 
     return Plan(name="bsp", fingerprint=fingerprint, n_nodes=n_procs,
                 stages=tuple(stages), prologue=prologue, epilogue=epilogue,
                 round_bound=n_supersteps)
+
+
+def _superstep(prog: BSPProgram, t: int, proc_ids, proc_state, inbox,
+               inbox_valid):
+    """One superstep of a batch: on the one query of a batch of one, or
+    under ``torch.func.vmap`` over the batch axis with the per-row
+    fallback turned off."""
+    if inbox_valid.shape[0] == 1:
+        out = prog.superstep(t, proc_ids, *row_of((proc_state, inbox,
+                                                   inbox_valid)))
+        return batch_of_one(out)
+    step = torch.func.vmap(lambda s, i, v: prog.superstep(t, proc_ids, s,
+                                                          i, v))
+    functorch = torch._C._functorch
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        return step(proc_state, inbox, inbox_valid)
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
 
 
 def run_bsp(prog: BSPProgram, proc_state: Any, n_supersteps: int, M: int,

@@ -13,7 +13,8 @@ where L is shuffle latency and B shuffle bandwidth.  Engines return a
 mutable :class:`MRCost` is the host-side reporting adapter.
 
 Fields are 0-d tensors on the engine's device, so accounting a round reads
-nothing back to the host.  ``communication`` and ``internal_time`` are
+nothing back to the host; a batch of B queries keeps (B,) fields, updated
+row by row.  ``communication`` and ``internal_time`` are
 float32 and accumulate in float32 in the same order as the JAX package's
 ``CostAccum``, so the two round identically; the other fields are int32.
 """
@@ -51,9 +52,11 @@ class CostAccum(NamedTuple):
     dropped: torch.Tensor
 
     @staticmethod
-    def zero(device="cpu") -> "CostAccum":
+    def zero(device="cpu", shape=()) -> "CostAccum":
+        """The empty accumulator; ``shape`` (B,) gives one per query of a
+        batch, each field then (B,) and every update row by row."""
         def z(dtype):
-            return torch.zeros((), dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=dtype, device=device)
         return CostAccum(rounds=z(torch.int32), communication=z(torch.float32),
                          internal_time=z(torch.float32),
                          max_reducer_io=z(torch.int32), dropped=z(torch.int32))

@@ -47,8 +47,17 @@ from .._device import as_device
 from .._tree import tree_flatten, tree_map, tree_unflatten
 from ..obs import NULL_TRACER, round_event as _round_event
 from .costmodel import CostAccum, RoundStats
-from .mrmodel import Mailbox, Payload, RoundFn
-from .mrmodel import shuffle as _dense_shuffle
+from .mrmodel import Mailbox, Payload, RoundFn, unbatch_shuffle
+from .mrmodel import shuffle_batch as _dense_shuffle_batch
+
+
+def stats_row(stats: RoundStats) -> RoundStats:
+    """A single query's stats from a batched round's: row 0 of a batch of
+    one (what a traced ``engine.round`` event records), the (B,) fields
+    unchanged otherwise."""
+    if stats.items_sent.ndim == 1 and stats.items_sent.shape[0] == 1:
+        return RoundStats(*(s[0] for s in stats))
+    return stats
 
 
 class RoundProgram(NamedTuple):
@@ -77,6 +86,10 @@ class MREngine:
     """
 
     name = "abstract"
+    #: whether ``Executable.batch`` may run a batch's queries as one round
+    #: program with a leading batch axis (the JAX package's ``vmappable``);
+    #: otherwise it runs them one after another
+    batchable = False
     #: where the engine's mailboxes and accumulators live
     device = torch.device("cpu")
     #: bound on the per-engine plan cache (see BoundedCache)
@@ -150,32 +163,53 @@ class MREngine:
         mailbox, drop set, and stats."""
         raise NotImplementedError
 
+    def shuffle_batch(self, dests, payload: Payload, n_nodes: int,
+                      capacity: int) -> Tuple[Mailbox, RoundStats]:
+        """The Shuffle of B queries: ``dests`` (B, ...) and payload leaves
+        (B, ...) in, a (B, n_nodes, capacity) mailbox and (B,) stats out,
+        row b what :meth:`shuffle` gives for query b.  This base runs the
+        rows one by one; an engine that is not :attr:`batchable` only sees
+        B = 1 here (``Executable.batch`` loops over its single calls)."""
+        rows = [self.shuffle(dests[b], tree_map(lambda l: l[b], payload),
+                             n_nodes, capacity)
+                for b in range(len(dests))]
+        boxes, stats = zip(*rows)
+        return (tree_map(lambda *ls: torch.stack(ls), *boxes),
+                RoundStats(*(torch.stack(f) for f in zip(*stats))))
+
     # -- round drivers -------------------------------------------------------
     def run_round(self, f: RoundFn, box: Mailbox, round_idx,
                   capacity: Optional[int] = None,
-                  n_nodes: Optional[int] = None
+                  n_nodes: Optional[int] = None, *, batched: bool = False
                   ) -> Tuple[Mailbox, RoundStats]:
         """One round: apply f at every node, then shuffle.
 
         ``n_nodes`` sets the target mailbox node count — a *shape-change
         round* when it differs from ``box.n_nodes``; ``f`` must then emit
         destinations in the target's numbering [0, n_nodes).  None keeps
-        the current shape."""
+        the current shape.
+
+        ``batched=True`` runs B queries: ``box`` has (B, V, M) leaves, ``f``
+        gets it whole with the (V,) node ids and emits (B, V, M_out)
+        destinations, and the stats are (B,)."""
         cap = capacity if capacity is not None else box.capacity
         V = n_nodes if n_nodes is not None else box.n_nodes
         tr = self.tracer
         t0 = tr.clock() if tr.enabled else 0.0
         dests, payload = f(round_idx, self.node_ids(box.n_nodes), box)
-        out_box, stats = self.shuffle(dests, payload, V, cap)
+        shuffle = self.shuffle_batch if batched else self.shuffle
+        out_box, stats = shuffle(dests, payload, V, cap)
         if tr.enabled:
-            _round_event(tr, t0, self.name, round_idx, V, cap, stats)
+            _round_event(tr, t0, self.name, round_idx, V, cap,
+                         stats_row(stats) if batched else stats)
         return out_box, stats
 
     def run_rounds(self, f: RoundFn, box: Mailbox, n_rounds: int,
                    capacity: Optional[int] = None,
                    accum: Optional[CostAccum] = None,
                    n_nodes: Optional[int] = None,
-                   checkpointer=None, round_offset: int = 0
+                   checkpointer=None, round_offset: int = 0, *,
+                   batched: bool = False
                    ) -> Tuple[Mailbox, CostAccum]:
         """Drive R rounds, returning the final mailbox and accumulated cost.
 
@@ -187,10 +221,13 @@ class MREngine:
         activates the ``checkpoint_every`` policy: after each round the
         ``{"box", "accum"}`` state is offered to ``maybe_save`` under the
         global round index ``round_offset + r + 1`` — the round-boundary
-        snapshot recovery replays from."""
-        acc = accum if accum is not None else CostAccum.zero(self.device)
+        snapshot recovery replays from.  ``batched`` as in
+        :meth:`run_round`."""
+        acc = accum if accum is not None else CostAccum.zero(
+            self.device, tuple(box.valid.shape[:1]) if batched else ())
         for r in range(n_rounds):
-            box, stats = self.run_round(f, box, r, capacity, n_nodes=n_nodes)
+            box, stats = self.run_round(f, box, r, capacity, n_nodes=n_nodes,
+                                        batched=batched)
             acc = acc.add_round_stats(stats)
             if checkpointer is not None:
                 checkpointer.maybe_save(round_offset + r + 1,
@@ -226,12 +263,24 @@ class MREngine:
     # -- host-side validity check -------------------------------------------
     def require_no_drops(self, accum: CostAccum, what: str = "program") -> None:
         """Host boundary: raise if any round overflowed mailbox capacity
-        (the w.h.p. failure event of the paper's randomized algorithms)."""
-        dropped = int(accum.dropped)
-        if dropped:
+        (the w.h.p. failure event of the paper's randomized algorithms).
+        A batch's (B,) accumulator is read in one host read, and the error
+        names the queries that dropped."""
+        dropped = torch.as_tensor(accum.dropped).cpu()
+        if dropped.ndim == 0:
+            if int(dropped):
+                raise RuntimeError(
+                    f"{self.name} engine: {int(dropped)} items exceeded "
+                    f"mailbox capacity while running {what}; raise the "
+                    f"capacity")
+            return
+        rows = torch.nonzero(dropped).flatten().tolist()
+        if rows:
             raise RuntimeError(
-                f"{self.name} engine: {dropped} items exceeded mailbox "
-                f"capacity while running {what}; raise the capacity")
+                f"{self.name} engine: queries {rows} of a batch of "
+                f"{dropped.shape[0]} dropped {dropped[rows].tolist()} items "
+                f"over mailbox capacity while running {what}; raise the "
+                f"capacity")
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +373,7 @@ class LocalEngine(MREngine):
     """
 
     name = "local"
+    batchable = True
 
     def __init__(self, shuffle_impl: str = "dense", device="cuda",
                  tracer=None):
@@ -336,12 +386,12 @@ class LocalEngine(MREngine):
         from .kshuffle import RouteLog
         self.route_log = RouteLog()
         if shuffle_impl == "kernel":
-            from .kshuffle import kernel_fits, kernel_shuffle
+            from .kshuffle import kernel_fits, kernel_shuffle_batch
             self._kernel_fits = kernel_fits
-            self._shuffle_fn = kernel_shuffle
+            self._shuffle_fn = kernel_shuffle_batch
             self.name = "kernel"
         else:
-            self._shuffle_fn = _dense_shuffle
+            self._shuffle_fn = _dense_shuffle_batch
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -350,16 +400,29 @@ class LocalEngine(MREngine):
                 capacity: int) -> Tuple[Mailbox, RoundStats]:
         dests = self._to_device(dests)
         payload = tree_map(self._to_device, payload)
+        return unbatch_shuffle(*self.shuffle_batch(
+            dests[None], tree_map(lambda l: l[None], payload), n_nodes,
+            capacity))
+
+    def shuffle_batch(self, dests, payload: Payload, n_nodes: int,
+                      capacity: int) -> Tuple[Mailbox, RoundStats]:
+        """B queries' shuffles as one: the kernel route launches one
+        ``bincount_tiles`` and one ``bitonic_sort`` for the batch.  The
+        route guard reads one query's (n, V), and the decision is counted
+        once in ``route_log`` and recorded once as a ``shuffle.route``
+        event, whatever B."""
+        dests = self._to_device(dests)
+        payload = tree_map(self._to_device, payload)
         fn = self._shuffle_fn
         if self.shuffle_impl == "kernel":
-            n = dests.numel()
+            n = dests[0].numel()
             if self._kernel_fits(n, n_nodes):
                 impl = "kernel"
                 self.route_log.kernel += 1
             else:
                 impl = "dense"
                 self.route_log.dense += 1
-                fn = _dense_shuffle      # per-call guard: oversize -> dense
+                fn = _dense_shuffle_batch   # per-call guard: oversize -> dense
             tr = self.tracer
             if tr.enabled:
                 tr.trace_event("shuffle.route", impl=impl, n=n,

@@ -29,7 +29,8 @@ import torch
 
 from .costmodel import CostAccum, MRCost, tree_height
 from .mrmodel import scatter_or_drop
-from .plan import Plan, PlanState, custom_stage, dtype_name, execute_plan
+from .plan import (Plan, PlanState, custom_stage, dtype_name, execute_plan,
+                   run_plan)
 
 Semigroup = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -71,15 +72,17 @@ def _combine_mailbox_slots(payload: torch.Tensor, valid: torch.Tensor,
                            op: Semigroup):
     """Fold the slots of every mailbox row with ``op`` in FIFO (slot) order.
 
-    Returns (combined (V,), any_valid (V,)).  Rows with no valid slot keep
-    slot 0's (garbage) value, masked by ``any_valid``.  The unrolled loop
-    runs over the mailbox capacity — at most d = M/2 slots for funnel
-    nodes — a few launches a slot, so that the fold order holds for any
-    user ``op``."""
-    acc = payload[:, 0]
-    has = valid[:, 0]
-    for s in range(1, payload.shape[1]):
-        cur, ok = payload[:, s], valid[:, s]
+    ``payload`` and ``valid`` are (..., V, cap): a batch's leading axis
+    folds in the same loop.  Returns (combined (..., V), any_valid (...,
+    V)).  Rows with no valid slot keep slot 0's (garbage) value, masked by
+    ``any_valid``.  The unrolled loop runs over the mailbox capacity — at
+    most d = M/2 slots for funnel nodes — a few launches a slot, so that
+    the fold order holds for any user ``op``; it runs once for a whole
+    batch."""
+    acc = payload[..., 0]
+    has = valid[..., 0]
+    for s in range(1, payload.shape[-1]):
+        cur, ok = payload[..., s], valid[..., s]
         acc = torch.where(ok & has, op(acc, cur), torch.where(ok, cur, acc))
         has = has | ok
     return acc, has
@@ -123,7 +126,8 @@ def funnel_write_plan(n_procs: int, n_cells: int, M: int, op: Semigroup, *,
         return {"vals": values, "live": live,
                 "cells": torch.where(live, addrs, 0).to(torch.int32),
                 "memory": memory,
-                "max_fan": torch.ones((), dtype=torch.int32, device=device)}
+                "max_fan": torch.ones((len(keys),), dtype=torch.int32,
+                                      device=device)}
 
     stages = []
     for level, n_groups in enumerate(n_groups_seq):
@@ -135,7 +139,7 @@ def funnel_write_plan(n_procs: int, n_cells: int, M: int, op: Semigroup, *,
             def apply(engine, state: PlanState) -> PlanState:
                 c = state.carry
                 dev = c["vals"].device
-                idx = torch.arange(c["vals"].shape[0], dtype=torch.int32,
+                idx = torch.arange(c["vals"].shape[-1], dtype=torch.int32,
                                    device=dev)
                 # Leaf items carry their group explicitly; from the second
                 # level on an item's position is (group * N + cell).
@@ -143,14 +147,15 @@ def funnel_write_plan(n_procs: int, n_cells: int, M: int, op: Semigroup, *,
                 parent = group // d
                 dests = torch.where(c["live"], parent * N + c["cells"], -1)
                 V = engine.aligned_nodes(v_level)
-                box, st = engine.shuffle(dests, c["vals"], V, d)
+                box, st = engine.shuffle_batch(dests, c["vals"], V, d)
                 accum = state.accum.add_round_stats(st)
                 comb, has = _combine_mailbox_slots(box.payload, box.valid, op)
+                cells = torch.arange(n_groups * N, dtype=torch.int32,
+                                     device=comb.device) % N
                 carry = {
-                    "vals": comb[:n_groups * N],
-                    "live": has[:n_groups * N],
-                    "cells": torch.arange(n_groups * N, dtype=torch.int32,
-                                          device=comb.device) % N,
+                    "vals": comb[:, :n_groups * N],
+                    "live": has[:, :n_groups * N],
+                    "cells": cells.expand(comb.shape[0], -1),
                     "memory": c["memory"],
                     "max_fan": torch.maximum(
                         c["max_fan"],
@@ -173,7 +178,7 @@ def funnel_write_plan(n_procs: int, n_cells: int, M: int, op: Semigroup, *,
             memory = op(memory, torch.where(
                 live, vals, torch.as_tensor(identity, dtype=vals.dtype,
                                             device=vals.device)))
-        accum = state.accum.add_round(items_sent=live.sum(), max_io=1)
+        accum = state.accum.add_round(items_sent=live.sum(-1), max_io=1)
         return PlanState(state.box, {**c, "memory": memory}, accum)
 
     stages.append(custom_stage("root", 1, 1, root_apply))
@@ -190,13 +195,17 @@ def funnel_write_plan(n_procs: int, n_cells: int, M: int, op: Semigroup, *,
 
 
 def _funnel_write_engine(addrs, values, memory, op, M, engine, identity,
-                         shape: bool = True):
+                         shape: bool = True, batched: bool = False):
     """Engine-path funnel write: build the plan and interpret it directly
-    (no compile cache)."""
-    plan = funnel_write_plan(addrs.shape[0], memory.shape[0], M, op,
+    (no compile cache).  ``batched``: the inputs are B stacked queries'
+    (B, P), (B, P) and (B, N) tensors, run as one batch of the plan."""
+    plan = funnel_write_plan(addrs.shape[-1], memory.shape[-1], M, op,
                              identity=identity,
                              dtype=getattr(values, "dtype", torch.float32),
                              shape=shape)
+    if batched:
+        return run_plan(plan, engine, (addrs, values, memory),
+                        [{}] * addrs.shape[0])
     return execute_plan(plan, engine, (addrs, values, memory))
 
 
@@ -236,7 +245,7 @@ def _lex_order(primary: torch.Tensor, secondary: torch.Tensor,
     """Stable order by (primary, secondary) — ``jnp.lexsort((secondary,
     primary))`` — for primary >= -1 and secondary in [0, n_secondary)."""
     key = (primary.long() + 1) * n_secondary + secondary.long()
-    return torch.argsort(key, stable=True)
+    return torch.argsort(key, dim=-1, stable=True)
 
 
 def _funnel_write_dense(addrs, values, memory, op, M, identity):
@@ -312,31 +321,34 @@ def funnel_read_accum(addrs: torch.Tensor, memory: torch.Tensor, M: int
     level (so a cell read by all P processors costs O(log_M P) rounds, not
     O(P) fan-in).  Top-down: the value retraces the funnel to every
     requester.  The result equals ``memory[addrs]``; rounds and
-    communication are accounted per the sparse funnel.
+    communication are accounted per the sparse funnel.  ``addrs`` (..., P)
+    and ``memory`` (..., N) may carry a batch's leading axis, and the
+    accumulator then has it too.
     """
     addrs, memory = torch.as_tensor(addrs), torch.as_tensor(memory)
     dev = addrs.device
-    P = addrs.shape[0]
+    lead, P = tuple(addrs.shape[:-1]), addrs.shape[-1]
     d = max(2, M // 2)
     L = tree_height(max(P, 2), d)
-    accum = CostAccum.zero(dev)
-    group = torch.arange(P, dtype=torch.int32, device=dev)
-    live = torch.tensor(P, dtype=torch.int32, device=dev)
-    first = torch.ones((1,), dtype=torch.bool, device=dev)
+    accum = CostAccum.zero(dev, lead)
+    group = torch.arange(P, dtype=torch.int32, device=dev).expand(addrs.shape)
+    live = torch.full(lead, P, dtype=torch.int32, device=dev)
+    first = torch.ones(lead + (1,), dtype=torch.bool, device=dev)
     fan_out_per_level = []
     for _ in range(L):
         group = group // d
         order = _lex_order(addrs, group, P)
-        a_s, g_s = addrs[order], group[order]
-        uniq = torch.cat([first, (a_s[1:] != a_s[:-1])
-                          | (g_s[1:] != g_s[:-1])]).sum().to(torch.int32)
+        a_s, g_s = addrs.gather(-1, order), group.gather(-1, order)
+        uniq = torch.cat([first, (a_s[..., 1:] != a_s[..., :-1])
+                          | (g_s[..., 1:] != g_s[..., :-1])],
+                         dim=-1).sum(-1).to(torch.int32)
         accum = accum.add_round(items_sent=live, max_io=min(d, M))
         fan_out_per_level.append(live)                      # requests up
         live = uniq
     for width in reversed(fan_out_per_level):               # values down
         accum = accum.add_round(items_sent=width, max_io=min(d, M))
     accum = accum.add_round(items_sent=P, max_io=1)         # leaves -> procs
-    return memory[addrs.long()], accum
+    return memory.gather(-1, addrs.long()), accum
 
 
 def funnel_read(addrs: torch.Tensor, memory: torch.Tensor, M: int,
@@ -370,21 +382,22 @@ def scatter_combine_opt(addrs: torch.Tensor, values: torch.Tensor,
 
 
 def _crcw_step(prog, proc_state, memory, t, M, op, identity, engine,
-               need_accum, accum, shape: bool = True):
+               need_accum, accum, shape: bool = True, batched: bool = False):
     """One PRAM step of the Theorem 3.2 simulation: funnel read, compute,
     funnel write.  ``shape`` selects the engine write funnel's
     shape-scheduled or frozen footprint (bit-identical results and
-    stats)."""
+    stats).  ``batched``: state, memory and ``accum`` carry a batch's
+    leading axis, and the engine write funnel runs as one batch."""
     addrs = prog.read_addr(proc_state, t)
     if need_accum:
         vals, racc = funnel_read_accum(addrs, memory, M)
         accum = accum.merge_sequential(racc)
     else:
-        vals = memory[addrs.long()]
+        vals = memory.gather(-1, addrs.long())
     proc_state, w_addr, w_val = prog.compute(proc_state, vals, t)
     if engine is not None:
         res = _funnel_write_engine(w_addr, w_val, memory, op, M, engine,
-                                   identity, shape=shape)
+                                   identity, shape=shape, batched=batched)
     else:
         res = _funnel_write_dense(w_addr, w_val, memory, op, M, identity)
     return proc_state, res.memory, accum.merge_sequential(res.stats)

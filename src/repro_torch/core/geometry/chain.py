@@ -61,12 +61,20 @@ def _compact(spts: torch.Tensor, ok: torch.Tensor
     """Each run's live slots moved, in order, to a prefix, cut to the
     longest run: ((V, L, 2) points, (V,) int32 counts).  Dead slots write
     into a spill column past the run, cut off.  Reading L costs one host
-    sync per call."""
+    sync per call; for a batch's runs, one for the whole batch."""
     V, cap, _ = spts.shape
-    pos = torch.where(ok, torch.cumsum(ok, -1) - 1, cap)
+    # Each live slot's rank in its run: one cumsum over all runs, less the
+    # live slots of the runs before.  PyTorch's scan along the last axis of
+    # a few long runs (a batch's finalize: four runs of 2^24 slots) took
+    # 32 ms on an H100 (chip_smoke.py, phase batch-hull2d's profile); one
+    # flat scan takes its fast path.
+    live = ok.sum(-1)
+    before = torch.cumsum(live, 0) - live
+    rank = torch.cumsum(ok.reshape(-1), 0).view(V, cap) - before[:, None]
+    pos = torch.where(ok, rank - 1, cap)
     packed = spts.new_zeros((V, cap + 1, 2)).scatter_(
         1, pos[..., None].expand(V, cap, 2), spts)
-    counts = ok.sum(-1, dtype=torch.int32)
+    counts = live.to(torch.int32)
     L = int(counts.max()) if V else 0
     return packed[:, :L].contiguous(), counts
 
@@ -75,14 +83,19 @@ def hull_of_runs(pts: torch.Tensor, valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reducer-local hulls of every mailbox node at once.
 
-    ``pts``: (V, cap, 2) float32 mailbox payload; ``valid``: (V, cap).
-    Returns (hulls (V, cap, 2) CCW from each run's lex-min with zero
-    padding, counts (V,) int32), equal to the JAX package's on every engine
-    backend."""
-    V, cap, _ = pts.shape
-    spts, ok = sort_dedup_runs(pts, valid)
+    ``pts``: (..., V, cap, 2) float32 mailbox payload; ``valid``: (..., V,
+    cap), a batch's queries on the leading axis.  Returns (hulls (..., V,
+    cap, 2) CCW from each lex-min with zero padding, counts (..., V)
+    int32), equal to the JAX package's on every engine backend.  All runs
+    of a batch go through one ``monotone_chain`` call, cut to the batch's
+    longest run: the chain reads no slot past a run's count and pads its
+    hull with zeros, so each query's hulls are those of a call on its own
+    runs."""
+    *lead, V, cap, _ = pts.shape
+    spts, ok = sort_dedup_runs(pts.reshape(-1, cap, 2),
+                               valid.reshape(-1, cap))
     packed, counts = _compact(spts, ok)
     hull, h = ops.monotone_chain(packed, counts)
-    out = pts.new_zeros((V, cap, 2))
+    out = pts.new_zeros((spts.shape[0], cap, 2))
     out[:, :hull.shape[1]] = hull
-    return out, h
+    return out.view(*lead, V, cap, 2), h.view(*lead, V)

@@ -31,7 +31,7 @@ import torch
 
 from ..costmodel import CostAccum, MRCost, log_M, tree_height
 from ..plan import Plan, account_stage, entry_stage, round_stage
-from ..sortmr import pivot_sample_size, quantile_splitters
+from ..sortmr import batch_splitters, pivot_sample_size
 from .chain import hull_of_runs
 
 
@@ -71,11 +71,12 @@ def hull2d_plan(n: int, M: int, *, oversample: int = 8, slack: float = 3.0,
             name="hull2d", fingerprint=("hull2d-trivial", 0), n_nodes=1,
             stages=(),
             prologue=lambda inputs, keys, device: {
-                "pts": torch.zeros((0, 2), dtype=torch.float32,
+                "pts": torch.zeros((len(keys), 0, 2), dtype=torch.float32,
                                    device=device)},
             epilogue=lambda st: EngineHullResult(
                 points=st.carry["pts"],
-                count=torch.zeros((), dtype=torch.int32,
+                count=torch.zeros(st.carry["pts"].shape[:1],
+                                  dtype=torch.int32,
                                   device=st.carry["pts"].device),
                 stats=st.accum),
             round_bound=0)      # no input_spec: any empty input is accepted
@@ -95,14 +96,15 @@ def hull2d_plan(n: int, M: int, *, oversample: int = 8, slack: float = 3.0,
 
     def prologue(inputs, keys, device):
         pts = torch.as_tensor(inputs[0], dtype=torch.float32, device=device)
-        splitters, _ = quantile_splitters(pts[:, 0].contiguous(), V,
-                                          oversample, keys["splitters"])
+        splitters, _ = batch_splitters(pts[..., 0].contiguous(), V,
+                                       oversample,
+                                       [k["splitters"] for k in keys])
         return {"pts": pts, "splitters": splitters}
 
     def emit_entry(carry):
         pts = carry["pts"]
         bucket = torch.searchsorted(carry["splitters"],
-                                    pts[:, 0].contiguous(), right=False)
+                                    pts[..., 0].contiguous(), right=False)
         return bucket.clamp(0, V - 1).to(torch.int32), pts
 
     def make_chain_and_send(block: int, compact: bool):
@@ -116,10 +118,9 @@ def hull2d_plan(n: int, M: int, *, oversample: int = 8, slack: float = 3.0,
             def fn(r, ids, b):
                 hulls, h = hull_of_runs(b.payload, b.valid)
                 leader = ids // a if compact else (ids // block) * block
-                slot = torch.arange(hulls.shape[1], dtype=torch.int32,
+                slot = torch.arange(hulls.shape[-2], dtype=torch.int32,
                                     device=hulls.device)
-                dests = torch.where(slot[None, :] < h[:, None],
-                                    leader[:, None], -1)
+                dests = torch.where(slot < h[..., None], leader[:, None], -1)
                 return dests.to(torch.int32), hulls
             return fn
         return make_fn
@@ -127,9 +128,9 @@ def hull2d_plan(n: int, M: int, *, oversample: int = 8, slack: float = 3.0,
     def make_finalize(carry):
         def finalize(r, ids, b):
             hulls, h = hull_of_runs(b.payload, b.valid)
-            slot = torch.arange(hulls.shape[1], dtype=torch.int32,
+            slot = torch.arange(hulls.shape[-2], dtype=torch.int32,
                                 device=hulls.device)
-            dests = torch.where(slot[None, :] < h[:, None], ids[:, None], -1)
+            dests = torch.where(slot < h[..., None], ids[:, None], -1)
             return dests.to(torch.int32), hulls
         return finalize
 
@@ -150,8 +151,8 @@ def hull2d_plan(n: int, M: int, *, oversample: int = 8, slack: float = 3.0,
 
     def epilogue(state):
         box = state.box
-        count = box.valid[0].sum().to(torch.int32)
-        return EngineHullResult(points=box.payload[0], count=count,
+        count = box.valid[:, 0].sum(-1).to(torch.int32)
+        return EngineHullResult(points=box.payload[:, 0], count=count,
                                 stats=state.accum)
 
     return Plan(name="hull2d", fingerprint=fingerprint, n_nodes=V,

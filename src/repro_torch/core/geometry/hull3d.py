@@ -47,28 +47,30 @@ class Hull3DResult(NamedTuple):
 
 def _facet_mask(pts: torch.Tensor, tri: torch.Tensor,
                 eps: float) -> torch.Tensor:
-    """Which triples span a supporting plane of the whole set (vectorized)."""
+    """Which triples span a supporting plane of the whole set (vectorized).
+    ``pts`` is (..., n, 3), a batch's queries on the leading axis; returns
+    (..., P)."""
     require_true_float32(pts, "the 3-D hull's facet test")
     tri = tri.long()
-    A, B, C = pts[tri[:, 0]], pts[tri[:, 1]], pts[tri[:, 2]]
-    nrm = torch.linalg.cross(B - A, C - A)                # (P, 3)
-    nn = torch.linalg.norm(nrm, dim=1, keepdim=True)
-    scale = pts.abs().max().clamp_min(1.0)
-    nondeg = nn[:, 0] > 1e-6 * scale * scale
+    A, B, C = (pts[..., tri[:, k], :] for k in range(3))
+    nrm = torch.linalg.cross(B - A, C - A, dim=-1)       # (..., P, 3)
+    nn = torch.linalg.norm(nrm, dim=-1, keepdim=True)
+    scale = pts.abs().amax(dim=(-2, -1)).clamp_min(1.0)[..., None]
+    nondeg = nn[..., 0] > 1e-6 * scale * scale
     unit = nrm / nn.clamp_min(1e-30)
-    # signed distance of every point to every candidate plane: (P, n)
-    dist = unit @ pts.T - (unit * A).sum(1, keepdim=True)
-    tol = eps * scale
-    return nondeg & ((dist <= tol).all(1) | (dist >= -tol).all(1))
+    # signed distance of every point to every candidate plane: (..., P, n)
+    dist = unit @ pts.transpose(-2, -1) - (unit * A).sum(-1, keepdim=True)
+    tol = (eps * scale)[..., None]
+    return nondeg & ((dist <= tol).all(-1) | (dist >= -tol).all(-1))
 
 
 _HULL3D_PROG = PRAMProgram(
     # One PRAM step per triple vertex: read the cell (funnel read collapses
     # duplicates), then concurrently write 1.0 into it, combined by max.
-    read_addr=lambda state, t: state["tri"][:, t],
+    read_addr=lambda state, t: state["tri"][..., t],
     compute=lambda state, vals, t: (
         state,
-        torch.where(state["facet"], state["tri"][:, t], -1),
+        torch.where(state["facet"], state["tri"][..., t], -1),
         torch.ones_like(vals)),
 )
 
@@ -88,11 +90,11 @@ def hull3d_plan(n: int, M: int, *, eps: float = 1e-4,
     if n < 4:                      # degenerate: every point is extreme
         return Plan(
             name="hull3d", fingerprint=fingerprint, n_nodes=1, stages=(),
-            prologue=lambda inputs, keys, device: {"device": device},
-            epilogue=lambda st: Hull3DResult(
-                mask=torch.ones((n,), dtype=torch.bool,
-                                device=st.carry["device"]),
-                stats=st.accum),
+            prologue=lambda inputs, keys, device: {
+                "mask": torch.ones((len(keys), n), dtype=torch.bool,
+                                   device=device)},
+            epilogue=lambda st: Hull3DResult(mask=st.carry["mask"],
+                                             stats=st.accum),
             round_bound=0, input_spec=(((n, 3), None),))
     tri_host = combinations_array(n, 3, device="cpu")   # (P, 3) static
     P = int(tri_host.shape[0])
@@ -102,8 +104,10 @@ def hull3d_plan(n: int, M: int, *, eps: float = 1e-4,
     def prologue(inputs, keys, device):
         pts = torch.as_tensor(inputs[0], dtype=torch.float32, device=device)
         tri = tri_host.to(device)
-        return {"state": {"tri": tri, "facet": _facet_mask(pts, tri, eps)},
-                "memory": torch.zeros((n,), dtype=torch.float32,
+        B = pts.shape[0]
+        return {"state": {"tri": tri.expand(B, -1, -1),
+                          "facet": _facet_mask(pts, tri, eps)},
+                "memory": torch.zeros((B, n), dtype=torch.float32,
                                       device=device)}
 
     stages = []
@@ -114,7 +118,7 @@ def hull3d_plan(n: int, M: int, *, eps: float = 1e-4,
                 proc_state, memory, accum = _crcw_step(
                     _HULL3D_PROG, c["state"], c["memory"], t, M,
                     torch.maximum, 0.0, engine, True, state.accum,
-                    shape=shape)
+                    shape=shape, batched=True)
                 return PlanState(state.box,
                                  {"state": proc_state, "memory": memory},
                                  accum)

@@ -45,18 +45,21 @@ class LPResult(NamedTuple):
 def _solve_bases(c, A, bv, bases, feas_eps):
     """Every candidate basis solves its d x d system and tests feasibility
     against all n constraints (the per-processor PRAM work).  Singular
-    bases (|det| <= 1e-9) solve the identity instead and are infeasible."""
+    bases (|det| <= 1e-9) solve the identity instead and are infeasible.
+    ``c`` (..., d), ``A`` (..., n, d) and ``bv`` (..., n) may carry a
+    batch's leading axis; the results are then (..., Q, d), (..., Q)."""
     require_true_float32(A, "the LP's feasibility test")
-    d = int(A.shape[1])
+    d = int(A.shape[-1])
     bases = bases.long()
-    sub_A = A[bases]                                    # (Q, d, d)
-    sub_b = bv[bases]                                   # (Q, d)
+    sub_A = A[..., bases, :]                            # (..., Q, d, d)
+    sub_b = bv[..., bases]                              # (..., Q, d)
     ok = torch.linalg.det(sub_A).abs() > 1e-9
-    safe_A = torch.where(ok[:, None, None], sub_A,
-                         torch.eye(d, dtype=A.dtype, device=A.device)[None])
+    safe_A = torch.where(ok[..., None, None], sub_A,
+                         torch.eye(d, dtype=A.dtype, device=A.device))
     xs = torch.linalg.solve_ex(safe_A, sub_b[..., None]).result[..., 0]
-    feas = ok & (A @ xs.T <= bv[:, None] + feas_eps).all(0)
-    obj = torch.where(feas, xs @ c, math.inf)
+    feas = ok & (A @ xs.transpose(-2, -1)
+                 <= bv[..., None] + feas_eps).all(-2)
+    obj = torch.where(feas, (xs @ c[..., None])[..., 0], math.inf)
     return xs, feas, obj
 
 
@@ -86,8 +89,8 @@ def lp_plan(n: int, d: int, M: int = 64, *, feas_eps: float = 1e-5,
         xs, feas, obj = _solve_bases(c, A, bv, bases_host.to(device),
                                      feas_eps)
         return {"xs": xs, "feas": feas, "obj": obj,
-                "memory": torch.full((1,), math.inf, dtype=torch.float32,
-                                     device=device)}
+                "memory": torch.full((len(keys), 1), math.inf,
+                                     dtype=torch.float32, device=device)}
 
     def min_funnel(engine, state: PlanState) -> PlanState:
         # Min-CRCW: every live processor writes its objective to cell 0.
@@ -95,7 +98,7 @@ def lp_plan(n: int, d: int, M: int = 64, *, feas_eps: float = 1e-5,
         addrs = torch.where(carry["feas"], 0, -1).to(torch.int32)
         res = _funnel_write_engine(addrs, carry["obj"], carry["memory"],
                                    torch.minimum, M, engine, math.inf,
-                                   shape=shape)
+                                   shape=shape, batched=True)
         return PlanState(state.box, {**carry, "memory": res.memory},
                          state.accum.merge_sequential(res.stats))
 
@@ -108,9 +111,11 @@ def lp_plan(n: int, d: int, M: int = 64, *, feas_eps: float = 1e-5,
         carry = state.carry
         # Broadcast winner: the arg-min candidate (exact for float min;
         # torch.argmin returns the first minimum, as jnp.argmin does).
-        k = torch.argmin(carry["obj"])
-        return LPResult(x=carry["xs"][k], objective=carry["memory"][0],
-                        stats=state.accum)
+        obj = carry["obj"]
+        k = torch.argmin(obj, dim=-1)
+        rows = torch.arange(obj.shape[0], device=obj.device)
+        return LPResult(x=carry["xs"][rows, k],
+                        objective=carry["memory"][:, 0], stats=state.accum)
 
     return Plan(name="lp", fingerprint=fingerprint, n_nodes=Q,
                 stages=stages, prologue=prologue, epilogue=epilogue,

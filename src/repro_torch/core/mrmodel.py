@@ -33,18 +33,19 @@ _SPILL = 1024
 
 
 class Mailbox(NamedTuple):
-    """State A_v(r) for all nodes: ``payload`` leaves have shape (V, M, ...)."""
+    """State A_v(r) for all nodes: ``payload`` leaves have shape (V, M, ...),
+    or (B, V, M, ...) for a batch of B queries (``valid`` (B, V, M))."""
 
     payload: Payload
     valid: torch.Tensor  # (V, M) bool
 
     @property
     def n_nodes(self) -> int:
-        return self.valid.shape[0]
+        return self.valid.shape[-2]
 
     @property
     def capacity(self) -> int:
-        return self.valid.shape[1]
+        return self.valid.shape[-1]
 
 
 def make_mailbox(payload: Payload, valid: torch.Tensor) -> Mailbox:
@@ -61,40 +62,46 @@ def materialize_mailbox(dests: torch.Tensor, payload: Payload,
                         rank: torch.Tensor, n_nodes: int,
                         capacity: int) -> Tuple[Mailbox, torch.Tensor]:
     """Shared placement tail of both shuffle implementations (dense and
-    :func:`repro_torch.core.kshuffle.kernel_shuffle`): keep items whose
-    arrival ``rank`` fits ``capacity``, scatter payload + validity into the
-    (V, capacity) mailbox, and compute the per-source-node ``max_sent``.
+    :func:`repro_torch.core.kshuffle.kernel_shuffle`), batch first: B
+    queries' items, ``dests`` (B, ...) and payload leaves (B, ...) with
+    ``flat_dest``, ``valid`` and ``rank`` (B, n).  Keeps items whose
+    arrival ``rank`` fits ``capacity``, scatters payload + validity into the
+    (B, V, capacity) mailbox, and computes each query's per-source-node
+    ``max_sent`` (B,).
 
     PyTorch has no ``mode="drop"`` scatter, and on CUDA an out-of-range
     index is a device-side assert, so every item that does not land writes
-    into a spill area past the mailbox, which is then cut off.  That keeps
+    into a spill area past the mailboxes, which is then cut off.  That keeps
     the scatter free of a host read of how many items land; the spill slot
     is the item's rank modulo ``_SPILL`` (ranks of items that do not land
     are distinct per destination), so millions of such writes do not all
     contend for one address."""
-    n = flat_dest.shape[0]
+    B, n = flat_dest.shape
     slots = n_nodes * capacity
     in_range = valid & (rank < capacity)
-    slot = torch.where(in_range, flat_dest.long() * capacity + rank.long(),
-                       slots + (rank.long() & (_SPILL - 1)))
+    base = torch.arange(B, device=flat_dest.device)[:, None] * slots
+    slot = torch.where(in_range,
+                       base + flat_dest.long() * capacity + rank.long(),
+                       B * slots + (rank.long() & (_SPILL - 1))).reshape(-1)
 
     def place(leaf: torch.Tensor) -> torch.Tensor:
-        flat = leaf.reshape((n,) + tuple(leaf.shape[dests.ndim:]))
-        out = torch.zeros((slots + _SPILL,) + tuple(flat.shape[1:]),
+        flat = leaf.reshape((B * n,) + tuple(leaf.shape[dests.ndim:]))
+        out = torch.zeros((B * slots + _SPILL,) + tuple(flat.shape[1:]),
                           dtype=flat.dtype, device=flat.device)
         out[slot] = flat
-        return out[:slots].view((n_nodes, capacity) + tuple(flat.shape[1:]))
+        return out[:B * slots].view((B, n_nodes, capacity)
+                                    + tuple(flat.shape[1:]))
 
     new_payload = tree_map(place, payload)
     new_valid = place(in_range)
-    if dests.ndim >= 2 and n:
-        sent_per_node = valid.reshape(dests.shape[0], -1).sum(1)
-        max_sent = sent_per_node.max().to(torch.int32)
+    if dests.ndim >= 3 and n:
+        sent_per_node = valid.reshape(B, dests.shape[1], -1).sum(-1)
+        max_sent = sent_per_node.max(-1).values.to(torch.int32)
     else:
         # Empty (V, M) sends have no source nodes: max_sent = 0, matching
         # the reference backend's max(initial=0).
-        max_sent = torch.tensor(0 if dests.ndim >= 2 else 1,
-                                dtype=torch.int32, device=valid.device)
+        max_sent = torch.full((B,), 0 if dests.ndim >= 3 else 1,
+                              dtype=torch.int32, device=valid.device)
     return Mailbox(payload=new_payload, valid=new_valid), max_sent
 
 
@@ -102,22 +109,31 @@ def fifo_rank(flat_dest: torch.Tensor, n_nodes: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FIFO rank of each item among the items with its destination, in
     flattened source order, and the sort key (``n_nodes`` for items with
-    dest < 0, which rank among themselves).  Both int32.  The dense
-    Shuffle's ranking, shared with the FIFO queues' enqueue."""
-    n = flat_dest.shape[0]
-    # Stable sort by destination; invalid items sort to the end.
+    dest < 0, which rank among themselves).  Both int32, of
+    ``flat_dest``'s shape (..., n): each row of leading indices ranks on
+    its own.  The dense Shuffle's ranking, shared with the FIFO queues'
+    enqueue."""
+    shape = flat_dest.shape
+    n = shape[-1]
+    dev = flat_dest.device
     sort_key = torch.where(flat_dest >= 0, flat_dest, n_nodes).to(torch.int32)
-    order = torch.argsort(sort_key, stable=True)
-    sorted_dest = sort_key[order]
-    # Rank of each item within its destination segment.
-    first_occurrence = torch.searchsorted(sorted_dest, sorted_dest,
-                                          side="left")
-    rank_sorted = (torch.arange(n, dtype=torch.int32, device=flat_dest.device)
-                   - first_occurrence.to(torch.int32))
+    if n == 0:
+        return torch.zeros(shape, dtype=torch.int32, device=dev), sort_key
+    rows = sort_key.reshape(-1, n)
+    # One stable sort by (row, destination); invalid items sort to the end
+    # of their row.
+    seg = (torch.arange(rows.shape[0], device=dev)[:, None] * (n_nodes + 1)
+           + rows).reshape(-1)
+    order = torch.argsort(seg, stable=True)
+    sorted_seg = seg[order]
+    # Rank of each item within its (row, destination) segment.
+    first_occurrence = torch.searchsorted(sorted_seg, sorted_seg, side="left")
+    rank_sorted = (torch.arange(seg.shape[0], device=dev)
+                   - first_occurrence).to(torch.int32)
     # Scatter back to source order.
-    rank = torch.zeros((n,), dtype=torch.int32, device=flat_dest.device)
+    rank = torch.zeros((seg.shape[0],), dtype=torch.int32, device=dev)
     rank[order] = rank_sorted
-    return rank, sort_key
+    return rank.view(shape), sort_key
 
 
 def scatter_or_drop(base: torch.Tensor, index: torch.Tensor,
@@ -134,6 +150,42 @@ def scatter_or_drop(base: torch.Tensor, index: torch.Tensor,
     return out[:n]
 
 
+def shuffle_batch(dests: torch.Tensor, payload: Payload, n_nodes: int,
+                  capacity: int) -> Tuple[Mailbox, ShuffleStats]:
+    """The Shuffle step of B queries at once: ``dests`` (B, ...) and payload
+    leaves (B, ...) in, a (B, V, capacity) mailbox and (B,) stats out, each
+    row what :func:`shuffle` gives for that query alone."""
+    B = dests.shape[0]
+    flat_dest = dests.reshape(B, -1)
+    valid = flat_dest >= 0
+    rank, sort_key = fifo_rank(flat_dest, n_nodes)
+    box, max_sent = materialize_mailbox(dests, payload, flat_dest, valid,
+                                        rank, n_nodes, capacity)
+    # invalid items count into a sentinel bin n_nodes, cut off
+    row = torch.arange(B, device=flat_dest.device)[:, None] * (n_nodes + 1)
+    recv_counts = torch.bincount(
+        (sort_key.long() + row).reshape(-1),
+        minlength=B * (n_nodes + 1)).view(B, n_nodes + 1)[:, :n_nodes]
+    stats = ShuffleStats(
+        items_sent=valid.sum(-1).to(torch.int32),
+        max_sent=max_sent,
+        max_received=(recv_counts.max(-1).values.to(torch.int32) if n_nodes
+                      else torch.zeros((B,), dtype=torch.int32,
+                                       device=flat_dest.device)),
+        dropped=(valid & (rank >= capacity)).sum(-1).to(torch.int32),
+    )
+    return box, stats
+
+
+def unbatch_shuffle(box: Mailbox, stats: ShuffleStats
+                    ) -> Tuple[Mailbox, ShuffleStats]:
+    """Row 0 of a batched shuffle's result: a single query's mailbox and
+    0-d stats."""
+    return (Mailbox(payload=tree_map(lambda l: l[0], box.payload),
+                    valid=box.valid[0]),
+            ShuffleStats(*(s[0] for s in stats)))
+
+
 def shuffle(dests: torch.Tensor, payload: Payload, n_nodes: int,
             capacity: int) -> Tuple[Mailbox, ShuffleStats]:
     """The Shuffle step: deliver item j to node ``dests[j]``.
@@ -146,23 +198,12 @@ def shuffle(dests: torch.Tensor, payload: Payload, n_nodes: int,
 
     This is the dense implementation (stable argsort + rank-addressed
     scatter) and the semantics oracle of
-    :func:`repro_torch.core.kshuffle.kernel_shuffle`.
+    :func:`repro_torch.core.kshuffle.kernel_shuffle`; it runs as
+    :func:`shuffle_batch` of one query.
     """
-    flat_dest = dests.reshape(-1)
-    valid = flat_dest >= 0
-    rank, sort_key = fifo_rank(flat_dest, n_nodes)
-    box, max_sent = materialize_mailbox(dests, payload, flat_dest, valid,
-                                        rank, n_nodes, capacity)
-    # invalid items count into a sentinel bin n_nodes, cut off
-    recv_counts = torch.bincount(sort_key.long(),
-                                 minlength=n_nodes + 1)[:n_nodes]
-    stats = ShuffleStats(
-        items_sent=valid.sum().to(torch.int32),
-        max_sent=max_sent,
-        max_received=recv_counts.max().to(torch.int32),
-        dropped=(valid & (rank >= capacity)).sum().to(torch.int32),
-    )
-    return box, stats
+    return unbatch_shuffle(*shuffle_batch(
+        dests[None], tree_map(lambda l: l[None], payload), n_nodes,
+        capacity))
 
 
 # A round function f: (round_idx, node_ids, mailbox) -> (dests, payload).

@@ -51,10 +51,13 @@ class EngineSearchResult(NamedTuple):
 
 
 def _padded_pivots(pivots: torch.Tensor, pad: int) -> torch.Tensor:
-    """Sorted pivots followed by ``pad`` copies of the dtype's maximum."""
-    return torch.cat([torch.sort(pivots).values,
-                      torch.full((pad,), dtype_max(pivots.dtype),
-                                 dtype=pivots.dtype, device=pivots.device)])
+    """Sorted pivots followed by ``pad`` copies of the dtype's maximum,
+    along the last axis (leading axes are queries of a batch)."""
+    return torch.cat([torch.sort(pivots, dim=-1).values,
+                      torch.full(pivots.shape[:-1] + (pad,),
+                                 dtype_max(pivots.dtype),
+                                 dtype=pivots.dtype, device=pivots.device)],
+                     dim=-1)
 
 
 def _child_index(q: torch.Tensor, padded: torch.Tensor, k: torch.Tensor,
@@ -62,17 +65,22 @@ def _child_index(q: torch.Tensor, padded: torch.Tensor, k: torch.Tensor,
     """The child c in [0, f) of tree node k that each query descends to:
     the number of child-subtree maxima below the query, capped at f - 1.
 
-    ``q`` is (rows, cols); ``k`` and ``stride`` (leaves under one child)
-    are (rows,), one node per row.  The maximum under child k*f + j is
-    ``padded[(k*f + j + 1) * stride - 1]``; rows are non-decreasing in j,
-    so the count is a left-sided searchsorted."""
+    ``q`` is (..., rows, cols) and ``padded`` (..., n_padded), with the
+    same leading (batch) axes; ``k`` and ``stride`` (leaves under one
+    child) are (rows,), one node per row.  The maximum under child k*f + j
+    is ``padded[..., (k*f + j + 1) * stride - 1]``; rows are non-decreasing
+    in j, so the count is a left-sided searchsorted.  A NaN query counts
+    no maximum below it, as the JAX package's ``sum(q > bounds)`` does,
+    where a searchsorted would place it after every bound."""
     j = torch.arange(f, device=q.device, dtype=torch.int64)
     bound_idx = ((k.long()[:, None] * f + j + 1) * stride.long()[:, None]
-                 - 1).clamp(0, padded.shape[0] - 1)
-    bounds = padded[bound_idx]
+                 - 1).clamp(0, padded.shape[-1] - 1)
+    bounds = padded[..., bound_idx]
     dt = torch.promote_types(q.dtype, bounds.dtype)
     c = torch.searchsorted(bounds.to(dt).contiguous(), q.to(dt).contiguous(),
                            side="left", out_int32=True)
+    if q.is_floating_point():
+        c = torch.where(torch.isnan(q), 0, c)
     return c.clamp_max(f - 1)
 
 
@@ -121,15 +129,13 @@ def multisearch(queries: torch.Tensor, pivots: torch.Tensor, M: int,
         moved = node * f + _child_index(queries[:, None], padded, node,
                                         stride, f)[:, 0]
         node = torch.where(active, moved, node)
-        # congestion: queries per (level, node) among the active ones
-        cong_key = torch.where(active, level * (f ** L) + node, -1)
-        live = torch.sort(cong_key).values
-        live = live[live >= 0]
-        if live.numel():
-            round_cong = torch.unique_consecutive(
-                live, return_counts=True)[1].max().to(torch.int32)
-        else:
-            round_cong = torch.zeros((), dtype=torch.int32, device=dev)
+        # congestion: queries per (level, node) among the active ones, one
+        # bincount over the L f^L (level, node) bins; inactive queries
+        # count into a sentinel bin, cut off
+        n_bins = L * f ** L
+        cong_key = torch.where(active, level * (f ** L) + node, n_bins)
+        round_cong = torch.bincount(cong_key, minlength=n_bins + 1)[
+            :n_bins].max().to(torch.int32)
         max_cong = torch.maximum(max_cong, round_cong)
         level = level + 1
         accum = accum.add_round(
@@ -197,10 +203,13 @@ def multisearch_plan(n_queries: int, n_pivots: int, M: int, *,
         pivots = torch.as_tensor(inputs[1], device=device)
         padded = _padded_pivots(pivots, pad)
         if pipelined and n_q > 1:
-            idx = random_indexing(n_q, keys["batches"], M, device=device)
+            # one draw per query of the batch, from its own key
+            idx = torch.stack([random_indexing(n_q, k["batches"], M,
+                                               device=device) for k in keys])
             batch = ((idx.long() * K) // n_q).to(torch.int32)
         else:
-            batch = torch.zeros((n_q,), dtype=torch.int32, device=device)
+            batch = torch.zeros((len(keys), n_q), dtype=torch.int32,
+                                device=device)
         return {"queries": queries, "padded": padded, "batch": batch}
 
     # Per node id: its tree level (-1 for sources, L for leaves and the
@@ -231,7 +240,7 @@ def multisearch_plan(n_queries: int, n_pivots: int, M: int, *,
                                     tl[(lvl + 1).clamp_max(L)]
                                     + k_local * f_br, ids.long())
                 dest = first.to(torch.int32)[:, None] + torch.where(
-                    in_tree[:, None], c, 0)
+                    in_tree[:, None], c, 0)          # (B, V, cap)
                 # source b releases its batch into the root at round b
                 release = torch.where(ids == offset + r, T[0], ids)
                 dest = torch.where((ids < K)[:, None], release[:, None],
@@ -242,9 +251,10 @@ def multisearch_plan(n_queries: int, n_pivots: int, M: int, *,
         return make_fn
 
     def emit_entry(c):
-        return (c["batch"], (c["queries"],
-                             torch.arange(n_q, dtype=torch.int32,
-                                          device=c["batch"].device)))
+        batch = c["batch"]
+        return (batch, (c["queries"],
+                        torch.arange(n_q, dtype=torch.int32,
+                                     device=batch.device).expand(batch.shape)))
 
     if shape:
         # Warm-up rounds r < L reach at most tree level r: footprint T[r+1]
@@ -272,17 +282,19 @@ def multisearch_plan(n_queries: int, n_pivots: int, M: int, *,
         q, qi = box.payload
         valid = box.valid
         dev = valid.device
-        ids2 = torch.arange(valid.shape[0], dtype=torch.int64,
+        B = valid.shape[0]
+        ids2 = torch.arange(valid.shape[-2], dtype=torch.int64,
                             device=dev)[:, None]
         at_leaf = valid & (ids2 >= T[L])
         leaf_k = (ids2 - T[L]).clamp_max(m).to(torch.int32)
+        row = torch.arange(B, device=dev)[:, None, None] * n_q
         buckets = scatter_or_drop(
-            torch.zeros((n_q,), dtype=torch.int32, device=dev),
-            qi.reshape(-1), at_leaf.reshape(-1),
+            torch.zeros((B * n_q,), dtype=torch.int32, device=dev),
+            (qi + row).reshape(-1), at_leaf.reshape(-1),
             leaf_k.expand(valid.shape).reshape(-1),
-            torch.arange(valid.numel(), device=dev))
-        buckets = torch.where(carry["queries"] > carry["padded"][m - 1], m,
-                              buckets)
+            torch.arange(valid.numel(), device=dev)).view(B, n_q)
+        buckets = torch.where(carry["queries"]
+                              > carry["padded"][:, m - 1:m], m, buckets)
         return EngineSearchResult(buckets=buckets.to(torch.int32),
                                   stats=state.accum)
 

@@ -17,6 +17,14 @@ removed:
 ``MREngine.compile(plan)`` binds a plan once per (fingerprint, backend) into
 a cached :class:`~repro_torch.core.api.Executable`; :func:`execute_plan` is
 the interpreter both share.
+
+The round program is written batch first: the prologue receives the inputs
+stacked on a leading axis of B queries and one key per query, and every
+stage and the epilogue work on (B, ...) tensors — mailboxes (B, V, M), a
+(B,) :class:`~repro_torch.core.costmodel.CostAccum` — so B queries run as
+one program, each shuffle one shuffle for the batch
+(:func:`execute_plan_batch`).  One query is a batch of one with the axis
+dropped at the end (:func:`execute_plan`).
 """
 from __future__ import annotations
 
@@ -25,8 +33,10 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .._tree import tree_map
 from ..obs import NULL_TRACER, plan_token, round_event as _round_event
 from .costmodel import CostAccum
+from .engine import stats_row
 from .mrmodel import Mailbox
 
 
@@ -68,7 +78,9 @@ class Plan(NamedTuple):
     fingerprint: Tuple
     n_nodes: int
     stages: Tuple[PlanStage, ...]
-    prologue: Callable            # (inputs: tuple, keys: dict, device) -> carry
+    #: (inputs: tuple stacked on a leading batch axis, keys: one dict per
+    #: query, device) -> carry, every tensor of it with the batch axis
+    prologue: Callable
     epilogue: Callable            # (PlanState) -> outputs
     round_bound: int              # concrete ceiling realizing the paper's O(.)
     prng_slots: Tuple[str, ...] = ()
@@ -212,11 +224,69 @@ def _check_inputs(plan: Plan, inputs: Tuple) -> None:
                 f"rebuild the plan for this dtype")
 
 
+def batch_of_one(tree):
+    """``tree`` with a leading batch axis of one on every tensor and numpy
+    array leaf; other leaves (a carry's Python numbers) pass unchanged."""
+    return tree_map(lambda x: x[None] if isinstance(x, (torch.Tensor,
+                                                        np.ndarray)) else x,
+                    tree)
+
+
+def row_of(tree, b: int = 0):
+    """Query ``b`` of a batched tree: every tensor leaf indexed at ``b`` on
+    its leading axis; other leaves pass unchanged."""
+    return tree_map(lambda x: x[b] if isinstance(x, torch.Tensor) else x,
+                    tree)
+
+
+def initial_state(plan: Plan, inputs: Tuple, keys, device) -> PlanState:
+    """The state before the first stage: the prologue's carry of B stacked
+    queries (one key dict per query in ``keys``) and a (B,) accumulator."""
+    carry = plan.prologue(tuple(inputs), list(keys), device)
+    return PlanState(box=None, carry=carry,
+                     accum=CostAccum.zero(device, (len(keys),)))
+
+
+def run_plan(plan: Plan, engine, inputs: Tuple, keys,
+             checkpointer=None):
+    """The interpreter: B queries, stacked in ``inputs``, with one key dict
+    each in ``keys``, through the plan's stages as one round program;
+    returns the outputs with their batch axis.  Per-stage spans record
+    when the engine's tracer is live and not a batch's
+    :class:`~repro_torch.obs.BatchTracer`.  Plans that run another plan
+    inside a stage call this on their own batch."""
+    state = initial_state(plan, inputs, keys, engine.device)
+    if checkpointer is not None:
+        from .recovery import _apply_stages
+        state = _apply_stages(plan, engine, state, 0, checkpointer)
+    else:
+        tr = getattr(engine, "tracer", NULL_TRACER)
+        if tr.enabled and not getattr(tr, "batch", False):
+            state = _traced_stages(plan, engine, state, tr)
+        else:
+            for stage in plan.stages:
+                state = stage.apply(engine, state)
+    return plan.epilogue(state)
+
+
+def execute_plan_batch(plan: Plan, engine, inputs: Tuple, keys):
+    """Run B queries of a plan as one round program: ``inputs`` stacked on
+    a leading axis of size B, ``keys`` a length-B sequence of the keys
+    :meth:`Plan.split_key` reads.  Every output leaf has a leading axis of
+    size B, row b bit for bit what ``execute_plan`` gives for query b."""
+    keys = list(keys)
+    _check_inputs(plan, tree_map(lambda x: x[0], tuple(inputs)))
+    return run_plan(plan, engine, inputs,
+                    [plan.split_key(k) for k in keys])
+
+
 def execute_plan(plan: Plan, engine, inputs: Tuple, key=None,
                  checkpointer=None):
     """Run a plan's stages in order on ``engine`` and return its outputs.
 
-    The prologue receives the engine's device and moves the inputs there.
+    The query runs as a batch of one (:func:`run_plan`), its outputs
+    without the batch axis.  The prologue receives the engine's device and
+    moves the inputs there.
 
     ``checkpointer`` (a :class:`repro_torch.core.recovery.Checkpointer`)
     turns on the ``checkpoint_every`` policy: after each stage the full
@@ -230,21 +300,8 @@ def execute_plan(plan: Plan, engine, inputs: Tuple, key=None,
     measured deltas is a host sync: the opt-in cost of tracing).  The
     default ``NULL_TRACER`` takes the plain loop, with no sync."""
     _check_inputs(plan, inputs)
-    keys = plan.split_key(key)
-    carry = plan.prologue(tuple(inputs), keys, engine.device)
-    state = PlanState(box=None, carry=carry,
-                      accum=CostAccum.zero(engine.device))
-    if checkpointer is not None:
-        from .recovery import _apply_stages
-        state = _apply_stages(plan, engine, state, 0, checkpointer)
-    else:
-        tr = getattr(engine, "tracer", NULL_TRACER)
-        if tr.enabled:
-            state = _traced_stages(plan, engine, state, tr)
-        else:
-            for stage in plan.stages:
-                state = stage.apply(engine, state)
-    return plan.epilogue(state)
+    return row_of(run_plan(plan, engine, batch_of_one(tuple(inputs)),
+                           [plan.split_key(key)], checkpointer))
 
 
 def _traced_apply(plan: Plan, engine, i: int, state: PlanState,
@@ -299,18 +356,19 @@ def account_stage(name: str,
 
 def entry_stage(name: str, n_nodes: int, capacity: int,
                 emit: Callable) -> PlanStage:
-    """The entry shuffle: ``emit(carry) -> (dests, payload)`` routes the
-    input collection into a fresh (n_nodes, capacity) mailbox."""
+    """The entry shuffle: ``emit(carry) -> (dests, payload)``, both (B,
+    ...), routes the input collection into a fresh (B, n_nodes, capacity)
+    mailbox."""
 
     def apply(engine, state: PlanState) -> PlanState:
         tr = getattr(engine, "tracer", NULL_TRACER)
         t0 = tr.clock() if tr.enabled else 0.0
         V = engine.aligned_nodes(n_nodes)
         dests, payload = emit(state.carry)
-        box, st = engine.shuffle(dests, payload, V, capacity)
+        box, st = engine.shuffle_batch(dests, payload, V, capacity)
         if tr.enabled:
             _round_event(tr, t0, getattr(engine, "name", "?"), 0,
-                         V, capacity, st)
+                         V, capacity, stats_row(st))
         return PlanState(box, state.carry, state.accum.add_round_stats(st))
 
     return PlanStage(name, 1, capacity, apply, n_nodes)
@@ -320,15 +378,18 @@ def round_stage(name: str, make_fn: Callable, n_rounds: int,
                 capacity: Optional[int] = None,
                 n_nodes: Optional[int] = None) -> PlanStage:
     """``n_rounds`` applications of one round function over the current
-    mailbox.  ``make_fn(carry) -> RoundFn`` binds the carry at execute time.
-    ``n_nodes`` declares the stage's target footprint V_r (a shape-change
-    round when it differs from the current box); None inherits."""
+    mailbox.  ``make_fn(carry) -> RoundFn`` binds the carry at execute time;
+    the round function sees the (B, V, M) mailbox and the (V,) node ids and
+    emits (B, V, M_out) destinations.  ``n_nodes`` declares the stage's
+    target footprint V_r (a shape-change round when it differs from the
+    current box); None inherits."""
 
     def apply(engine, state: PlanState) -> PlanState:
         V = None if n_nodes is None else engine.aligned_nodes(n_nodes)
         box, accum = engine.run_rounds(make_fn(state.carry), state.box,
                                        n_rounds, capacity=capacity,
-                                       accum=state.accum, n_nodes=V)
+                                       accum=state.accum, n_nodes=V,
+                                       batched=True)
         return state._replace(box=box, accum=accum)
 
     return PlanStage(name, n_rounds, capacity, apply, n_nodes)
@@ -355,7 +416,8 @@ def custom_stage(name: str, rounds: int, capacity: Optional[int],
 
 
 __all__ = [
-    "Plan", "PlanStage", "PlanState", "execute_plan",
+    "Plan", "PlanStage", "PlanState", "execute_plan", "execute_plan_batch",
+    "run_plan", "batch_of_one", "row_of",
     "account_stage", "compute_stage", "custom_stage",
     "entry_stage", "round_stage",
 ]

@@ -27,24 +27,27 @@ from .plan import (Plan, account_stage, dtype_name, entry_stage, round_stage,
 
 
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
-    """Sum of each row of a (rows, d) tensor in its own dtype (int32 wraps
-    as in the JAX package).  Both the physical plan's level sums and its
-    bottom-up mailbox rounds sum through here, so they agree bit for bit."""
-    return torch.sum(x, dim=1, dtype=x.dtype)
+    """Sum of each row of a (..., rows, d) tensor in its own dtype (int32
+    wraps as in the JAX package).  Both the physical plan's level sums and
+    its bottom-up mailbox rounds sum through here, so they agree bit for
+    bit."""
+    return torch.sum(x, dim=-1, dtype=x.dtype)
 
 
 def _excl_rows(x: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix along the rows of a (rows, d) tensor, own dtype."""
-    return torch.cumsum(x, dim=1, dtype=x.dtype) - x
+    """Exclusive prefix along the rows of a (..., rows, d) tensor, own
+    dtype."""
+    return torch.cumsum(x, dim=-1, dtype=x.dtype) - x
 
 
 def _pad_groups(x: torch.Tensor, n_groups: int, d: int) -> torch.Tensor:
-    """``x`` zero-padded to ``n_groups * d`` items, as (n_groups, d)."""
-    pad = n_groups * d - x.shape[0]
+    """``x`` (..., n) zero-padded to ``n_groups * d`` items, as (...,
+    n_groups, d)."""
+    pad = n_groups * d - x.shape[-1]
     if pad:
-        x = torch.cat([x, torch.zeros((pad,), dtype=x.dtype,
-                                      device=x.device)])
-    return x.reshape(n_groups, d)
+        x = torch.cat([x, torch.zeros(x.shape[:-1] + (pad,), dtype=x.dtype,
+                                      device=x.device)], dim=-1)
+    return x.reshape(x.shape[:-1] + (n_groups, d))
 
 
 class PrefixResult(NamedTuple):
@@ -96,21 +99,23 @@ def prefix_plan(n: int, M: int, *, dtype=torch.int32,
 
     def prologue(inputs, keys, device):
         values = torch.as_tensor(inputs[0], device=device)
+        B = values.shape[0]
         # d^L leaves: at most d times n, since L = ceil(log_d n)
-        leaves = _pad_groups(values, d ** (L - 1), d).reshape(-1)
+        leaves = _pad_groups(values, d ** (L - 1), d).reshape(B, -1)
         # Bottom-up phase: levels[i] = subtree sums of the nodes at tree
         # level L-1-i; each step is one MR round (node v sends s_v to its
         # parent).
         levels = [leaves]
         for _ in range(L - 1):
-            levels.append(_row_sums(levels[-1].reshape(-1, d)))
+            levels.append(_row_sums(levels[-1].reshape(B, -1, d)))
         # Top-down phase: offsets[k] = sum of all leaves strictly left of
         # node k's subtree at the current level.
-        offsets = torch.zeros((1,), dtype=leaves.dtype, device=device)
+        offsets = torch.zeros((B, 1), dtype=leaves.dtype, device=device)
         for l in range(L):
-            child_sums = levels[L - 1 - l].reshape(-1, d)
-            offsets = (offsets[:, None] + _excl_rows(child_sums)).reshape(-1)
-        out = offsets[:n] + values if inclusive else offsets[:n]
+            child_sums = levels[L - 1 - l].reshape(B, -1, d)
+            offsets = (offsets[..., None]
+                       + _excl_rows(child_sums)).reshape(B, -1)
+        out = offsets[:, :n] + values if inclusive else offsets[:, :n]
         return {"values": out}
 
     stages = (
@@ -153,20 +158,21 @@ def _physical_prefix_plan(n: int, M: int, d: int, dtype: torch.dtype,
 
     def emit_entry(carry):
         vals = carry["values"]
-        return (torch.arange(n, dtype=torch.int32, device=vals.device) // d,
+        return (torch.arange(n, dtype=torch.int32,
+                             device=vals.device).expand(vals.shape) // d,
                 vals)
 
     def make_up(carry):
         def fn(r, ids, b):
             sums = _row_sums(torch.where(b.valid, b.payload,
                                          torch.zeros_like(b.payload)))
-            live = b.valid.any(dim=1)
+            live = b.valid.any(dim=-1)                   # (B, V)
             slot = torch.arange(b.capacity, dtype=torch.int32,
-                                device=ids.device)[None, :]
-            dests = torch.where((slot == 0) & live[:, None],
+                                device=ids.device)
+            dests = torch.where((slot == 0) & live[..., None],
                                 (ids // d)[:, None], -1)
-            payload = torch.where(slot == 0, sums[:, None],
-                                  torch.zeros_like(sums)[:, None])
+            payload = torch.where(slot == 0, sums[..., None],
+                                  torch.zeros_like(sums)[..., None])
             return dests.to(torch.int32), payload
         return fn
 
@@ -180,21 +186,22 @@ def _physical_prefix_plan(n: int, M: int, d: int, dtype: torch.dtype,
             excl = _excl_rows(_pad_groups(carry["lv"][j], n_parents, d))
 
             def fn(r, ids, b):
+                B = b.valid.shape[0]
                 if from_root:
-                    offs = torch.zeros((ids.shape[0],), dtype=excl.dtype,
+                    offs = torch.zeros((B, ids.shape[0]), dtype=excl.dtype,
                                        device=ids.device)
-                    live = ids == 0
+                    live = (ids == 0).expand(B, -1)
                 else:
-                    offs = torch.where(b.valid[:, 0], b.payload[:, 0],
-                                       torch.zeros_like(b.payload[:, 0]))
-                    live = b.valid[:, 0] & (ids < n_parents)
+                    offs = torch.where(b.valid[..., 0], b.payload[..., 0],
+                                       torch.zeros_like(b.payload[..., 0]))
+                    live = b.valid[..., 0] & (ids < n_parents)
                 rows = ids.clamp(0, n_parents - 1).long()
                 col = torch.arange(d, dtype=torch.int32,
                                    device=ids.device)[None, :]
                 child = ids[:, None] * d + col
-                dests = torch.where(live[:, None] & (child < n_children),
+                dests = torch.where(live[..., None] & (child < n_children),
                                     child, -1)
-                payload = offs[:, None] + excl[rows]
+                payload = offs[..., None] + excl[:, rows]
                 return dests.to(torch.int32), payload
             return fn
         return make_fn
@@ -212,16 +219,18 @@ def _physical_prefix_plan(n: int, M: int, d: int, dtype: torch.dtype,
     def epilogue(state):
         box = state.box
         values = state.carry["values"]
+        B = values.shape[0]
         if J == 0:
-            group_off = torch.zeros((sizes[0],), dtype=values.dtype,
+            group_off = torch.zeros((B, sizes[0]), dtype=values.dtype,
                                     device=values.device)
         else:
-            head = box.payload[:sizes[0], 0]
-            group_off = torch.where(box.valid[:sizes[0], 0], head,
+            head = box.payload[:, :sizes[0], 0]
+            group_off = torch.where(box.valid[:, :sizes[0], 0], head,
                                     torch.zeros_like(head))
-        within = _excl_rows(_pad_groups(values, sizes[0], d)).reshape(-1)[:n]
+        within = _excl_rows(_pad_groups(values, sizes[0], d)).reshape(
+            B, -1)[:, :n]
         group = torch.arange(n, device=values.device) // d
-        out = group_off[group] + within
+        out = group_off[:, group] + within
         if inclusive:
             out = out + values
         return PrefixResult(values=out.to(values.dtype), stats=state.accum)

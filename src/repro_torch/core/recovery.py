@@ -73,7 +73,8 @@ from ..train import checkpoint as _ckpt
 from .costmodel import CostAccum
 from .engine import MREngine
 from .mrmodel import Mailbox
-from .plan import Plan, PlanState, _check_inputs, _traced_apply
+from .plan import (Plan, PlanState, _check_inputs, _traced_apply,
+                   batch_of_one, initial_state, row_of)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +202,13 @@ class FaultInjectingEngine(MREngine):
     attributes, which ``__getattr__`` would never delegate: the proxy
     adopts them from the wrapped engine explicitly.  Were ``device`` left
     at the class's CPU, a plan's prologue would move the inputs off the
-    card and the shuffles would run the kernels' plain versions there."""
+    card and the shuffles would run the kernels' plain versions there.
+
+    ``batchable`` is the one class attribute it does not adopt: a batch on
+    the proxy runs its queries one after another, each shuffle attempt
+    passing the injector, as the JAX package's proxy is not vmappable."""
+
+    batchable = False
 
     def __init__(self, engine: MREngine, faults):
         self.inner = engine
@@ -547,24 +554,29 @@ def _cumulative_rounds(plan: Plan):
 
 
 def _fresh_state(plan: Plan, inputs, key, device) -> PlanState:
+    """The one query's state before the first stage, as a batch of one."""
     _check_inputs(plan, tuple(inputs))
-    keys = plan.split_key(key)
-    carry = plan.prologue(tuple(inputs), keys, device)
-    return PlanState(box=None, carry=carry, accum=CostAccum.zero(device))
+    return initial_state(plan, batch_of_one(tuple(inputs)),
+                         [plan.split_key(key)], device)
 
 
 def _state_tree(state: PlanState):
-    return {"box": state.box, "carry": state.carry, "accum": state.accum}
+    """What a checkpoint holds: the one query's state without the batch
+    axis, leaf for leaf the JAX package's."""
+    return row_of({"box": state.box, "carry": state.carry,
+                   "accum": state.accum})
 
 
 def _restore(checkpointer: "Checkpointer", round_idx: int, engine):
-    """Load a checkpoint onto ``engine``'s device, mailbox realigned."""
+    """Load a checkpoint onto ``engine``'s device, mailbox realigned, as
+    a batch of one."""
     tree, meta = checkpointer.load(round_idx, device=engine.device)
-    state = PlanState(box=tree["box"], carry=tree["carry"],
-                      accum=tree["accum"])
-    if state.box is not None:
-        state = state._replace(box=realign_mailbox(state.box, engine))
-    return state, meta
+    box = tree["box"]
+    if box is not None:
+        box = realign_mailbox(box, engine)
+    tree = batch_of_one({**tree, "box": box})
+    return PlanState(box=tree["box"], carry=tree["carry"],
+                     accum=tree["accum"]), meta
 
 
 def _wire_tracer(checkpointer: Optional[Checkpointer], tr) -> None:
@@ -650,7 +662,7 @@ def _drive(plan: Plan, base_engine, eng, state: PlanState, start: int,
 
 
 def _finish(plan, state, report, eng, checkpointer):
-    outputs = plan.epilogue(state)
+    outputs = row_of(plan.epilogue(state))
     if isinstance(eng, FaultInjectingEngine):
         inj = eng.injector
         report.failures_injected = inj.failures

@@ -144,11 +144,22 @@ def quantile_splitters(x: torch.Tensor, n_buckets: int, oversample: int,
 
     Returns (splitters ascending, sample size s); ``key`` is read as
     :func:`sample_indices` reads it."""
-    n = x.shape[0]
+    splitters, s = batch_splitters(x[None], n_buckets, oversample, [key])
+    return splitters[0], s
+
+
+def batch_splitters(x: torch.Tensor, n_buckets: int, oversample: int,
+                    keys) -> Tuple[torch.Tensor, int]:
+    """:func:`quantile_splitters` of B queries at once: ``x`` (B, n), one
+    key per query in ``keys``, splitters (B, n_buckets - 1).  Each query's
+    sample positions are drawn from its own key (the one draw made per
+    query); the gather and the sort run once for the batch."""
+    n = x.shape[-1]
     s = pivot_sample_size(n, n_buckets, oversample)
-    sample = torch.sort(x[sample_indices(key, n, s, x.device)]).values
+    idx = torch.stack([sample_indices(k, n, s, x.device) for k in keys])
+    sample = torch.sort(torch.gather(x, -1, idx), dim=-1).values
     q = (torch.arange(1, n_buckets, device=x.device) * s) // n_buckets
-    return sample[q], s
+    return sample[:, q], s
 
 
 def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
@@ -205,7 +216,9 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
         return max(1, int(math.ceil(slack * n / group_nodes(d))))
 
     def bucket_of(splitters, v):
-        b = torch.searchsorted(splitters, v, side="left")
+        # splitters (B, V-1), values (B, ...): each query searches its own
+        b = torch.searchsorted(splitters, v.reshape(v.shape[0], -1),
+                               side="left").view(v.shape)
         return b.clamp(0, V - 1).to(torch.int32)
 
     def level_dest(splitters, vals, valid, d):
@@ -219,7 +232,8 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
 
     def prologue(inputs, keys, device):
         x = torch.as_tensor(inputs[0], device=device)
-        splitters, _ = quantile_splitters(x, V, oversample, keys["splitters"])
+        splitters, _ = batch_splitters(x, V, oversample,
+                                       [k["splitters"] for k in keys])
         return {"x": x, "splitters": splitters}
 
     stages = [
@@ -250,9 +264,9 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
         # Reducer-local sort round: sort within the mailbox, keep at self.
         def local_sort(r, ids, b):
             svals = torch.sort(b.payload.masked_fill(~b.valid, big),
-                               dim=1).values
-            count = b.valid.sum(1, keepdim=True)
-            slot = torch.arange(svals.shape[1], device=svals.device)[None, :]
+                               dim=-1).values
+            count = b.valid.sum(-1, keepdim=True)
+            slot = torch.arange(svals.shape[-1], device=svals.device)
             dest = torch.where(slot < count, ids[:, None], -1)
             return dest, svals
         return local_sort
@@ -266,13 +280,16 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
         # the output go to one extra position, cut off (no drop-mode
         # scatter in PyTorch).
         box = state.box
-        counts = box.valid.sum(1)
-        offsets = torch.cumsum(counts, 0) - counts
-        slot = torch.arange(box.valid.shape[1], device=counts.device)[None, :]
-        pos = torch.where(box.valid, offsets[:, None] + slot, n).clamp_max(n)
-        out = torch.zeros((n + 1,), dtype=dtype, device=counts.device)
-        out[pos.reshape(-1)] = box.payload.reshape(-1)
-        return EngineSortResult(values=out[:n], stats=state.accum)
+        B = box.valid.shape[0]
+        counts = box.valid.sum(-1)
+        offsets = torch.cumsum(counts, -1) - counts
+        slot = torch.arange(box.valid.shape[-1], device=counts.device)
+        pos = torch.where(box.valid, offsets[..., None] + slot,
+                          n).clamp_max(n)
+        row = torch.arange(B, device=counts.device)[:, None, None] * (n + 1)
+        out = torch.zeros((B, n + 1), dtype=dtype, device=counts.device)
+        out.view(-1)[(pos + row).reshape(-1)] = box.payload.reshape(-1)
+        return EngineSortResult(values=out[:, :n], stats=state.accum)
 
     return Plan(name="sort", fingerprint=fingerprint, n_nodes=V,
                 stages=tuple(stages), prologue=prologue, epilogue=epilogue,

@@ -45,10 +45,10 @@ _I64 = ctypes.c_longlong
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "repro_bincount_tiles_group": ([_I64, _I64, _I64], ctypes.c_int),
-    "repro_bincount_tiles_scratch_bytes": ([_I64, _I64, _I64], _I64),
-    "repro_bincount_tiles": ([_PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR,
-                              _PTR], ctypes.c_int),
+    "repro_bincount_tiles_group": ([_I64, _I64, _I64, _I64], ctypes.c_int),
+    "repro_bincount_tiles_scratch_bytes": ([_I64, _I64, _I64, _I64], _I64),
+    "repro_bincount_tiles": ([_PTR, _I64, _I64, _I64, _I64, _PTR, _PTR, _PTR,
+                              _PTR, _PTR], ctypes.c_int),
     "repro_bitonic_smem_width": ([], _I64),
     "repro_bitonic_sort": ([_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
                             _I64, ctypes.c_int, _PTR], ctypes.c_int),

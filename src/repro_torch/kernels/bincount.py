@@ -9,6 +9,10 @@ three (T, V) int32 matrices:
 - ``tile_prefix[t, b]`` — occurrences of b in tiles 0..t-1;
 - ``bucket_offsets[t, b]`` — occurrences of buckets 0..b-1 in tile t.
 
+A (B, T, tile_n) array is B independent queries, as the JAX kernel is under
+``jax.vmap``: the tables are (B, T, V) and ``tile_prefix`` restarts at each
+query.
+
 ``bincount(ids, V)`` takes an (n,) int32 id vector and returns the (V,)
 int32 histogram, reached through :func:`repro_torch.kernels.ops.bincount`.
 
@@ -19,12 +23,15 @@ PyTorch for the CPU and as the kernel's yardstick on the card.
 :mod:`repro_torch.kernels.ops` picks one by device.
 
 ``bincount_tiles`` has two routes on the card: ``single_pass`` for V up to
-48 Ki buckets and fewer than 2^30 ids (one launch; blocks of
-:func:`group_tiles` tiles carry P across blocks by decoupled look-back) and
-``global`` otherwise (global atomics and a column scan over C).
+48 Ki buckets and fewer than 2^30 ids a query (one launch; blocks of
+:func:`group_tiles` tiles carry P across blocks by decoupled look-back, each
+query's first group starting it afresh) and ``global`` otherwise (global
+atomics and a column scan over each query's C).  Either way one launch
+covers the whole batch.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -40,48 +47,56 @@ Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _check(tiles: torch.Tensor, n_buckets: int) -> None:
-    if tiles.ndim != 2:
-        raise ValueError("bincount_tiles expects (T, tile_n)")
+    if tiles.ndim not in (2, 3):
+        raise ValueError("bincount_tiles expects (T, tile_n) or "
+                         "(B, T, tile_n)")
     if n_buckets < 0:
         raise ValueError(f"n_buckets must be >= 0, got {n_buckets}")
 
 
 def bincount_tiles_plain(tiles: torch.Tensor, n_buckets: int) -> Tables:
-    """Plain PyTorch: one bincount over tile-offset ids, then two cumsums."""
+    """Plain PyTorch: one bincount over ids offset by their row (query b,
+    tile t) by ``(b T + t) (V + 1)``, then two cumsums, the cross-tile one
+    within each query."""
     _check(tiles, n_buckets)
-    T, tile_n = tiles.shape
+    *lead, T, tile_n = tiles.shape
     V = int(n_buckets)
+    R = math.prod(lead) * T                   # rows, over all queries
     ok = (tiles >= 0) & (tiles < V)
     # ignored ids land in a sentinel bucket V, cut off after counting
-    row_base = torch.arange(T, device=tiles.device).unsqueeze(1) * (V + 1)
+    row_base = (torch.arange(R, device=tiles.device).view(*lead, T, 1)
+                * (V + 1))
     ids = torch.where(ok, tiles.long(), V) + row_base
-    C = torch.bincount(ids.reshape(-1), minlength=T * (V + 1))
-    C = C.view(T, V + 1)[:, :V].to(torch.int32)
-    P = torch.cumsum(C, 0, dtype=torch.int32) - C
-    F = torch.cumsum(C, 1, dtype=torch.int32) - C
+    C = torch.bincount(ids.reshape(-1), minlength=R * (V + 1))
+    C = C.view(*lead, T, V + 1)[..., :V].to(torch.int32)
+    P = torch.cumsum(C, -2, dtype=torch.int32) - C
+    F = torch.cumsum(C, -1, dtype=torch.int32) - C
     return C.contiguous(), P, F
 
 
 def bincount_tiles_cuda(tiles: torch.Tensor, n_buckets: int) -> Tables:
-    """Launch ``csrc/bincount_tiles.cu`` on a CUDA tensor; raises on any
-    failure to build or launch."""
+    """Launch ``csrc/bincount_tiles.cu`` on a CUDA tensor, once for the
+    whole batch; raises on any failure to build or launch."""
     _check(tiles, n_buckets)
     if tiles.device.type != "cuda" or tiles.dtype != torch.int32:
         raise ValueError("bincount_tiles_cuda takes a CUDA int32 tensor, got "
                          f"{tiles.dtype} on {tiles.device}")
     tiles = tiles.contiguous()
-    T, tile_n = tiles.shape
+    *lead, T, tile_n = tiles.shape
+    B = lead[0] if lead else 1
     V = int(n_buckets)
-    if T == 0 or V == 0:
-        return tuple(torch.zeros((T, V), dtype=torch.int32, device=tiles.device)
+    shape = (*lead, T, V)
+    if B == 0 or T == 0 or V == 0:
+        return tuple(torch.zeros(shape, dtype=torch.int32, device=tiles.device)
                      for _ in range(3))
-    C, P, F = (torch.empty((T, V), dtype=torch.int32, device=tiles.device)
+    C, P, F = (torch.empty(shape, dtype=torch.int32, device=tiles.device)
                for _ in range(3))
     lib = _build.library()
-    scratch = torch.empty(lib.repro_bincount_tiles_scratch_bytes(T, tile_n, V),
-                          dtype=torch.uint8, device=tiles.device)
+    scratch = torch.empty(
+        lib.repro_bincount_tiles_scratch_bytes(B, T, tile_n, V),
+        dtype=torch.uint8, device=tiles.device)
     stream = torch.cuda.current_stream(tiles.device).cuda_stream
-    err = lib.repro_bincount_tiles(tiles.data_ptr(), T, tile_n, V,
+    err = lib.repro_bincount_tiles(tiles.data_ptr(), B, T, tile_n, V,
                                    C.data_ptr(), P.data_ptr(), F.data_ptr(),
                                    scratch.data_ptr(), stream)
     _build.check(err, "bincount_tiles")
@@ -91,11 +106,12 @@ def bincount_tiles_cuda(tiles: torch.Tensor, n_buckets: int) -> Tables:
     return C, P, F
 
 
-def group_tiles(T: int, tile_n: int, n_buckets: int) -> int:
-    """Tiles one block of the single-pass route counts for a (T, tile_n)
-    id matrix over ``n_buckets`` (8 at 2048), or 0 where the kernel takes
-    the global route; asks the built library."""
-    return int(_build.library().repro_bincount_tiles_group(T, tile_n,
+def group_tiles(T: int, tile_n: int, n_buckets: int, B: int = 1) -> int:
+    """Tiles one block of the single-pass route counts for a query's
+    (T, tile_n) id matrix over ``n_buckets`` (8 at 2048), or 0 where the
+    kernel takes the global route; asks the built library.  The limits hold
+    per query, so the batch ``B`` changes nothing."""
+    return int(_build.library().repro_bincount_tiles_group(B, T, tile_n,
                                                           n_buckets))
 
 

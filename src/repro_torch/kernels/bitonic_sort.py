@@ -50,7 +50,23 @@ def _padded_width(n: int) -> int:
 
 def bitonic_sort_plain(keys: torch.Tensor, values: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch: stable argsort of each row, then gather."""
+    """Plain PyTorch: stable argsort of each row, then gather.
+
+    It agrees with the network (the CUDA kernel, and the JAX package's
+    Pallas kernel) on rows of unique finite keys, and differs elsewhere:
+
+    - tied keys keep their values in row order here, where the network
+      leaves them in its own order (keys [1, 1, 1, 0] with values
+      [0, 1, 2, 3]: [3, 0, 1, 2] here, [3, 0, 2, 1] from the JAX kernel);
+    - a ``+inf`` key stays here, where the network pads a row that is not
+      a power of two wide with the key type's maximum, sorts the ``+inf``
+      past the padding and cuts it off (the row [inf, 1, 2] gives keys
+      [1, 2, 3.4e38] with a padding value in place of the ``+inf`` key's);
+    - NaN keys go last here, where the network's comparisons leave a row
+      holding a NaN unsorted.
+
+    The shuffle sorts unique int32 keys below the padding, so none of this
+    reaches an engine's output."""
     _check_pair(keys, values)
     if keys.numel() == 0:
         return keys, values

@@ -1,15 +1,17 @@
 // bincount_tiles: per-tile bucket histogram C, cross-tile exclusive prefix P
-// and in-tile exclusive bucket offsets F of a (T, tile_n) int32 id matrix.
+// and in-tile exclusive bucket offsets F of a (B, T, tile_n) int32 id array:
+// B independent queries of T tiles each, P restarting at each query.
 //
 // Replaces the Pallas kernel src/repro/kernels/bincount.py::bincount_tiles
-// (body _bincount_tiles_kernel).  Contract: ids < 0 or >= V are ignored;
-// outputs are three (T, V) int32 matrices, exact.
+// (body _bincount_tiles_kernel), and that kernel under jax.vmap, whose grid
+// gains a batch axis.  Contract: ids < 0 or >= V are ignored; outputs are
+// three (B, T, V) int32 arrays, exact.
 //
-// What bounds it on an H100: bytes.  The function reads T*tile_n*4 bytes and
-// writes 3*T*V*4; the counting itself is one shared-memory atomic per id.
+// What bounds it on an H100: bytes.  The function reads B*T*tile_n*4 bytes
+// and writes 3*B*T*V*4; the counting itself is one shared-memory atomic per id.
 //
-// Design, for V up to kSmemBuckets (and fewer than 2^30 ids): one launch
-// that reads the ids once and writes C, P and F once each.  The TPU kernel
+// Design, for V up to kSmemBuckets (and fewer than 2^30 ids a query): one
+// launch that reads the ids once and writes C, P and F once each.  The TPU kernel
 // gets P from a carry in VMEM that works only because its grid runs in
 // order; here the carry crosses blocks by decoupled look-back over groups of
 // tiles, bucket by bucket, as Onesweep's digit counts do (Adinets & Merrill,
@@ -17,14 +19,19 @@
 // - a block takes the next group of G consecutive tiles from an atomic
 //   counter (the scratch's first word), so its predecessors have started.
 //   G = kGroupBytes / (4 V), at most 8 (8 at V = 2048): the G histograms
-//   fill 64 KB of dynamic shared memory at most, room for 3 blocks an SM;
+//   fill 64 KB of dynamic shared memory at most, room for 3 blocks an SM.
+//   A group never spans two queries: query b owns groups
+//   [b ceil(T/G), (b+1) ceil(T/G)), the last one short when G does not
+//   divide T;
 // - counting: 16-byte streaming loads of the ids (read once), kUnroll in
 //   flight a thread across the group's rows (scalar ones when
 //   tile_n % 4 != 0 or the base is not 16-byte aligned), one shared-memory
 //   atomic an id;
 // - a status word per (group, bucket) holds a flag in its top 2 bits (none,
-//   aggregate, inclusive) and a count in the other 30.  The group publishes
-//   its column totals as aggregates first (group 0 as inclusive prefixes),
+//   aggregate, inclusive) and a count in the other 30, which hold since a
+//   query has fewer than 2^30 ids.  The group publishes its column totals as
+//   aggregates first (a query's first group as inclusive prefixes, so every
+//   look-back stops there and P restarts at each query),
 //   then writes C and F, each tile's F scanned by warps in bucket order;
 // - a lane owns runs of 4 consecutive buckets (V % 4 == 0; else runs of 1):
 //   shared memory, C, P, F and the status words move as 16-byte accesses
@@ -39,14 +46,14 @@
 //   histograms still in shared memory.  Nothing of C is read back from
 //   device memory.
 // The counter and the status words are zeroed on the stream by
-// repro_bincount_tiles itself, before the launch: T / G * V * 4 bytes
-// (12.6 MB at T = 12,288, V = 2048).
+// repro_bincount_tiles itself, before the launch: B ceil(T / G) V 4 bytes
+// (12.6 MB at B = 1, T = 12,288, V = 2048).
 //
 // Above kSmemBuckets (kernel_fits admits V up to about 2^21), or from 2^30
-// ids on, the global route: the counts go by global atomics into a zeroed C,
-// a row-scan kernel writes F, and P is a three-pass column scan over C
-// (per-chunk column sums, a scan down the chunks, each chunk's running
-// prefix).
+// ids a query on, the global route: the counts go by global atomics into a
+// zeroed C, a row-scan kernel writes F (both over the B T rows), and P is a
+// three-pass column scan over each query's C (per-chunk column sums, a scan
+// down the query's chunks, each chunk's running prefix).
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -68,6 +75,7 @@ constexpr long long kChunkRows = 64;     // rows of C per chunk of the column sc
 constexpr long long kSmemBuckets = 48 * 1024;   // 192 KB of shared histogram
 
 // Tiles a block counts on the single-pass route; 0 for the global route.
+// The limits hold per query, whatever the batch.
 inline int group_tiles(long long T, long long tile_n, long long V) {
   if (V > kSmemBuckets || T * tile_n >= kMaxIds) return 0;
   const long long g = kGroupBytes / (4 * V);
@@ -300,8 +308,9 @@ __device__ __forceinline__ void look_back(const unsigned* word, long long k,
 template <int Q>
 __global__ void __launch_bounds__(kThreads)
 count_groups(const int* __restrict__ tiles, long long T, long long tile_n,
-             int V, int G, int vec, int* __restrict__ C, int* __restrict__ P,
-             int* __restrict__ F, unsigned* counter, unsigned* word) {
+             int V, int G, long long per_query, int vec, int* __restrict__ C,
+             int* __restrict__ P, int* __restrict__ F, unsigned* counter,
+             unsigned* word) {
   extern __shared__ int4 smem4[];
   int* hist = reinterpret_cast<int*>(smem4);     // G x V
   __shared__ long long s_group;
@@ -315,16 +324,21 @@ count_groups(const int* __restrict__ tiles, long long T, long long tile_n,
   for (int i = cells / 4 * 4 + threadIdx.x; i < cells; i += kThreads)
     hist[i] = 0;
   __syncthreads();
+  // k numbers the groups of all queries; kq within query k / per_query,
+  // whose tile t0 is row r0 of the (B T, tile_n) ids
   const long long k = s_group;
-  const long long t0 = k * G;
+  const long long kq = k % per_query;
+  const long long t0 = kq * G;
+  const long long r0 = k / per_query * T + t0;
   const int ng = (int)min((long long)G, T - t0);
   unsigned* mine = word + k * V;
 
-  count_group(tiles + t0 * tile_n, ng, tile_n, (unsigned)V, vec, hist);
+  count_group(tiles + r0 * tile_n, ng, tile_n, (unsigned)V, vec, hist);
   __syncthreads();
 
-  // the group's column totals: aggregates (group 0: inclusive prefixes)
-  const unsigned flag = k == 0 ? lookback::kInclusive : lookback::kAggregate;
+  // the group's column totals: aggregates (a query's first group: inclusive
+  // prefixes, where every look-back of the query stops)
+  const unsigned flag = kq == 0 ? lookback::kInclusive : lookback::kAggregate;
   for (int b = threadIdx.x * Q; b < V; b += kThreads * Q) {
     Run<Q> a, c;
 #pragma unroll
@@ -339,12 +353,12 @@ count_groups(const int* __restrict__ tiles, long long T, long long tile_n,
     a.store_words(mine + b);
   }
 
-  write_c_f<Q>(hist, G, ng, V, C + t0 * V, F + t0 * V, s_seg, lane, warp);
+  write_c_f<Q>(hist, G, ng, V, C + r0 * V, F + r0 * V, s_seg, lane, warp);
   __syncthreads();
 
   // run by run, each thread its own: hist[g] <- counts of the group's
   // tiles before g, the walk back, the inclusive prefixes out, the P rows
-  int* p = P + t0 * V;
+  int* p = P + r0 * V;
   for (int b0 = threadIdx.x * Q; b0 < V; b0 += kThreads * Q * kPer) {
     Run<Q> total[kPer], pre[kPer];
 #pragma unroll
@@ -361,7 +375,7 @@ count_groups(const int* __restrict__ tiles, long long T, long long tile_n,
           for (int q = 0; q < Q; ++q) total[m].v[q] += c.v[q];
         }
     }
-    if (k > 0) {
+    if (kq > 0) {
       look_back<Q>(word, k, V, b0, pre);
 #pragma unroll
       for (int m = 0; m < kPer; ++m) {
@@ -447,42 +461,52 @@ __global__ void row_exclusive_scan(const int* __restrict__ C, long long V,
   }
 }
 
-// Column scan over T, pass 1: S[c, v] = sum of C[t, v] over the rows t of chunk c.
-__global__ void chunk_column_sums(const int* __restrict__ C, long long T, long long V,
-                                  long long n_chunks, int* __restrict__ S) {
+// Column scan over each query's T rows of the (B T, V) matrix C, with
+// n_chunks chunks a query.  Pass 1: S[b, c, v] = sum of C[b, t, v] over the
+// rows t of chunk c.
+__global__ void chunk_column_sums(const int* __restrict__ C, long long B,
+                                  long long T, long long V, long long n_chunks,
+                                  int* __restrict__ S) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_chunks * V) return;
-  const long long c = idx / V, v = idx % V;
+  if (idx >= B * n_chunks * V) return;
+  const long long b = idx / (n_chunks * V);
+  const long long c = idx / V % n_chunks, v = idx % V;
   const long long t1 = min(T, (c + 1) * kChunkRows);
+  const int* cb = C + b * T * V;
   int s = 0;
-  for (long long t = c * kChunkRows; t < t1; ++t) s += C[t * V + v];
+  for (long long t = c * kChunkRows; t < t1; ++t) s += cb[t * V + v];
   S[idx] = s;
 }
 
-// Pass 2: exclusive scan of S down the chunks, one thread per column.
-__global__ void chunk_scan(int* __restrict__ S, long long V, long long n_chunks) {
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
+// Pass 2: exclusive scan of S down each query's chunks, one thread per
+// (query, column).
+__global__ void chunk_scan(int* __restrict__ S, long long B, long long V,
+                           long long n_chunks) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * V) return;
+  int* sb = S + idx / V * n_chunks * V + idx % V;
   int run = 0;
   for (long long c = 0; c < n_chunks; ++c) {
-    const int s = S[c * V + v];
-    S[c * V + v] = run;
+    const int s = sb[c * V];
+    sb[c * V] = run;
     run += s;
   }
 }
 
-// Pass 3: P[t, v] = S[c, v] + the counts of the earlier rows of chunk c.
+// Pass 3: P[b, t, v] = S[b, c, v] + the counts of the earlier rows of chunk c.
 __global__ void chunk_prefix(const int* __restrict__ C, const int* __restrict__ S,
-                             long long T, long long V, long long n_chunks,
-                             int* __restrict__ P) {
+                             long long B, long long T, long long V,
+                             long long n_chunks, int* __restrict__ P) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_chunks * V) return;
-  const long long c = idx / V, v = idx % V;
+  if (idx >= B * n_chunks * V) return;
+  const long long b = idx / (n_chunks * V);
+  const long long c = idx / V % n_chunks, v = idx % V;
   const long long t1 = min(T, (c + 1) * kChunkRows);
+  const long long base = b * T * V;
   int run = S[idx];
   for (long long t = c * kChunkRows; t < t1; ++t) {
-    P[t * V + v] = run;
-    run += C[t * V + v];
+    P[base + t * V + v] = run;
+    run += C[base + t * V + v];
   }
 }
 
@@ -490,23 +514,25 @@ inline unsigned grid_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-cudaError_t run_global(const int* tiles, long long T, long long tile_n,
-                       long long V, int* C, int* P, int* F, int* scratch,
-                       cudaStream_t s) {
-  cudaError_t err = cudaMemsetAsync(C, 0, (size_t)T * V * sizeof(int), s);
+cudaError_t run_global(const int* tiles, long long B, long long T,
+                       long long tile_n, long long V, int* C, int* P, int* F,
+                       int* scratch, cudaStream_t s) {
+  const long long rows = B * T;
+  cudaError_t err = cudaMemsetAsync(C, 0, (size_t)rows * V * sizeof(int), s);
   if (err != cudaSuccess) return err;
-  count_tiles_global<<<(unsigned)T, kThreads, 0, s>>>(tiles, tile_n, V, C);
+  count_tiles_global<<<(unsigned)rows, kThreads, 0, s>>>(tiles, tile_n, V, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  row_exclusive_scan<<<(unsigned)T, kScanThreads, 0, s>>>(C, V, F);
+  row_exclusive_scan<<<(unsigned)rows, kScanThreads, 0, s>>>(C, V, F);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long n_chunks = (T + kChunkRows - 1) / kChunkRows;
-  chunk_column_sums<<<grid_for(n_chunks * V, kThreads), kThreads, 0, s>>>(
-      C, T, V, n_chunks, scratch);
+  chunk_column_sums<<<grid_for(B * n_chunks * V, kThreads), kThreads, 0, s>>>(
+      C, B, T, V, n_chunks, scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  chunk_scan<<<grid_for(V, kThreads), kThreads, 0, s>>>(scratch, V, n_chunks);
+  chunk_scan<<<grid_for(B * V, kThreads), kThreads, 0, s>>>(scratch, B, V,
+                                                            n_chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  chunk_prefix<<<grid_for(n_chunks * V, kThreads), kThreads, 0, s>>>(
-      C, scratch, T, V, n_chunks, P);
+  chunk_prefix<<<grid_for(B * n_chunks * V, kThreads), kThreads, 0, s>>>(
+      C, scratch, B, T, V, n_chunks, P);
   return cudaGetLastError();
 }
 
@@ -515,32 +541,39 @@ cudaError_t run_global(const int* tiles, long long T, long long tile_n,
 extern "C" {
 
 // Tiles a block counts on the single-pass route (8 at V = 2048), or 0 for
-// the global route (V above 48 Ki buckets, or 2^30 ids or more).
-int repro_bincount_tiles_group(long long T, long long tile_n, long long V) {
+// the global route (V above 48 Ki buckets, or 2^30 ids or more a query).
+// The batch B changes neither.
+int repro_bincount_tiles_group(long long B, long long T, long long tile_n,
+                               long long V) {
+  (void)B;
   return group_tiles(T, tile_n, V);
 }
 
 // Bytes of scratch repro_bincount_tiles needs.  Single pass: a 16-byte
-// group counter and a status word per (group of tiles, bucket); global
-// route: one V-vector per chunk of 64 rows.
-long long repro_bincount_tiles_scratch_bytes(long long T, long long tile_n,
-                                             long long V) {
+// group counter and a status word per (group of tiles, bucket), groups
+// counted over all B queries; global route: one V-vector per chunk of 64
+// rows of each query.
+long long repro_bincount_tiles_scratch_bytes(long long B, long long T,
+                                             long long tile_n, long long V) {
   const int G = group_tiles(T, tile_n, V);
-  if (G == 0) return ((T + kChunkRows - 1) / kChunkRows) * V * 4;
-  return kCounterBytes + (T + G - 1) / G * V * 4;
+  if (G == 0) return B * ((T + kChunkRows - 1) / kChunkRows) * V * 4;
+  return kCounterBytes + B * ((T + G - 1) / G) * V * 4;
 }
 
-// tiles: (T, tile_n) int32; C, P, F: (T, V) int32; scratch: see above.
-// Requires T >= 1 and V >= 1.  Single pass: one memset of the counter and
-// status words, then one kernel launch.  Returns a cudaError_t, 0 on success.
-int repro_bincount_tiles(const int* tiles, long long T, long long tile_n, long long V,
-                         int* C, int* P, int* F, void* scratch, void* stream) {
+// tiles: (B, T, tile_n) int32; C, P, F: (B, T, V) int32; scratch: see
+// above.  Requires B >= 1, T >= 1 and V >= 1.  Single pass: one memset of
+// the counter and status words, then one kernel launch.  Returns a
+// cudaError_t, 0 on success.
+int repro_bincount_tiles(const int* tiles, long long B, long long T,
+                         long long tile_n, long long V, int* C, int* P, int* F,
+                         void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = group_tiles(T, tile_n, V);
   if (G == 0)
-    return run_global(tiles, T, tile_n, V, C, P, F,
+    return run_global(tiles, B, T, tile_n, V, C, P, F,
                       static_cast<int*>(scratch), s);
-  const long long groups = (T + G - 1) / G;
+  const long long per_query = (T + G - 1) / G;
+  const long long groups = B * per_query;
   cudaError_t err =
       cudaMemsetAsync(scratch, 0, kCounterBytes + groups * V * 4, s);
   if (err != cudaSuccess) return err;
@@ -559,8 +592,8 @@ int repro_bincount_tiles(const int* tiles, long long T, long long tile_n, long l
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)groups, kThreads, smem, s>>>(tiles, T, tile_n, (int)V, G,
-                                                  vec, C, P, F, counter, word);
+  kernel<<<(unsigned)groups, kThreads, smem, s>>>(
+      tiles, T, tile_n, (int)V, G, per_query, vec, C, P, F, counter, word);
   return cudaGetLastError();
 }
 

@@ -10,9 +10,11 @@ key j masked for query i where j > i (absolute indices from 0 on both axes).
 Masked scores are the finite ``NEG_INF`` of the JAX kernel, not -inf.
 
 :func:`flash_attention_cuda` launches the hand-written kernels of
-``csrc/flash_attention.cu`` (float32 or bfloat16, head dims 32, 48, 64 and
-128): bfloat16 at head dims 64 and 128 runs on the tensor cores (wgmma),
-everything else on the CUDA cores, as ``repro_flash_attention_route`` says;
+``csrc/flash_attention.cu`` (float32 or bfloat16, compiled for head dims
+32, 48, 64 and 128; any other d up to 128 is zero-padded to the next of
+them, as the JAX wrapper pads d): bfloat16 at head dims 64 and 128 runs on
+the tensor cores (wgmma), everything else on the CUDA cores, as
+``repro_flash_attention_route`` says;
 :func:`flash_attention_plain` is plain PyTorch, for the CPU and as the
 kernel's yardstick on the card.
 :func:`repro_torch.kernels.ops.flash_attention` picks one by device.
@@ -66,10 +68,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def padded_head_dim(d: int) -> int:
+    """The narrowest compiled head dim that holds ``d`` (8 and 16 -> 32,
+    112 -> 128); raises above 128."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"flash_attention_cuda: head dim {d} above the widest "
+                     f"compiled one, {HEAD_DIMS[-1]}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors; raises on an
-    unsupported dtype or head dim and on any failure to build or launch."""
+    unsupported dtype or head dim and on any failure to build or launch.
+
+    A head dim the kernels are not compiled for is zero-padded to
+    :func:`padded_head_dim`, and the output cut back to d: zero columns add
+    nothing to q k^T and give zero output columns.  The softmax keeps the
+    true d's scale 1/sqrt(d).  The JAX wrapper multiplies the padded q by
+    sqrt(d_pad / d) for that; the kernel takes the scale as an argument,
+    so here q is not rescaled (and not rounded again in bfloat16)."""
     global launches
     _check(q, k, v)
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
@@ -81,9 +100,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{v.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    d_pad = padded_head_dim(d)
+    if d_pad != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_pad - d))
+                   for t in (q, k, v))
     q, k, v = (t.contiguous() for t in (q, k, v))
     # the kernels copy rows in 16-byte chunks
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
@@ -92,10 +112,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, sk, d, int(bool(causal)), _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-        stream)
+        sq, sk, d_pad, int(bool(causal)), _DTYPES[q.dtype],
+        1.0 / math.sqrt(d), stream)
     _build.check(err, "flash_attention")
     launches += 1
-    route = lib.repro_flash_attention_route(d, _DTYPES[q.dtype])
+    route = lib.repro_flash_attention_route(d_pad, _DTYPES[q.dtype])
     route_launches["wgmma" if route else "cuda_core"] += 1
-    return out
+    return out if d_pad == d else out[..., :d].contiguous()

@@ -29,7 +29,8 @@ def _route(t: torch.Tensor, what: str) -> bool:
 
 def bincount_tiles(tiles: torch.Tensor, n_buckets: int):
     """Fused (counts, cross-tile exclusive prefix, in-tile bucket offsets)
-    over (T, tile_n) ids — the radix shuffle's counting phase."""
+    over (T, tile_n) ids — the radix shuffle's counting phase — or over
+    (B, T, tile_n) ids of B queries, the prefix restarting at each query."""
     if _route(tiles, "bincount_tiles"):
         return _bincount.bincount_tiles_cuda(tiles, n_buckets)
     return _bincount.bincount_tiles_plain(tiles, n_buckets)

@@ -14,8 +14,8 @@ Exporters render a trace as JSON-lines or a perfetto-loadable Chrome
 trace; :func:`summarize` folds it into the per-stage round/bytes/latency
 table.
 """
-from .trace import (NULL_TRACER, NullTracer, TraceEvent, Tracer, plan_token,
-                    round_event)
+from .trace import (NULL_TRACER, BatchTracer, NullTracer, TraceEvent, Tracer,
+                    plan_token, round_event)
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .export import (read_jsonl, to_chrome_trace, write_chrome_trace,
                      write_jsonl)
@@ -23,7 +23,7 @@ from .summary import diff_summaries, format_diff, format_table, summarize
 
 __all__ = [
     # trace core
-    "TraceEvent", "Tracer", "NullTracer", "NULL_TRACER",
+    "TraceEvent", "Tracer", "NullTracer", "NULL_TRACER", "BatchTracer",
     "plan_token", "round_event",
     # metrics registry
     "Counter", "Gauge", "Histogram", "MetricsRegistry",

@@ -45,7 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from .metrics import MetricsRegistry
 
 __all__ = ["TraceEvent", "Tracer", "NullTracer", "NULL_TRACER",
-           "plan_token", "round_event"]
+           "BatchTracer", "plan_token", "round_event"]
 
 #: attrs inherited from the innermost enclosing span that sets them
 _CONTEXT_KEYS = ("plan", "stage", "digest")
@@ -290,6 +290,32 @@ class NullTracer:
 
 #: process-wide shared no-op tracer — the default value of every hook slot
 NULL_TRACER = NullTracer()
+
+
+class BatchTracer(NullTracer):
+    """What a live tracer records while a batched round program runs
+    (``Executable.batch`` on a batchable engine): the route decisions
+    (:meth:`trace_event` and ``metrics``) reach ``tracer``, and the
+    per-query records (events, spans, counters) drop.  The JAX package's
+    batch is one ``jax.jit`` of a ``vmap``, so its tracer drops the same
+    records while jax traces.  The port runs every call, so it records one
+    ``shuffle.route`` event per batched shuffle on every call, where the
+    JAX package records them at the first call of a batch size only."""
+
+    enabled = True
+    #: tells the plan interpreter not to open per-stage spans
+    batch = True
+
+    def __init__(self, tracer: Tracer):
+        self.tracer = tracer
+        self.metrics = tracer.metrics
+
+    def trace_event(self, kind: str, **attrs) -> None:
+        self.tracer.trace_event(kind, **attrs)
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        return self.tracer.clock
 
 
 def plan_token(plan) -> str:

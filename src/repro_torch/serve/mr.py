@@ -27,14 +27,19 @@ windows and :meth:`Ticket.wait` flush stragglers), and time comes from an
 injectable ``clock`` — ``time.monotonic`` in production,
 :class:`VirtualClock` under test.
 
-Where the port differs from the JAX package: its ``Executable.batch`` runs
-the queries of a batch one after another (PyTorch has no counterpart of the
-JAX package's ``vmap`` of a round program yet), so a dispatch of ``k``
-queries runs only those ``k`` — padding a partial window to ``max_batch``
-would run the pad rows too.  ``pad_slots``, ``coalesced`` and :meth:`stats`
-still account every dispatch as a window of ``max_batch`` lanes, as the
-JAX package does, and ``stats()["traces"]`` counts runs of the round
-program (the port lowers nothing).  Results stay on the engine's device.
+On a batchable engine (``LocalEngine``) a dispatch of ``k`` live queries
+runs as one ``Executable.batch(k)`` round program, each round one shuffle
+for the batch.  Where the JAX package pads the window to ``max_batch`` to
+reuse one lowered program, the port compiles nothing, so it runs only the
+``k`` live rows.  On an engine that is not batchable (the fault-injection
+proxy) a dispatch pads the window to ``max_batch`` by repeating its last
+query and runs every lane, pad rows included, one after another, as the
+JAX package's loop does: the shuffle attempts, and so the injected faults,
+fall on the same dispatches as there.  ``pad_slots``, ``coalesced`` and
+:meth:`stats` account every dispatch as a window of ``max_batch`` lanes,
+as the JAX package does, and ``stats()["traces"]`` counts runs of the
+round program (the port lowers nothing).  Results stay on the engine's
+device.
 
 >>> import torch
 >>> from repro_torch.core import LocalEngine, sort_plan
@@ -348,7 +353,7 @@ class QueryService:
             self._exes[pk] = exe
             stacked = tuple(torch.as_tensor(x, device=self.engine.device)[None]
                             for x in ex)
-            exe.batch(1)(*stacked, keys=[plan.default_seed])
+            self._run_window(exe, stacked, [plan.default_seed])
             report[plan.name] = exe.trace_count
         _synchronize(self.engine.device)
         return report
@@ -417,7 +422,7 @@ class QueryService:
                 torch.stack([torch.as_tensor(t.inputs[i], device=dev)
                              for t in batch])
                 for i in range(len(batch[0].inputs)))
-            out = exe.batch(k)(*stacked, keys=[t.key for t in batch])
+            out = self._run_window(exe, stacked, [t.key for t in batch])
             leaves, structure = tree_flatten(out)
         except Exception as e:
             return self._fail_or_requeue(pk, batch, e, cause)
@@ -445,6 +450,20 @@ class QueryService:
                 tr.observe("serve.wait_ms",
                            (t.dispatched_at - t.submitted_at) * 1e3)
         return k
+
+    def _run_window(self, exe, stacked: Tuple, keys: List):
+        """One dispatch's program over ``k`` stacked queries: ``batch(k)``
+        on a batchable engine; elsewhere the window padded to
+        ``max_batch`` with copies of its last query, every lane run, as
+        the JAX package runs a window on an engine it cannot ``vmap``.
+        Rows ``[:k]`` of the outputs are the live queries'."""
+        k = len(keys)
+        if getattr(self.engine, "batchable", False):
+            return exe.batch(k)(*stacked, keys=keys)
+        B = self.max_batch
+        padded = tuple(torch.cat([x, x[-1:].expand((B - k,) + x.shape[1:])])
+                       for x in stacked)
+        return exe.batch(B)(*padded, keys=list(keys) + [keys[-1]] * (B - k))
 
     def _fail_or_requeue(self, pk, batch: List[Ticket],
                          cause: Exception,

@@ -156,6 +156,9 @@ def test_bitonic_sort_kernel_on_ties(cuda, rows, n, dtype):
     (1, 2, 2, 77, 333, 128, False),
     (1, 4, 1, 129, 129, 32, True),
     (1, 4, 4, 65, 65, 48, False),
+    (1, 4, 2, 100, 100, 16, True),     # head dim padded to 32
+    (2, 8, 2, 300, 300, 112, True),    # kimi-k2's head dim, padded to 128
+    (1, 2, 2, 70, 90, 8, False),       # head dim padded to 32
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
@@ -196,9 +199,9 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     k = torch.zeros(1, 2, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(k.half(), k.half(), k.half())
-    k16 = torch.zeros(1, 2, 8, 16, device=cuda)
-    with pytest.raises(ValueError, match="head dim 16"):
-        ops.flash_attention(k16, k16, k16)
+    k160 = torch.zeros(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim 160"):
+        ops.flash_attention(k160, k160, k160)
     with pytest.raises(ValueError, match="one dtype"):
         ops.flash_attention(k, k.bfloat16(), k)
 
@@ -934,3 +937,95 @@ def test_query_service_on_the_card_equals_sequential(cuda):
     assert eng.route_log.dense == 0
     assert ops.launches()["bitonic_sort"] == eng.route_log.kernel > 0
     assert ops.launches()["monotone_chain"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,tile_n,n_buckets", [
+    (4, 64, 4096, 2048),         # the sort's tiles at B = 4, G = 8 | T
+    (3, 13, 1024, 2048),         # G = 8 does not divide T
+    (2, 7, 1001, 4097),          # G = 3, scalar loads, one bucket a lane
+    (3, 1, 32, 8),               # one group a query
+    (2, 5, 64, 1 << 16),         # the global route
+    (3, 70, 16, 1 << 16),        # the global route, two chunks a query
+])
+def test_batched_bincount_tiles_kernel_matches_plain(cuda, B, T, tile_n,
+                                                     n_buckets):
+    """One launch for B queries: the tables equal the plain version's and
+    each query's equal its own unbatched launch, the cross-tile prefix
+    restarting at each query, on both routes."""
+    tiles = torch.from_numpy(RNG.integers(
+        -2, n_buckets + 2, (B, T, tile_n)).astype(np.int32)).to(cuda)
+    tiles[0, -1] = -1                                   # an empty tile
+    G = bincount.group_tiles(T, tile_n, n_buckets, B)
+    assert G == bincount.group_tiles(T, tile_n, n_buckets)
+    ops.reset_launches()
+    got = ops.bincount_tiles(tiles, n_buckets)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    assert launches["bincount_tiles"] == 1
+    assert launches["bincount_tiles.single_pass" if G
+                    else "bincount_tiles.global"] == 1
+    for g, w in zip(got, bincount.bincount_tiles_plain(tiles, n_buckets)):
+        assert g.shape == (B, T, n_buckets) and torch.equal(g, w)
+    for b in range(B):
+        for g, w in zip(got, ops.bincount_tiles(tiles[b], n_buckets)):
+            assert torch.equal(g[b], w)
+
+
+@pytest.mark.cuda
+def test_bitonic_sort_kernel_on_ties_inf_and_nan(cuda):
+    """What the network gives where the plain version differs (see
+    ``bitonic_sort_plain``): tied keys' values in the network's order, an
+    ``+inf`` key lost to the padding of a row 3 wide, and a NaN row."""
+    k, v = bitonic_sort.bitonic_sort_cuda(
+        torch.tensor([[1, 1, 1, 0]], dtype=torch.int32, device=cuda),
+        torch.arange(4, dtype=torch.int32, device=cuda)[None])
+    assert k.tolist() == [[0, 1, 1, 1]]
+    assert v.tolist() == [[3, 0, 2, 1]]                 # as the JAX network
+    k, v = bitonic_sort.bitonic_sort_cuda(
+        torch.tensor([[float("inf"), 1.0, 2.0]], device=cuda),
+        torch.arange(3, dtype=torch.int32, device=cuda)[None])
+    assert k.tolist() == [[1.0, 2.0, torch.finfo(torch.float32).max]]
+    assert v.tolist() == [[1, 2, 0]]
+    k, v = bitonic_sort.bitonic_sort_cuda(
+        torch.tensor([[float("nan"), 1.0, 0.0, 2.0]], device=cuda),
+        torch.arange(4, dtype=torch.int32, device=cuda)[None])
+    assert torch.isnan(k[0, 0]) and k[0, 1:].tolist() == [0.0, 1.0, 2.0]
+    assert v.tolist() == [[0, 2, 1, 3]]                 # the NaN stays first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sort", "multisearch", "hull2d"])
+def test_batch_on_the_card_is_one_program(cuda, family):
+    """``exe.batch(3)`` on the card's kernel engine: every row equals its
+    single call, and the batch launches each kernel as often as one
+    query."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import get_engine, hull2d_plan, multisearch_plan
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    if family == "sort":
+        plan, n = _sort_query(cuda)[0], 1 << 14
+        inputs = (torch.randn(3, n, device=cuda, generator=gen),)
+    elif family == "multisearch":
+        plan = multisearch_plan(4096, 256, 64)
+        inputs = (torch.randn(3, 4096, device=cuda, generator=gen),
+                  torch.randn(3, 256, device=cuda, generator=gen))
+    else:
+        plan = hull2d_plan(1 << 14, 256)
+        inputs = (torch.randn(3, 1 << 14, 2, device=cuda, generator=gen),)
+    eng = get_engine("kernel", device=cuda)
+    exe = eng.compile(plan)
+    ops.reset_launches()
+    single = exe(*(x[0] for x in inputs), key=5)
+    torch.cuda.synchronize()
+    one = ops.launches()
+    ops.reset_launches()
+    out = exe.batch(3)(*inputs, keys=[5, 6, 7])
+    torch.cuda.synchronize()
+    assert ops.launches() == one and one["bitonic_sort"] > 0
+    assert eng.route_log.dense == 0
+    for i in range(3):
+        want = single if i == 0 else exe(*(x[i] for x in inputs), key=5 + i)
+        for g, w in zip(tree_leaves(out), tree_leaves(want)):
+            assert g.device.type == "cuda" and torch.equal(g[i], w)

@@ -199,8 +199,11 @@ def test_null_tracer_never_enters_the_traced_paths(monkeypatch):
 
 def test_exe_call_events_match_jax_eager_executable():
     """``Executable.__call__`` records ``exe.call`` and counts
-    ``exe.calls``; batch rows record none (as the JAX package's loop over
-    a non-vmappable engine); the port never records ``exe.compile``."""
+    ``exe.calls``; the port never records ``exe.compile``.  A batch on the
+    batchable ``LocalEngine`` is one round program and records no
+    per-query span, as the JAX package's ``jit`` of a ``vmap`` records
+    none; on a non-batchable engine its rows record as single calls but
+    without ``exe.call`` (the JAX package's loop)."""
     _, tp, x, _, tkey = _query("sort", 0)
     tr = Tracer()
     eng = LocalEngine(device="cpu", tracer=tr)
@@ -210,8 +213,14 @@ def test_exe_call_events_match_jax_eager_executable():
     exe.batch(3)(np.stack([x] * 3), keys=[tkey] * 3)
     kinds = [e.kind for e in tr.events()]
     assert kinds.count("exe.call") == 2
-    assert kinds.count("plan.execute") == 5
+    assert kinds.count("plan.execute") == 2
     assert "exe.compile" not in kinds
+    rtr = Tracer()
+    ReferenceEngine(tracer=rtr).compile(tp).batch(3)(np.stack([x] * 3),
+                                                      keys=[tkey] * 3)
+    rkinds = [e.kind for e in rtr.events()]
+    assert rkinds.count("plan.execute") == 3
+    assert rkinds.count("exe.call") == 0
     assert tr.metrics.snapshot()["counters"]["exe.calls"] == 2
     assert tr.metrics.snapshot()["counters"]["plan_cache.misses"] == 1
     call = [e for e in tr.events() if e.kind == "exe.call"][0]

@@ -5,8 +5,10 @@ The contracts: coalesced results equal the JAX package's service and
 sequential calls bit for bit for all seven plan families; both dispatch
 triggers (window full, deadline) fire as in the JAX package, on a
 ``VirtualClock`` with exact latencies; admission control, the plan-cache
-thrash guard, retry and requeue behave as there; a dispatch runs only its
-live queries while ``stats()`` keeps the JAX package's window accounting;
+thrash guard, retry and requeue behave as there; a dispatch on the
+batchable engine runs its live queries as one program, and on the fault
+proxy the padded window, while ``stats()`` keeps the JAX package's window
+accounting;
 and the open-loop row of the JAX package's observability demo traffic
 equals the JAX package's.  Random draws are the JAX package's, handed to
 the port as sample indices.
@@ -288,36 +290,45 @@ def test_config_validation():
 # ---------------------------------------------------------------------------
 
 def test_dispatch_runs_only_live_queries_and_accounts_windows():
-    """A deadline dispatch of 3 queries at ``max_batch`` 16 runs 3 queries
-    (3 runs, 3 x 2 shuffles), while ``pad_slots`` and ``stats()`` count the
-    13 empty lanes as the JAX package's service does."""
-    eng = with_faults(get_engine("kernel", device="cpu"), FaultConfig())
+    """A deadline dispatch of 3 queries at ``max_batch`` 16 on the
+    batchable kernel engine runs the 3 live queries as one program (one
+    run, 2 shuffles for the batch); on the fault proxy, which cannot batch,
+    it runs all 16 lanes of the padded window one after another (16 runs,
+    16 x 2 shuffle attempts), as the JAX package's loop does.  Either way
+    ``pad_slots`` and ``stats()`` count the 13 empty lanes as the JAX
+    package's service does."""
     plan = T.sort_plan(32, 8)
     jplan = J.sort_plan(32, 8)
     rng = np.random.default_rng(6)
     xs = [rng.normal(size=32).astype(np.float32) for _ in range(3)]
-    svc = QueryService(eng, max_batch=16, max_wait_ms=5.0,
-                       clock=VirtualClock())
     jsvc = JS.QueryService(J.LocalEngine(), max_batch=16, max_wait_ms=5.0,
                            clock=JS.VirtualClock())
-    for s, p, arr in ((svc, plan, lambda a: a),
-                      (jsvc, jplan, jnp.asarray)):
+    for x in xs:
+        jsvc.submit(jplan, jnp.asarray(x))
+    jsvc.clock.advance(0.005)
+    assert jsvc.step() == 3
+    jst = jsvc.stats()
+    kernel = get_engine("kernel", device="cpu")
+    faulty = with_faults(get_engine("kernel", device="cpu"), FaultConfig())
+    for eng, runs in ((kernel, 1), (faulty, 16)):
+        svc = QueryService(eng, max_batch=16, max_wait_ms=5.0,
+                           clock=VirtualClock())
         for x in xs:
-            s.submit(p, arr(x))
-        s.clock.advance(0.005)
-        assert s.step() == 3
-    exe = eng.compile(plan)
-    assert exe.trace_count == 3
-    assert eng.injector.calls == 3 * 2
-    assert eng.route_log.kernel == 6
-    assert svc.pad_slots == 13 and svc.coalesced == 3
-    st, jst = svc.stats(), jsvc.stats()
-    for k in ("submitted", "completed", "rejected", "pending", "failed",
-              "requeued", "dispatches", "mean_occupancy", "pad_fraction",
-              "p50_latency_s", "p99_latency_s"):
-        assert st[k] == jst[k], k
-    assert st["traces"] == {"sort": 3}
-    assert st["cache"]["misses"] == jst["cache"]["misses"] == 1
+            svc.submit(plan, x)
+        svc.clock.advance(0.005)
+        assert svc.step() == 3
+        exe = eng.compile(plan)
+        assert exe.trace_count == runs
+        assert eng.route_log.kernel == runs * 2
+        assert svc.pad_slots == 13 and svc.coalesced == 3
+        st = svc.stats()
+        for k in ("submitted", "completed", "rejected", "pending", "failed",
+                  "requeued", "dispatches", "mean_occupancy", "pad_fraction",
+                  "p50_latency_s", "p99_latency_s"):
+            assert st[k] == jst[k], k
+        assert st["traces"] == {"sort": runs}
+        assert st["cache"]["misses"] == jst["cache"]["misses"] == 1
+    assert faulty.injector.calls == 16 * 2
 
 
 def test_warmup_compiles_and_runs_each_plan_once():
@@ -338,7 +349,8 @@ def test_warmup_compiles_and_runs_each_plan_once():
     svc.step()
     assert svc.pending == 0
     assert eng.cache_info().misses == misses        # no new compiles
-    assert svc.trace_counts() == dict.fromkeys(names, 10)  # runs
+    # runs: the warm-up's, then one batched program per dispatch of 3
+    assert svc.trace_counts() == dict.fromkeys(names, 4)
 
 
 def test_synthesized_inputs_match_jax_for_all_seven_families():
@@ -500,8 +512,9 @@ def test_open_loop_row_matches_jax_on_the_demo_traffic():
     """Untraced, the row equals the JAX package's exactly; traced, the
     row's queueing figures and the service's metrics (submits, dispatches,
     completions, occupancy and wait histograms, plan-cache misses) too.
-    The port's metrics also count every round (``engine.rounds``), which
-    the JAX package's jitted batches do not record."""
+    Neither package's batched programs count rounds (``engine.rounds``);
+    the port counts the route of every batched shuffle, the JAX package
+    each route once, when it lowers a batch size."""
     jrow, _, _, _ = _open_loop("jax", False)
     row, _, _, _ = _open_loop("port", False)
     assert row == jrow
@@ -512,16 +525,19 @@ def test_open_loop_row_matches_jax_on_the_demo_traffic():
     assert m["histograms"] == jm["histograms"]
     assert m["gauges"] == jm["gauges"]
     assert {k: v for k, v in m["counters"].items()
-            if not k.startswith(("engine.", "shuffle."))} == jm["counters"]
-    assert m["counters"]["engine.rounds"] > 0
+            if not k.startswith("shuffle.")} == {
+                k: v for k, v in jm["counters"].items()
+                if not k.startswith("shuffle.")}
+    assert "engine.rounds" not in m["counters"]
+    assert m["counters"]["shuffle.route.kernel"] > 0
 
 
 def test_demo_with_faults_recovers_traced_and_untraced():
     """The demo with shard failures at shuffle attempts 3 and 11: traced and
     untraced runs give the same results, equal to ``run_sequential`` on the
     dense engine; the trace counts both failures and keeps every stage's
-    schedule.  (The attempts name other dispatches than in the JAX package,
-    whose batches also run their pad rows.)"""
+    schedule.  (tests/test_torch_batch.py holds the attempts and the
+    dispatches they fail to the JAX package's run.)"""
     faults = dict(fail_at=(3, 11), seed=7)
     row, traced, tr, workload = _open_loop("port", True, faults)
     row2, plain, _, _ = _open_loop("port", False, faults)
