@@ -197,6 +197,24 @@ exits non-zero:
               each result equal to the sequential one, its launches
               counted (one shuffle a round for each batched dispatch); the
               service's queries/s beside sequential calls' for both;
+26b. sharded — the sort of 2^24 keys, the 2-D hull of 2^24 points and
+              the multisearch of 14 on ``ShardedEngine(shuffle_impl=
+              "kernel")`` over a one-rank NCCL group this phase starts and
+              destroys (a ``file://`` store in a temporary directory),
+              overlapped and with ``overlap=False``, each against the
+              kernel ``LocalEngine``: outputs and CostAccum equal bit for
+              bit, no drops, launch counts and route logs set to 0 just
+              before and read just after each run (every shuffle on the
+              kernels, the launches of each query equal to the local
+              engine's, the overlapped engine's rounds counted in
+              ``route_log.overlapped``), host-clock medians of 5 of the
+              three engines beside ``nvidia-smi``'s line, and one run of
+              the local and the overlapped engine under torch.profiler
+              (device ms and the costliest kernels); then
+              sharded-gloo, host work: ``python -m repro_torch.dist_check
+              --world 4 --check``, four CPU ranks over gloo at the tests'
+              small sizes, every case equal on every rank and to the
+              port's LocalEngine;
 27. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
               Function) against autograd through the plain version, da and
               dx for a seeded dh, at the zamba2 and rwkv6 training shapes
@@ -232,8 +250,8 @@ call drops out).  The summary's
 route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
 sort, the batch-* runs, search, prefix, funnel, crcw, bsp, hull2d, hull3d
-and lp runs, and the recovery, obs and query-service runs;
-``monotone_chain``'s row too).
+and lp runs, the recovery, obs and query-service runs, and the sharded
+engine's sort, hull2d and multisearch; ``monotone_chain``'s row too).
 ``monotone_chain``'s row sums the kernel, its plain version (one call on
 host copies: the slot loop takes seconds) and the bound over the checked
 main-path inputs (16 of merge-0's runs, the finalize's run), with their
@@ -2600,6 +2618,139 @@ def service_phases(torch, dev, ops, engine, dense, sort_query_ms):
             "query-service": served}
 
 
+#: the sharded-gloo phase: CPU ranks over gloo at the tests' small sizes
+SHARDED_GLOO_WORLD = 4
+
+
+def sharded_phase(torch, dev, ops, engine):
+    """Phase sharded: the main sizes on ``ShardedEngine(shuffle_impl=
+    "kernel")`` over a one-rank NCCL group (started here, destroyed at the
+    end), overlapped and with ``overlap=False``, against the kernel
+    ``LocalEngine``: outputs and CostAccum equal bit for bit, no drops,
+    every shuffle on the kernels (``dense == 0``), the overlapped engine's
+    windows counted (``overlapped > 0``), and the launches of each query
+    equal to the local engine's; host-clock medians of 5 of the three
+    engines beside each other, and one profiled run of the local and the
+    overlapped engine.  Returns each sharded query's launches."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import (ShardedEngine, hull2d_plan,
+                                  multisearch_plan, sort_plan)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    backend = dist.get_backend()
+    try:
+        ovl = ShardedEngine(shuffle_impl="kernel", device=dev)
+        seq = ShardedEngine(shuffle_impl="kernel", device=dev, overlap=False)
+        check(ovl.n_shards == 1, f"sharded: {ovl.n_shards} ranks")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(31)
+        n_q, n_piv, M_s = SEARCH
+        hull = hull2d_plan(*HULL2D, align=ovl.aligned_nodes)
+        queries = {
+            "sort": (sort_plan(N_MAIN, M_MAIN, align=ovl.aligned_nodes),
+                     (torch.randn(N_MAIN, device=dev, generator=gen),),
+                     SEEDS[0], {}),
+            # monotone_chain once a chaining round: merge-0, the finalize
+            "hull2d": (hull, (torch.randn(HULL2D[0], 2, device=dev,
+                                          generator=gen),), 5,
+                       {"monotone_chain": sum(
+                           st.name.startswith(("merge-", "finalize"))
+                           for st in hull.stages)}),
+            "multisearch": (multisearch_plan(n_q, n_piv, M_s,
+                                             align=ovl.aligned_nodes),
+                            (torch.randn(n_q, device=dev, generator=gen),
+                             torch.randn(n_piv, device=dev, generator=gen)),
+                            7, {}),
+        }
+        rows, paths = [], {}
+        for name, (plan, args, key, others) in queries.items():
+            n_shuffles = n_plan_shuffles(plan)
+            runs = {}
+            for tag, eng in (("local", engine), ("sharded", ovl),
+                             ("sharded-seq", seq)):
+                exe = eng.compile(plan)
+                res, launches = kernel_query(
+                    torch, ops, eng, lambda e: exe(*args, key=key),
+                    n_shuffles, f"sharded {name} {tag}", others)
+                overlapped = getattr(eng.route_log, "overlapped", 0)
+                runs[tag] = (exe, res, launches, overlapped)
+            _, want, local_launches, _ = runs["local"]
+            check(int(want.stats.dropped) == 0, f"sharded {name}: dropped")
+            for tag in ("sharded", "sharded-seq"):
+                _, res, launches, _ = runs[tag]
+                for i, (a, b) in enumerate(zip(tree_leaves(res),
+                                               tree_leaves(want))):
+                    check(a.dtype == b.dtype and torch.equal(a, b),
+                          f"sharded {name} {tag}: leaf {i} differs from "
+                          f"the local engine's")
+                same_accum(torch, want.stats, res.stats,
+                           f"sharded {name} {tag}")
+                check(launches == local_launches,
+                      f"sharded {name} {tag}: launches {launches} vs "
+                      f"local {local_launches}")
+            check(runs["sharded"][3] > 0 and runs["sharded-seq"][3] == 0,
+                  f"sharded {name}: overlapped rounds "
+                  f"{runs['sharded'][3]}, {runs['sharded-seq'][3]}")
+            ms = {tag: host_ms(lambda: exe(*args, key=key), torch)
+                  for tag, (exe, _, _, _) in runs.items()}
+            # where the sharded engine's extra time goes: one run of the
+            # local and the overlapped engine under torch.profiler
+            prof = {tag: profiled(lambda: runs[tag][0](*args, key=key),
+                                  torch, top=12)
+                    for tag in ("local", "sharded")}
+            paths[f"sharded-{name}"] = runs["sharded"][2]
+            rows.append({"query": name, "shuffles": n_shuffles,
+                         "launches": runs["sharded"][2],
+                         "overlapped_rounds": runs["sharded"][3],
+                         "stats": accum_dict(want.stats), "host_ms": ms,
+                         "sharded_over_local": ms["sharded"] / ms["local"],
+                         "seq_over_local": ms["sharded-seq"] / ms["local"],
+                         "profile": prof})
+            del runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="sharded", world_size=1, backend=backend, queries=rows,
+         nvidia_smi=nvidia_smi_line(),
+         note="host-clock medians of 5 after a warm-up; the sharded engine "
+              "runs every round function on the whole mailbox and shuffles "
+              "through a keyed all-to-all hop, the per-rank kernel scatter "
+              "and an all-gather")
+    return paths
+
+
+def sharded_gloo_phase() -> dict:
+    """Phase sharded-gloo, host work: ``python -m repro_torch.dist_check``
+    at SHARDED_GLOO_WORLD CPU ranks over gloo, at the tests' small sizes,
+    on this machine's install: every case's result equal on every rank and
+    equal to the port's LocalEngine (``--check``)."""
+    import os
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gloo_"))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.dist_check", "--world",
+             str(SHARDED_GLOO_WORLD), "--out", str(tmp), "--check",
+             "--timeout", "240"],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(proc.returncode == 0,
+          f"sharded-gloo: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(rec["ok"] and rec["entries_held"] > 0, f"sharded-gloo: {rec}")
+    emit(phase="sharded-gloo", kind="host work (CPU ranks, gloo)", **rec)
+    return rec
+
+
 def ssm_bwd_inputs(torch, dev, gen, shape):
     """a in [0.8, 1), x and a cotangent dh, seeded, in the shape's dtypes."""
     b, t, d, a_dt, x_dt = shape
@@ -3405,6 +3556,17 @@ def main() -> int:
         "hull2d": chain_row["launches"],
         **{path: n["monotone_chain"] for path, n in served.items()
            if "monotone_chain" in n}}
+    # -- 26b. the sharded round machine -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = sharded_phase(torch, dev, ops, engine)
+    sharded_gloo_phase()
+    emit(phase="sharded-summary", seconds=time.perf_counter() - t0,
+         launches_by_path=sharded)
+    by_path.update(sharded)
+    chain_row["launches_by_path"]["sharded-hull2d"] = \
+        sharded["sharded-hull2d"]["monotone_chain"]
     # -- 27-30. training --------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()

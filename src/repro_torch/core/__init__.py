@@ -8,14 +8,18 @@ funnels and CRCW, §4.1 multisearch, §4.2 queues, §4.3 sample sort, §1.4
 ``shuffle_impl="kernel"`` (``get_engine("kernel")``) its Shuffle runs the
 hand-written CUDA kernels of :mod:`repro_torch.kernels`.
 
+``ShardedEngine`` runs the Shuffle across the ranks of a
+``torch.distributed`` group the caller has started, with the collectives
+of :mod:`repro_torch.core.distributed`.
+
 The names match the JAX package's ``repro.core`` except the TPU
-``HardwareModel`` and ``ShardedEngine``, which are not ported."""
+``HardwareModel``, which is not ported."""
 
 from .costmodel import CostAccum, MRCost, RoundStats, log_M, tree_height
 from .mrmodel import (Mailbox, ShuffleStats, empty_like, make_mailbox,
                       run_round, run_rounds, shuffle)
 from .engine import (LocalEngine, MREngine, ReferenceEngine, RoundProgram,
-                     default_engine, get_engine)
+                     ShardedEngine, default_engine, get_engine)
 from .plan import (Plan, PlanStage, PlanState, account_stage, compute_stage,
                    custom_stage, entry_stage, execute_plan, round_stage)
 from .api import (BoundedCache, CacheInfo, Executable, compile_plan,
@@ -48,7 +52,7 @@ __all__ = [
     "Mailbox", "ShuffleStats", "empty_like", "make_mailbox", "run_round",
     "run_rounds", "shuffle",
     "LocalEngine", "MREngine", "ReferenceEngine", "RoundProgram",
-    "default_engine", "get_engine",
+    "ShardedEngine", "default_engine", "get_engine",
     "Plan", "PlanStage", "PlanState", "account_stage", "compute_stage",
     "custom_stage", "entry_stage", "execute_plan", "round_stage",
     "BoundedCache", "CacheInfo", "Executable", "compile_plan", "pad_batch",

@@ -1,0 +1,291 @@
+"""The paper's primitives as collectives over a ``torch.distributed`` group.
+
+The port of the JAX package's ``repro.core.distributed``.  Each function is
+the collective counterpart of a :mod:`repro_torch.core` algorithm:
+
+  shuffle_alltoall      -- the Shuffle step over a process group (Thm 2.1);
+                           the routing layer of the sharded engine's hop.
+  keyed_hop             -- phase 1 of the sharded Shuffle: a lossless
+                           ``shuffle_alltoall`` to the shard owning each
+                           destination node.
+  funnel_allreduce      -- a two-level invisible funnel with f = + :
+                           reduce-scatter over the inner group, sum over
+                           the outer group, then all-gather.
+  softmax_merge_axis    -- the funnel under the (max, sum-exp) semigroup:
+                           merges attention partials across a group.
+  sharded_sample_sort   -- §4.3 sample sort as one local sort + sample
+                           all-gather + bucket all-to-all + local merge.
+  segment_scatter_add   -- funnel-write with f = + for many-to-one writes
+                           (local; no collective).
+
+Where the JAX functions run inside ``shard_map`` over an ``axis_name``,
+these run on every rank of a process group (``group=None`` is the default
+group) on that rank's tensors: ``lax.all_to_all(tiled=True)`` becomes
+``all_to_all_single`` on fixed-size ``(n_shards, capacity, ...)`` buffers,
+``psum`` / ``pmax`` ``all_reduce`` with SUM / MAX, ``psum_scatter``
+``reduce_scatter_tensor``, ``all_gather`` ``all_gather_into_tensor`` and
+``axis_index`` the rank within the group.  Boolean tensors cross the wire
+as ``uint8``.  The caller starts the process group.  At world size 1 every
+function degenerates to the local operation.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .._tree import tree_map
+from .mrmodel import _SPILL
+
+# the names newer releases give reduce_scatter_tensor and
+# all_gather_into_tensor (same signatures)
+_reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
+_all_gather = (getattr(dist, "all_gather_single", None)
+               or dist.all_gather_into_tensor)
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``: block
+    j of ``send``'s leading axis goes to rank j; block i of the result
+    came from rank i."""
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_wire(recv), _wire(send), group=group)
+    return recv
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the leading axis in rank
+    order (``lax.all_gather(tiled=True)``)."""
+    x = x.contiguous()
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
+    _all_gather(_wire(out), _wire(x), group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM,
+               group=None) -> torch.Tensor:
+    """``psum`` (SUM) or ``pmax`` (MAX) as a new tensor."""
+    out = x.clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Shuffle (Theorem 2.1) — keyed all-to-all routing
+# ---------------------------------------------------------------------------
+
+class ShuffleOut(NamedTuple):
+    payload: Any               # (n_shards, capacity, ...) per receiving shard
+    valid: torch.Tensor        # (n_shards, capacity)
+    dropped: torch.Tensor      # 0-d int32: items beyond per-pair capacity
+
+
+def _fifo_ranks(dests: torch.Tensor, n_groups: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each item's FIFO rank among the items bound for its group, and
+    whether its group is in [0, n_groups).  One running count a group:
+    n_groups passes over the items, where the items a rank sends shrink
+    as the group grows."""
+    valid = (dests >= 0) & (dests < n_groups)
+    rank = torch.zeros(dests.shape, dtype=torch.int32, device=dests.device)
+    for g in range(n_groups):
+        mine = dests == g
+        rank = torch.where(mine, mine.cumsum(-1, dtype=torch.int32) - 1, rank)
+    return rank, valid
+
+
+def shuffle_alltoall(dests: torch.Tensor, payload: Any, group,
+                     capacity: int) -> ShuffleOut:
+    """Route each local item to the rank named by ``dests`` (< 0 = none).
+
+    ``capacity`` bounds the items a (sender, receiver) pair carries, the M
+    of the I/O-bound model: the send buffer is (n_shards, capacity), slots
+    filled in flattened source order, and items ranked past ``capacity``
+    are dropped and counted (``dropped`` summed over the group).  Row i of
+    the result holds what rank i sent here."""
+    n_shards = dist.get_world_size(group)
+    flat_dests = dests.reshape(-1)
+    n = flat_dests.shape[0]
+    rank, valid = _fifo_ranks(flat_dests, n_shards)
+    ok = valid & (rank < capacity)
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    # One send slot an item, shared by every leaf; an item that does not
+    # fit writes into a spill area past the buffer (at its rank modulo
+    # _SPILL, so that they do not all contend for one address), cut off.
+    n_slots = n_shards * capacity
+    index = torch.where(ok, flat_dests.long() * capacity + rank,
+                        n_slots + (rank & (_SPILL - 1)))
+
+    def pack(leaf):
+        flat = leaf.reshape((n,) + tuple(leaf.shape[dests.ndim:]))
+        buf = flat.new_zeros((n_slots + _SPILL,) + tuple(flat.shape[1:]))
+        buf[index] = flat
+        return buf[:n_slots].view((n_shards, capacity)
+                                  + tuple(flat.shape[1:]))
+
+    send = tree_map(pack, payload)
+    mask = pack(ok)
+    recv = tree_map(lambda leaf: all_to_all(leaf, group), send)
+    return ShuffleOut(payload=recv, valid=all_to_all(mask, group),
+                      dropped=all_reduce(dropped, group=group))
+
+
+def keyed_hop(dests: torch.Tensor, leaves: Sequence[torch.Tensor], group,
+              n_nodes: int) -> Tuple[torch.Tensor, list]:
+    """Phase 1 of the sharded Shuffle: the keyed all-to-all hop.
+
+    Routes every local (dest, *leaves) item to the rank that owns node
+    ``dest`` (contiguous ownership: rank s owns [s V/k, (s+1) V/k)) with
+    per-pair capacity equal to the local item count, so the hop itself is
+    lossless: overflow can only happen at the phase-2 scatter, the event
+    the local engines count.
+
+    Returns ``(local_dest, recv_flat)``: the rank-local destination of
+    each arrival (-1 = empty slot) and the flattened received leaves, in
+    source-rank-major order, which with contiguous sources keeps the
+    global flattened-source FIFO order the scatter relies on."""
+    n_shards = dist.get_world_size(group)
+    local_v = n_nodes // n_shards
+    flat_dest = dests.reshape(-1).to(torch.int32)
+    n_local = flat_dest.shape[0]
+    flat_leaves = [l.reshape((n_local,) + tuple(l.shape[dests.ndim:]))
+                   for l in leaves]
+    owner = torch.where(flat_dest >= 0,
+                        flat_dest.clamp(0, n_nodes - 1) // local_v, -1)
+    routed = shuffle_alltoall(owner, (flat_dest, flat_leaves), group,
+                              capacity=n_local)
+    recv_dest, recv_leaves = routed.payload
+    recv_valid = routed.valid.reshape(-1)
+    shard = dist.get_rank(group)
+    local_dest = torch.where(recv_valid,
+                             recv_dest.reshape(-1) - shard * local_v, -1)
+    recv_flat = [rl.reshape((-1,) + tuple(rl.shape[2:])) for rl in recv_leaves]
+    return local_dest, recv_flat
+
+
+# ---------------------------------------------------------------------------
+# Invisible funnel with f = + (Theorem 3.2) — hierarchical reduction
+# ---------------------------------------------------------------------------
+
+def funnel_allreduce(x: torch.Tensor, inner_group,
+                     outer_group=None, scatter_dim: int = 0) -> torch.Tensor:
+    """Two-level funnel all-reduce: reduce-scatter over the (fast, wide)
+    inner group, sum over the (slow, narrow) outer group on 1/|inner| of
+    the data, then all-gather.  Against a flat sum over both groups this
+    moves |inner| times less data over the outer links.  A dimension that
+    the inner group does not divide takes the flat sums."""
+    k = dist.get_world_size(inner_group)
+    if x.shape[scatter_dim] % k != 0:
+        y = all_reduce(x, group=inner_group)
+        if outer_group is not None:
+            dist.all_reduce(y, group=outer_group)
+        return y
+    xt = x.movedim(scatter_dim, 0).contiguous()
+    shard = xt.new_empty((xt.shape[0] // k,) + tuple(xt.shape[1:]))
+    _reduce_scatter(shard, xt, group=inner_group)
+    if outer_group is not None:
+        dist.all_reduce(shard, group=outer_group)
+    return all_gather(shard, inner_group).movedim(0, scatter_dim)
+
+
+def segment_scatter_add(dests: torch.Tensor, values: torch.Tensor,
+                        n_cells: int) -> torch.Tensor:
+    """Local funnel-write with f = + : combine many-to-one writes into
+    cells.  Items with a destination outside [0, n_cells) add nothing."""
+    ok = (dests >= 0) & (dests < n_cells)
+    idx = torch.where(ok, dests, n_cells).reshape(-1).long()
+    flat_val = values.reshape((idx.shape[0],) + tuple(values.shape[dests.ndim:]))
+    keep = ok.reshape((-1,) + (1,) * (flat_val.ndim - 1))
+    out = values.new_zeros((n_cells + 1,) + tuple(flat_val.shape[1:]))
+    out.index_add_(0, idx, torch.where(keep, flat_val, 0))
+    return out[:n_cells]
+
+
+# ---------------------------------------------------------------------------
+# (max, sum-exp) semigroup merge — sequence-sharded attention combine
+# ---------------------------------------------------------------------------
+
+class AttnPartial(NamedTuple):
+    m: torch.Tensor            # running max of logits        (..., )
+    l: torch.Tensor            # running sum of exp(logit-m)  (..., )
+    o: torch.Tensor            # unnormalized output          (..., d)
+
+
+def softmax_merge_pair(a: AttnPartial, b: AttnPartial) -> AttnPartial:
+    """The commutative semigroup op underlying flash attention/decoding."""
+    m = torch.maximum(a.m, b.m)
+    ea = torch.exp(a.m - m)
+    eb = torch.exp(b.m - m)
+    return AttnPartial(m=m, l=a.l * ea + b.l * eb,
+                       o=a.o * ea[..., None] + b.o * eb[..., None])
+
+
+def softmax_merge_axis(p: AttnPartial, group) -> torch.Tensor:
+    """Funnel-combine attention partials across a group and normalize: a
+    MAX all-reduce for m, SUM all-reduces for the rescaled (l, o)."""
+    m_g = all_reduce(p.m, dist.ReduceOp.MAX, group)
+    scale = torch.exp(p.m - m_g)
+    l_g = all_reduce(p.l * scale, group=group)
+    o_g = all_reduce(p.o * scale[..., None], group=group)
+    return o_g / l_g.clamp_min(1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# §4.3 sample sort, sharded
+# ---------------------------------------------------------------------------
+
+class ShardedSortOut(NamedTuple):
+    values: torch.Tensor       # (n_shards * capacity,) ascending among valid
+    valid: torch.Tensor        # (n_shards * capacity,)
+    dropped: torch.Tensor
+
+
+def sharded_sample_sort(x: torch.Tensor, group, oversample: int = 8,
+                        slack: float = 2.0) -> ShardedSortOut:
+    """Distributed sample sort over one group (every rank the same local
+    size):
+
+    1. local sort;
+    2. every rank contributes ``oversample`` evenly spaced local samples,
+       all-gathered into the replicated pivot frontier;
+    3. a searchsorted buckets each item by rank;
+    4. an all-to-all shuffle with per-pair capacity
+       ``slack * n_local / n_shards + 1``;
+    5. a local sort of the received buffer.
+
+    Rank i holds the keys of pivot range i, the valid ones first."""
+    n_local = x.shape[0]
+    n_shards = dist.get_world_size(group)
+    xs = torch.sort(x).values
+    step = max(1, n_local // oversample)
+    samples = xs[::step][:oversample]
+    pivots = torch.sort(all_gather(samples, group)).values
+    k = pivots.shape[0]
+    splitter_idx = (torch.arange(1, n_shards, device=x.device) * k) // n_shards
+    splitters = pivots[splitter_idx]
+    bucket = torch.searchsorted(splitters, xs, right=True).to(torch.int32)
+    cap = int(slack * n_local / max(1, n_shards)) + 1
+    out = shuffle_alltoall(bucket, xs, group, capacity=cap)
+    vals = out.payload.reshape(-1)
+    mask = out.valid.reshape(-1)
+    big = (torch.finfo(x.dtype).max if x.dtype.is_floating_point
+           else torch.iinfo(x.dtype).max)
+    filled = torch.where(mask, vals, big)
+    order = torch.argsort(filled, stable=True)
+    return ShardedSortOut(values=filled[order], valid=mask[order],
+                          dropped=out.dropped)
+
+
+__all__ = [
+    "ShuffleOut", "shuffle_alltoall", "keyed_hop", "funnel_allreduce",
+    "segment_scatter_add", "AttnPartial", "softmax_merge_pair",
+    "softmax_merge_axis", "ShardedSortOut", "sharded_sample_sort",
+    "all_to_all", "all_gather", "all_reduce",
+]

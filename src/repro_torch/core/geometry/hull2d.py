@@ -142,12 +142,16 @@ def hull2d_plan(n: int, M: int, *, oversample: int = 8, slack: float = 3.0,
     for k in range(n_levels):
         cap = min(n, a * cap)
         v_level = -(-v_level // a)               # live nodes after the merge
+        # early_dests: merge-tree leaders are functions of node id and the
+        # level's static block size alone.
         stages.append(round_stage(f"merge-{k}",
                                   make_chain_and_send(a ** (k + 1), shape), 1,
                                   capacity=cap,
-                                  n_nodes=v_level if shape else None))
+                                  n_nodes=v_level if shape else None,
+                                  early_dests=True))
     stages.append(round_stage("finalize", make_finalize, 1, capacity=cap,
-                              n_nodes=v_level if shape else None))
+                              n_nodes=v_level if shape else None,
+                              early_dests=True))
 
     def epilogue(state):
         box = state.box

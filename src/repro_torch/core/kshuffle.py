@@ -50,11 +50,16 @@ _COUNTS_BUDGET = 1 << 25
 
 class RouteLog:
     """Host-side counters of an engine's kernel-vs-dense routing decision
-    (``LocalEngine(shuffle_impl="kernel")``), one increment per shuffle
-    call, so tests and the chip smoke can assert the kernel path was taken
-    (``dense == 0``).  Each kernel-capable engine owns its own instance."""
+    (``LocalEngine`` / ``ShardedEngine`` with ``shuffle_impl="kernel"``),
+    one increment per shuffle call, so tests and the chip smoke can assert
+    the kernel path was taken (``dense == 0``).  Each kernel-capable engine
+    owns its own instance.
 
-    __slots__ = ("kernel", "dense")
+    ``overlapped`` counts the rounds a ``ShardedEngine`` issued through its
+    overlapped schedule: a scheduling counter, not a routing one, so
+    :meth:`snapshot` (the kernel-vs-dense pair) leaves it out."""
+
+    __slots__ = ("kernel", "dense", "overlapped")
 
     def __init__(self) -> None:
         self.reset()
@@ -62,6 +67,7 @@ class RouteLog:
     def reset(self) -> None:
         self.kernel = 0
         self.dense = 0
+        self.overlapped = 0
 
     def snapshot(self) -> Tuple[int, int]:
         return (self.kernel, self.dense)

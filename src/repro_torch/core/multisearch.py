@@ -18,10 +18,7 @@ child index (the padded pivots are sorted), so the count is one
 ``torch.searchsorted`` of the query into node k's row of maxima, with no
 (nodes, capacity, f) comparison tensor.
 
-:func:`multisearch_opt` is the one-call counterpart.  The port's
-:class:`~repro_torch.core.plan.PlanStage` has no ``early_dests`` flag (its
-double-buffered scheduler is not ported yet), so the descent stages do not
-declare it.
+:func:`multisearch_opt` is the one-call counterpart.
 """
 from __future__ import annotations
 
@@ -261,18 +258,20 @@ def multisearch_plan(n_queries: int, n_pivots: int, M: int, *,
         # = end of level r's range (prefix-ordered layout, so destination
         # ids are unchanged).  Steady state: K rounds at V.
         stages = [entry_stage("entry", K, cap, emit_entry)]
+        # early_dests: descent targets are child ids in the static
+        # prefix-ordered tree layout (the tree is carry).
         stages += [round_stage(f"descend-{r}", make_step(r), 1,
-                               n_nodes=T[r + 1])
+                               n_nodes=T[r + 1], early_dests=True)
                    for r in range(L)]
         stages.append(round_stage("descend-steady", make_step(L), K,
-                                  n_nodes=V))
+                                  n_nodes=V, early_dests=True))
         stages.append(account_stage("output", ((n_q, 1),)))
         stages = tuple(stages)
     else:
         stages = (
             # Entry round: query j is thrown into its batch's source node.
             entry_stage("entry", V, cap, emit_entry),
-            round_stage("descend", make_step(0), K + L),
+            round_stage("descend", make_step(0), K + L, early_dests=True),
             account_stage("output", ((n_q, 1),)),
         )
 

@@ -57,6 +57,14 @@ class PlanStage(NamedTuple):
     #: whether the stage physically shuffles (accounting-only and compute
     #: stages set False so footprint metrics skip them)
     shuffles: bool = True
+    #: declared overlap legality: True promises the stage's destinations
+    #: depend only on node ids and the static schedule, never on mailbox
+    #: data, which lets ``ShardedEngine`` issue its rounds as one window
+    #: with no host read between them.  Declared by the builder, never
+    #: inferred; a scheduling hint only (results and ``CostAccum`` are the
+    #: same either way), and left out of ``shape_fingerprint`` as the JAX
+    #: package leaves it out.
+    early_dests: bool = False
 
 
 class PlanState(NamedTuple):
@@ -376,23 +384,28 @@ def entry_stage(name: str, n_nodes: int, capacity: int,
 
 def round_stage(name: str, make_fn: Callable, n_rounds: int,
                 capacity: Optional[int] = None,
-                n_nodes: Optional[int] = None) -> PlanStage:
+                n_nodes: Optional[int] = None,
+                early_dests: bool = False) -> PlanStage:
     """``n_rounds`` applications of one round function over the current
     mailbox.  ``make_fn(carry) -> RoundFn`` binds the carry at execute time;
     the round function sees the (B, V, M) mailbox and the (V,) node ids and
     emits (B, V, M_out) destinations.  ``n_nodes`` declares the stage's
     target footprint V_r (a shape-change round when it differs from the
-    current box); None inherits."""
+    current box); None inherits.  ``early_dests=True`` declares that the
+    destinations depend only on node ids and the static schedule, which
+    unlocks ``ShardedEngine``'s overlapped schedule for the stage."""
 
     def apply(engine, state: PlanState) -> PlanState:
         V = None if n_nodes is None else engine.aligned_nodes(n_nodes)
         box, accum = engine.run_rounds(make_fn(state.carry), state.box,
                                        n_rounds, capacity=capacity,
                                        accum=state.accum, n_nodes=V,
+                                       early_dests=early_dests,
                                        batched=True)
         return state._replace(box=box, accum=accum)
 
-    return PlanStage(name, n_rounds, capacity, apply, n_nodes)
+    return PlanStage(name, n_rounds, capacity, apply, n_nodes,
+                     early_dests=early_dests)
 
 
 def compute_stage(name: str, fn: Callable) -> PlanStage:
@@ -408,11 +421,15 @@ def compute_stage(name: str, fn: Callable) -> PlanStage:
 
 def custom_stage(name: str, rounds: int, capacity: Optional[int],
                  apply: Callable,
-                 n_nodes: Optional[int] = None) -> PlanStage:
+                 n_nodes: Optional[int] = None,
+                 early_dests: bool = False) -> PlanStage:
     """Escape hatch for stages that drive the engine directly;
     ``apply(engine, state) -> state`` must account exactly ``rounds``
-    rounds."""
-    return PlanStage(name, rounds, capacity, apply, n_nodes)
+    rounds.  ``early_dests`` only declares overlap legality: a body that
+    wants the overlapped schedule passes the flag to
+    ``engine.run_rounds`` / ``run_stages`` itself."""
+    return PlanStage(name, rounds, capacity, apply, n_nodes,
+                     early_dests=early_dests)
 
 
 __all__ = [

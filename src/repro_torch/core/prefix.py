@@ -7,10 +7,6 @@ states; routing between levels is index arithmetic on the implicit labels
 v = (l, k) (parent p(v) = (l-1, floor(k/d)), j-th child w_j = (l+1, k*d + j)).
 
 :func:`prefix_sum_opt` is the one-call counterpart, ``torch.cumsum``.
-
-The port's :class:`~repro_torch.core.plan.PlanStage` has no ``early_dests``
-flag (the double-buffered schedule that reads it is not ported yet), so the
-physical plan's stages do not declare it.
 """
 from __future__ import annotations
 
@@ -207,13 +203,17 @@ def _physical_prefix_plan(n: int, M: int, d: int, dtype: torch.dtype,
         return make_fn
 
     stages = [entry_stage("up-0", sizes[0], d, emit_entry)]
+    # early_dests: both sweeps address parents and children of the static
+    # d-ary tree by node id alone.
     for j in range(1, J + 1):
         stages.append(round_stage(f"up-{j}", make_up, 1, capacity=d,
-                                  n_nodes=sizes[j] if shape else None))
+                                  n_nodes=sizes[j] if shape else None,
+                                  early_dests=True))
     for j in range(J - 1, -1, -1):
         stages.append(round_stage(f"down-{j}", make_down(j, j == J - 1), 1,
                                   capacity=1,
-                                  n_nodes=sizes[j] if shape else None))
+                                  n_nodes=sizes[j] if shape else None,
+                                  early_dests=True))
     stages.append(account_stage("output", ((n, 1),)))
 
     def epilogue(state):

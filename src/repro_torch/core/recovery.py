@@ -50,8 +50,8 @@ Where the port differs from the JAX package:
   ``leaf_kinds`` / ``stage_index`` / ``plan`` / ``rounds_done`` metadata
   are the JAX package's.  A checkpoint the JAX package wrote does not
   resume here.
-- :func:`elastic_engine` needs the sharded engine, which the port does not
-  have yet; it raises ``NotImplementedError``.
+- :func:`elastic_engine` takes a ``torch.distributed`` group where the JAX
+  package takes a mesh axis, and every rank of the group must call it.
 """
 from __future__ import annotations
 
@@ -536,13 +536,37 @@ def realign_mailbox(box: Mailbox, engine: MREngine) -> Mailbox:
                    valid=pad_leaf(box.valid))
 
 
-def elastic_engine(n_shards: int, axis_name: str = "nodes",
-                   shuffle_impl: str = "dense"):
-    """The JAX package's resume engine over ``n_shards`` healthy devices.
-    It builds a sharded engine, which the port does not have yet."""
-    raise NotImplementedError(
-        "elastic_engine builds a ShardedEngine, which is not ported yet; it "
-        "comes with the distributed slice (ROADMAP Queue A item 5)")
+def elastic_engine(n_shards: int, group=None, shuffle_impl: str = "dense",
+                   device="cuda"):
+    """A :class:`~repro_torch.core.engine.ShardedEngine` over the first
+    ``n_shards`` ranks of ``group`` (the default group when None), with
+    that group's backend, on ``device``: the engine an elastic resume runs
+    on.  Raises (healthy against requested) rather than silently shrinking
+    the resume.
+
+    Every rank of ``group`` must call it, since it makes the new group
+    (``torch.distributed.new_group``); the ranks left out get None and take
+    no part in the resume."""
+    import torch.distributed as dist
+    from .engine import ShardedEngine
+    if int(n_shards) < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "elastic_engine needs a torch.distributed process group: call "
+            "torch.distributed.init_process_group first")
+    world = dist.get_world_size(group)
+    if int(n_shards) > world:
+        raise ValueError(
+            f"elastic_engine: requested {n_shards} shards but only {world} "
+            f"ranks are healthy — refusing to silently shrink the resume "
+            f"topology")
+    ranks = [r if group is None else dist.get_global_rank(group, r)
+             for r in range(int(n_shards))]
+    sub = dist.new_group(ranks, backend=dist.get_backend(group))
+    if sub is dist.GroupMember.NON_GROUP_MEMBER:
+        return None
+    return ShardedEngine(group=sub, shuffle_impl=shuffle_impl, device=device)
 
 
 def _cumulative_rounds(plan: Plan):

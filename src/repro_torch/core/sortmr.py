@@ -254,9 +254,13 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
             def refine(r, ids, b):
                 return level_dest(spl, b.payload, b.valid, _d), b.payload
             return refine
+        # early_dests as the JAX package declares it: the refine ladder's
+        # group targets come from the static level schedule (the splitters
+        # are carry), though the level reads the payload.
         stages.append(round_stage(f"refine-{d}", make_refine, 1,
                                   capacity=group_cap(d),
-                                  n_nodes=group_nodes(d) if shape else None))
+                                  n_nodes=group_nodes(d) if shape else None,
+                                  early_dests=True))
 
     big = dtype_max(dtype)
 
@@ -271,7 +275,8 @@ def sort_plan(n: int, M: int, *, dtype=torch.float32, levels: int = 1,
             return dest, svals
         return local_sort
 
-    stages.append(round_stage("local-sort", make_local_sort, 1))
+    stages.append(round_stage("local-sort", make_local_sort, 1,
+                              early_dests=True))   # keep-at-self dests
     stages.append(account_stage("output", ((n, 1),)))   # leaves -> output
 
     def epilogue(state):

@@ -1,0 +1,565 @@
+"""Multi-rank checks of the sharded round machine on CPU ranks over gloo.
+
+    python -m repro_torch.dist_check --world 4 --out DIR [--keys KEYS.npz]
+        [--cases shuffle,rounds,...] [--timeout SECONDS] [--check]
+
+starts ``--world`` processes, one a rank, over a ``file://`` store in DIR.
+Each rank runs the named cases (all by default) on
+``ShardedEngine(device="cpu")`` and writes what it computed to
+``DIR/rank<r>.npz``, one entry a tensor under ``<case>/<variant>/<leaf>``
+(an output or ``CostAccum`` leaf) or ``<case>/<variant>/#<name>`` (a count
+or flag).  Rank 0 also runs each case on ``LocalEngine(device="cpu")``, the
+variant ``local``.  The launcher exits 0 when every rank did and 1 with the
+ranks' errors otherwise; a rank that fails ends the others at once, and
+``--timeout`` bounds the whole run.  With ``--check`` it then holds every
+rank's entries equal to rank 0's and every sharded variant equal, bit for
+bit, to ``local``.  It prints one JSON line.
+
+Nothing here imports JAX.  The plan families are written once for either
+package's ``core`` module (``m``) and array module (``xp``), so the tests
+run the same cases on the JAX package as the oracle.  Draws: ``--keys``
+gives each family's sample indices (the tests hand over the JAX package's
+own draws); without it each family takes an int seed.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from . import core
+from ._tree import tree_leaves
+from .core import (CostAccum, LocalEngine, ShardedEngine, execute_plan,
+                   sort_plan)
+from .core import distributed as D
+from .core.recovery import (Checkpointer, FaultConfig, ShardFailure,
+                            elastic_engine, resume_plan,
+                            run_plan_with_recovery)
+from .obs import Tracer
+
+CASES = ("shuffle", "rounds", "plans", "collectives", "elastic", "tracer",
+         "errors")
+#: the plan families run on the kernel scatter as well
+KERNEL_FAMILIES = ("sort", "hull2d")
+SEED = 5
+
+
+def aligned(v: int, k: int) -> int:
+    return -(-max(1, int(v)) // k) * k
+
+
+# ---------------------------------------------------------------------------
+# Inputs, shared with the tests (numpy, seeded)
+# ---------------------------------------------------------------------------
+
+def shuffle_inputs(k: int):
+    """Direct shuffles: ``(dests, payload leaves, n_nodes, capacity)``, a
+    (V, 4) send with drops, a 1-D send the group size does not divide, and
+    a two-leaf payload."""
+    rng = np.random.default_rng(100)
+    V = aligned(12, k)
+    return [
+        (rng.integers(-1, V, (V, 4)).astype(np.int32),
+         [rng.normal(size=(V, 4)).astype(np.float32)], V, 2),
+        (rng.integers(-1, V, 13).astype(np.int32),
+         [rng.normal(size=13).astype(np.float32)], V, 3),
+        (rng.integers(-1, V, (V, 3)).astype(np.int32),
+         [rng.normal(size=(V, 3)).astype(np.float32),
+          rng.integers(0, 99, (V, 3, 2)).astype(np.int32)], V, 3),
+    ]
+
+
+def round_program(seed: int, k: int, n_rounds: int = 4):
+    """tests/test_conformance.py's random round program at a node count the
+    group size divides: ``(V, cap, entry dests, payload, tables)``."""
+    rng = np.random.default_rng(seed)
+    V = aligned(int(rng.integers(4, 10)), k)
+    cap = int(rng.integers(2, 5))
+    entry = rng.integers(-1, V, size=(V, cap)).astype(np.int32)
+    payload = rng.normal(size=(V, cap)).astype(np.float32)
+    tables = rng.integers(-1, V, size=(n_rounds, V, cap)).astype(np.int32)
+    return V, cap, entry, payload, tables
+
+
+#: the rounds of run_stages: (table, early_dests), mixed windows
+STAGE_FLAGS = (True, True, False, True)
+
+
+def family_inputs():
+    """Each plan family's numpy inputs."""
+    rng = np.random.default_rng(SEED)
+    return {
+        "sort": (rng.normal(size=96).astype(np.float32),),
+        "sort2": (rng.normal(size=96).astype(np.float32),),
+        "multisearch": (rng.normal(size=64).astype(np.float32),
+                        np.sort(rng.normal(size=16).astype(np.float32))),
+        "prefix": (rng.integers(0, 9, 64).astype(np.int32),),
+        "prefix-exclusive": (rng.integers(-9, 9, 64).astype(np.int32),),
+        "funnel": (rng.integers(-1, 8, 64).astype(np.int32),
+                   rng.integers(-100, 100, 64).astype(np.int32),
+                   rng.integers(-50, 50, 8).astype(np.int32)),
+        "crcw": (rng.integers(0, 10, 64).astype(np.int32),
+                 np.zeros(10, np.float32)),
+        "bsp": (rng.normal(size=16).astype(np.float32),),
+        "hull2d": (rng.normal(size=(64, 2)).astype(np.float32),),
+        "hull3d": (rng.normal(size=(8, 3)).astype(np.float32),),
+        "lp": (np.array([1.0, 2.0], np.float32),
+               rng.normal(size=(8, 2)).astype(np.float32),
+               rng.uniform(1.0, 2.0, 8).astype(np.float32)),
+    }
+
+
+#: each family's PRNG draw: (kind, size) — a permutation of ``size`` or
+#: ``size`` random-indexing slots; None for the families that draw nothing
+FAMILY_DRAWS = {"sort": ("perm", 96), "sort2": ("perm", 96),
+                "multisearch": ("slots", 64), "hull2d": ("perm", 64)}
+
+
+def _allreduce_superstep(xp):
+    """tests/test_paper_algorithms.py's tree all-reduce (BSP)."""
+    def superstep(t, ids, state, inbox, inbox_valid):
+        state = state + xp.where(inbox_valid, inbox, 0.0).sum(-1)
+        stride = 2 ** t
+        sender = (ids % (2 * stride)) == stride
+        return state, xp.where(sender, ids - stride, -1)[..., None], \
+            state[..., None]
+    return superstep
+
+
+def run_family(name: str, m, xp, engine, align, inputs, key, asarray):
+    """One family's query on ``engine``: ``m`` is either package's ``core``
+    module, ``xp`` its array module (``torch`` or ``jax.numpy``) and
+    ``asarray`` its array constructor.  Returns the outputs."""
+    plans = {
+        "sort": lambda: m.sort_plan(96, 8, align=align),
+        "sort2": lambda: m.sort_plan(96, 8, levels=2, align=align),
+        "multisearch": lambda: m.multisearch_plan(64, 16, 8, align=align),
+        "prefix": lambda: m.prefix_plan(64, 8, physical=True),
+        "prefix-exclusive": lambda: m.prefix_plan(64, 8, physical=True,
+                                                  inclusive=False),
+        "funnel": lambda: m.funnel_write_plan(64, 8, 8, xp.add, identity=0,
+                                              dtype="int32"),
+        "bsp": lambda: m.bsp_plan(m.BSPProgram(_allreduce_superstep(xp)), 5,
+                                  8, 16, asarray(np.float32(0))),
+        "hull2d": lambda: m.hull2d_plan(64, 16, align=align),
+        "hull3d": lambda: m.hull3d_plan(8, 8),
+        "lp": lambda: m.lp_plan(8, 2, 8),
+    }
+    if name == "crcw":
+        # the sum-CRCW histogram: every processor adds 1 to cell state
+        prog = m.PRAMProgram(read_addr=lambda s, t: s,
+                             compute=lambda s, v, t: (s, s, (s == s) * 1.0))
+        _, memory, acc = m.simulate_crcw(
+            prog, asarray(inputs[0]), asarray(inputs[1]), 1, 8, xp.add,
+            identity=0.0, engine=engine, with_accum=True)
+        return memory, acc
+    exe = engine.compile(plans[name]())
+    return exe(*inputs) if key is None else exe(*inputs, key=key)
+
+
+# ---------------------------------------------------------------------------
+# The cases, run on every rank
+# ---------------------------------------------------------------------------
+
+class Results(dict):
+    """name -> numpy array; ``put`` flattens a result's tensor leaves."""
+
+    def put(self, case: str, variant: str, tree) -> None:
+        for j, leaf in enumerate(tree_leaves(tree)):
+            self[f"{case}/{variant}/{j}"] = _np(leaf)
+
+    def meta(self, case: str, variant: str, **values) -> None:
+        for k, v in values.items():
+            self[f"{case}/{variant}/#{k}"] = np.asarray(v)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def case_shuffle(res: Results, rank: int, keys) -> None:
+    engines = {"dense": ShardedEngine(device="cpu"),
+               "kernel": ShardedEngine(shuffle_impl="kernel", device="cpu")}
+    if rank == 0:
+        engines["local"] = LocalEngine(device="cpu")
+    k = engines["dense"].n_shards
+    for i, (dests, leaves, V, cap) in enumerate(shuffle_inputs(k)):
+        payload = leaves[0] if len(leaves) == 1 else tuple(leaves)
+        for variant, eng in engines.items():
+            box, st = eng.shuffle(dests, payload, V, cap)
+            res.put(f"shuffle-{i}", variant, (box, st))
+            check(all(s.dtype == torch.int32 for s in st),
+                  f"shuffle-{i} {variant}: RoundStats dtypes")
+    res.meta("shuffle", "kernel",
+             routes=np.array(engines["kernel"].route_log.snapshot()))
+
+
+def _port_fn(tables):
+    t = torch.from_numpy(tables)
+    return lambda r, ids, box: (torch.where(box.valid, t[r], -1), box.payload)
+
+
+def case_rounds(res: Results, rank: int, keys) -> None:
+    variants = {"seq": (False, False), "seq-early": (False, True),
+                "overlap": (True, True), "overlap-late": (True, False)}
+    k = ShardedEngine(device="cpu").n_shards
+    for seed in range(3):
+        V, cap, entry, payload, tables = round_program(seed, k)
+        fn = _port_fn(tables)
+        runs = {v: (ShardedEngine(device="cpu", overlap=o), early)
+                for v, (o, early) in variants.items()}
+        if rank == 0:
+            runs["local"] = (LocalEngine(device="cpu"), True)
+        for variant, (eng, early) in runs.items():
+            box, st = eng.shuffle(entry, payload, V, cap)
+            box, acc = eng.run_rounds(fn, box, len(tables),
+                                      accum=CostAccum.zero().add_round_stats(
+                                          st),
+                                      early_dests=early)
+            res.put(f"rounds-{seed}", variant, (box, acc))
+            if variant != "local":
+                res.meta(f"rounds-{seed}", variant,
+                         overlapped=eng.route_log.overlapped)
+        # run_stages with windows of early rounds between sequential ones
+        stage_runs = {"stages": ShardedEngine(device="cpu"),
+                      "stages-seq": ShardedEngine(device="cpu",
+                                                  overlap=False)}
+        if rank == 0:
+            stage_runs["local"] = LocalEngine(device="cpu")
+        for variant, eng in stage_runs.items():
+            box, st = eng.shuffle(entry, payload, V, cap)
+            stages = [(fn, cap, None, early) for early in STAGE_FLAGS]
+            box, acc = eng.run_stages(stages, box,
+                                      accum=CostAccum.zero().add_round_stats(
+                                          st))
+            res.put(f"stages-{seed}", variant, (box, acc))
+            if variant != "local":
+                res.meta(f"stages-{seed}", variant,
+                         overlapped=eng.route_log.overlapped)
+
+
+def family_key(name: str, keys):
+    """The family's draw: the ``--keys`` entry, else an int seed."""
+    if name not in FAMILY_DRAWS:
+        return None
+    if keys is not None and name in keys:
+        return keys[name]
+    return SEED
+
+
+def case_plans(res: Results, rank: int, keys) -> None:
+    inputs = family_inputs()
+    for name in inputs:
+        engines = {"overlap": ShardedEngine(device="cpu"),
+                   "seq": ShardedEngine(device="cpu", overlap=False)}
+        if name in KERNEL_FAMILIES:
+            engines["kernel"] = ShardedEngine(shuffle_impl="kernel",
+                                              device="cpu")
+        if rank == 0:
+            engines["local"] = LocalEngine(device="cpu")
+        align = engines["overlap"].aligned_nodes
+        for variant, eng in engines.items():
+            out = run_family(name, core, torch, eng, align, inputs[name],
+                             family_key(name, keys), torch.as_tensor)
+            res.put(name, variant, out)
+            if variant != "local":
+                res.meta(name, variant, overlapped=eng.route_log.overlapped,
+                         routes=np.array(eng.route_log.snapshot()))
+
+
+def collective_inputs(k: int):
+    rng = np.random.default_rng(200)
+    n_local = 16
+    return {
+        "a2a_dests": rng.integers(0, k, (k, n_local)).astype(np.int32),
+        "a2a_vals": np.arange(k * n_local, dtype=np.float32).reshape(
+            k, n_local),
+        "funnel": rng.normal(size=(k, 8, 16)).astype(np.float32),
+        "funnel_odd": rng.normal(size=(k, 3, 5)).astype(np.float32),
+        "q": rng.normal(size=16).astype(np.float32),
+        "kv_k": rng.normal(size=(64, 16)).astype(np.float32),
+        "kv_v": rng.normal(size=(64, 16)).astype(np.float32),
+        "sort_x": rng.normal(size=k * 64).astype(np.float32),
+    }
+
+
+def case_collectives(res: Results, rank: int, keys) -> None:
+    k = dist.get_world_size()
+    x = collective_inputs(k)
+    # shuffle_alltoall: lossless, then at a per-pair capacity of 3
+    for cap, tag in ((16, "c-alltoall"), (3, "c-alltoall-cap3")):
+        out = D.shuffle_alltoall(torch.from_numpy(x["a2a_dests"][rank]),
+                                 torch.from_numpy(x["a2a_vals"][rank]),
+                                 None, capacity=cap)
+        res.put(tag, "per-rank", out)
+    # funnel_allreduce: inner groups of two ranks and an outer group across
+    # them at four ranks, one inner group otherwise; and a leading dim the
+    # inner group does not divide (the flat sums)
+    if k == 4:
+        inner = [dist.new_group([0, 1]), dist.new_group([2, 3])][rank // 2]
+        outer = [dist.new_group([0, 2]), dist.new_group([1, 3])][rank % 2]
+    else:
+        inner, outer = None, None
+    for tag in ("funnel", "funnel_odd"):
+        y = D.funnel_allreduce(torch.from_numpy(x[tag][rank]), inner, outer)
+        res.put(f"c-{tag}", "sharded", y)
+    y = D.funnel_allreduce(torch.from_numpy(x["funnel"][rank]), inner, outer,
+                           scatter_dim=1)
+    res.put("c-funnel-dim1", "sharded", y)
+    # softmax_merge_axis over a sequence-sharded KV
+    T = x["kv_k"].shape[0] // k
+    ks = torch.from_numpy(x["kv_k"][rank * T:(rank + 1) * T])
+    vs = torch.from_numpy(x["kv_v"][rank * T:(rank + 1) * T])
+    s = ks @ torch.from_numpy(x["q"])
+    m = s.max()
+    p = torch.exp(s - m)
+    res.put("c-softmax", "sharded", D.softmax_merge_axis(
+        D.AttnPartial(m=m, l=p.sum(), o=p @ vs), None))
+    # sharded_sample_sort of every rank's 64 keys
+    n = x["sort_x"].shape[0] // k
+    out = D.sharded_sample_sort(
+        torch.from_numpy(x["sort_x"][rank * n:(rank + 1) * n]), None)
+    res.put("c-sample-sort", "per-rank", out)
+
+
+def case_elastic(res: Results, rank: int, keys, out_dir: Path) -> None:
+    """A sort checkpointed every stage on all ranks, killed at shuffle
+    attempt 1, resumed from the newest checkpoint on the first half of the
+    ranks; and the refusals."""
+    world = dist.get_world_size()
+    half = max(1, world // 2)
+    big, small = elastic_engine(world, device="cpu"), \
+        elastic_engine(half, device="cpu")
+    plan = sort_plan(64, 8, align=big.aligned_nodes)
+    x = np.random.default_rng(3).permutation(64).astype(np.float32)
+    key = keys["elastic"] if keys is not None and "elastic" in keys else SEED
+    res.put("elastic", "fault-free", execute_plan(plan, big, (x,), key=key))
+    ck_dir = out_dir / f"ckpt-rank{rank}"
+    ck = Checkpointer(ck_dir, plan=plan, every=1)
+    fired = False
+    try:
+        run_plan_with_recovery(plan, big, (x,), key=key,
+                               faults=FaultConfig(fail_at=(1,)),
+                               checkpointer=ck, max_restarts=0)
+    except ShardFailure:
+        fired = True
+    last = ck.latest()
+    res.meta("elastic", "fault-free", fired=fired, latest=-1 if last is None
+             else last, n_shards=big.n_shards)
+    if small is not None:
+        out, rep = resume_plan(plan, small, (x,), key=key,
+                               checkpointer=Checkpointer(ck_dir, plan=plan))
+        res.put("elastic", "resumed", out)
+        res.meta("elastic", "resumed", at=rep.resumed_at_round,
+                 n_shards=small.n_shards)
+    if rank == 0:
+        res.put("elastic", "local",
+                execute_plan(plan, LocalEngine(device="cpu"), (x,), key=key))
+    refused = []
+    for n in (world + 1, 0):
+        try:
+            elastic_engine(n, device="cpu")
+            refused.append("")
+        except ValueError as e:
+            refused.append(str(e))
+    res.meta("elastic", "refusals", over="healthy" in refused[0],
+             zero=bool(refused[1]))
+    dist.barrier()
+
+
+def tracer_program(k: int):
+    """tests/test_conformance.py's pipeline-event program, V = 6 rounded up
+    to the group size."""
+    rng = np.random.default_rng(3)
+    V, cap, R = aligned(6, k), 3, 4
+    entry = rng.integers(-1, V, size=(V, cap)).astype(np.int32)
+    payload = rng.normal(size=(V, cap)).astype(np.float32)
+    return V, cap, R, entry, payload
+
+
+def case_tracer(res: Results, rank: int, keys) -> None:
+    V, cap, R, entry, payload = tracer_program(dist.get_world_size())
+    node = torch.arange(V, dtype=torch.int32)[:, None]
+
+    def fn(r, ids, box):
+        return torch.where(box.valid, (node + 1 + r) % V, -1), box.payload
+
+    runs = {"traced": ShardedEngine(device="cpu", tracer=Tracer()),
+            "untraced": ShardedEngine(device="cpu"),
+            "seq": ShardedEngine(device="cpu", overlap=False,
+                                 tracer=Tracer())}
+    for variant, eng in runs.items():
+        box, st = eng.shuffle(entry, payload, V, cap)
+        box, acc = eng.run_rounds(fn, box, R,
+                                  accum=CostAccum.zero().add_round_stats(st),
+                                  early_dests=True)
+        res.put("tracer", variant, (box, acc))
+        if eng.tracer.enabled:
+            kinds = [e.kind for e in eng.tracer.events()]
+            res.meta("tracer", variant, hops=kinds.count("pipeline.hop"),
+                     overlaps=kinds.count("pipeline.overlap"),
+                     pipeline=sum(k.startswith("pipeline.") for k in kinds))
+
+
+def case_errors(res: Results, rank: int, keys) -> None:
+    eng = ShardedEngine(device="cpu")
+    k = eng.n_shards
+    raised = {}
+    for tag, (dests, V) in {
+            "nodes": (np.zeros((k, 2), np.int32), k + 1),
+            "lead": (np.zeros((k + 1, 2), np.int32), 2 * k)}.items():
+        try:
+            eng.shuffle(dests, dests.astype(np.float32), V, 2)
+            raised[tag] = False
+        except ValueError:
+            raised[tag] = True
+    res.meta("errors", "sharded", **raised)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# Ranks and the launcher
+# ---------------------------------------------------------------------------
+
+def run_rank(rank: int, world: int, out_dir: Path, cases, keys) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world)
+    try:
+        res = Results()
+        t0 = time.perf_counter()
+        for case in cases:
+            if case == "elastic":
+                case_elastic(res, rank, keys, out_dir)
+            else:
+                globals()[f"case_{case}"](res, rank, keys)
+        res["#seconds"] = np.asarray(time.perf_counter() - t0)
+        np.savez(out_dir / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def load_ranks(out_dir: Path, world: int):
+    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+
+
+def check_results(ranks) -> int:
+    """Every rank's entries equal rank 0's (but the ``per-rank`` variant,
+    which holds a collective's rank-local result); every sharded variant's
+    leaves equal the ``local`` variant's; returns how many entries were
+    held."""
+    ref = ranks[0]
+    held = 0
+    for r, got in enumerate(ranks[1:], 1):
+        for name, v in got.items():
+            if name in ref and not name.startswith("#") \
+                    and "/per-rank/" not in name:
+                check(v.dtype == ref[name].dtype
+                      and np.array_equal(v, ref[name], equal_nan=True),
+                      f"rank {r} differs from rank 0 at {name}")
+                held += 1
+    for name, v in ref.items():
+        parts = name.split("/")
+        if len(parts) != 3 or parts[2].startswith("#") or parts[1] == "local":
+            continue
+        want = ref.get(f"{parts[0]}/local/{parts[2]}")
+        if want is None:
+            continue
+        check(v.dtype == want.dtype and np.array_equal(v, want,
+                                                        equal_nan=True),
+              f"{name} differs from the local engine's")
+        held += 1
+    return held
+
+
+def launch(world: int, out_dir: Path, cases, keys_path, timeout: float,
+           do_check: bool) -> int:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for stale in out_dir.glob("ckpt-rank*"):
+        shutil.rmtree(stale)
+    for stale in out_dir.glob("rank*"):
+        stale.unlink()
+    (out_dir / "store").unlink(missing_ok=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    cmd = [sys.executable, "-m", "repro_torch.dist_check", "--world",
+           str(world), "--out", str(out_dir), "--cases", ",".join(cases)]
+    if keys_path:
+        cmd += ["--keys", str(keys_path)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    failed = None
+    while any(p.poll() is None for p in procs):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad or time.perf_counter() - t0 > timeout:
+            failed = (f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                      if bad else f"timed out after {timeout} s")
+            break
+        time.sleep(0.05)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    logs = [p.communicate()[0] for p in procs]
+    if failed is None:
+        bad = [r for r, p in enumerate(procs) if p.returncode]
+        failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}" \
+            if bad else None
+    summary = {"world": world, "cases": list(cases),
+               "seconds": time.perf_counter() - t0, "ok": failed is None}
+    if failed is None and do_check:
+        try:
+            summary["entries_held"] = check_results(load_ranks(out_dir,
+                                                               world))
+        except AssertionError as e:
+            failed = str(e)
+            summary["ok"] = False
+    if failed is not None:
+        summary["error"] = failed
+        for r, log in enumerate(logs):
+            if log.strip():
+                print(f"--- rank {r} ---\n{log[-4000:]}", file=sys.stderr)
+    print(json.dumps(summary), flush=True)
+    return 0 if failed is None else 1
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--out", type=Path, required=True)
+    ap.add_argument("--keys", type=Path, default=None)
+    ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--timeout", type=float, default=150.0)
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--rank", type=int, default=None)
+    args = ap.parse_args(argv)
+    cases = [c for c in args.cases.split(",") if c]
+    unknown = set(cases) - set(CASES)
+    if unknown:
+        ap.error(f"unknown cases {sorted(unknown)}; pick from {CASES}")
+    if args.rank is None:
+        return launch(args.world, args.out, cases, args.keys, args.timeout,
+                      args.check)
+    keys = dict(np.load(args.keys)) if args.keys else None
+    run_rank(args.rank, args.world, args.out, cases, keys)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

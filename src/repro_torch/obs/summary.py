@@ -14,9 +14,10 @@ telemetry alone.
 :func:`diff_summaries` compares two reports stage by stage (the regression
 use: did a change alter round counts, communication, or wall time?).
 
-The report keeps the JAX package's ``pipeline`` section (the sharded
-engine's overlapped-round events, DESIGN.md §13); the port has no sharded
-engine yet, so it stays empty here.
+The report keeps the JAX package's ``pipeline`` section: the
+``pipeline.hop`` and ``pipeline.overlap`` events of ``ShardedEngine``'s
+overlapped rounds, with the hop and compute seconds of each window's
+calibration probe.
 
 The trace → summary flow, end to end:
 

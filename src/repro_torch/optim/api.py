@@ -1,6 +1,6 @@
 """Uniform optimizer interface used by the trainer, as ``repro.optim.api``.
-The sharded state layouts (``state_shardings``) belong to the distributed
-slice of the port."""
+Of that module only the sharded state layouts (``state_shardings``) are
+not ported yet."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple

@@ -1029,3 +1029,46 @@ def test_batch_on_the_card_is_one_program(cuda, family):
         want = single if i == 0 else exe(*(x[i] for x in inputs), key=5 + i)
         for g, w in zip(tree_leaves(out), tree_leaves(want)):
             assert g.device.type == "cuda" and torch.equal(g[i], w)
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_one_nccl_rank_equals_local(cuda, tmp_path):
+    """A one-rank NCCL group: ``ShardedEngine(shuffle_impl="kernel")``
+    sorts 2^20 keys, overlapped and sequential, bit for bit as the kernel
+    ``LocalEngine`` does (values and CostAccum), every shuffle on the
+    kernels with the local engine's launches."""
+    import torch.distributed as dist
+    from repro_torch.core import LocalEngine, ShardedEngine, sort_plan
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        ovl = ShardedEngine(shuffle_impl="kernel", device=cuda)
+        seq = ShardedEngine(shuffle_impl="kernel", device=cuda,
+                            overlap=False)
+        local = LocalEngine(shuffle_impl="kernel", device=cuda)
+        n = 1 << 20
+        plan = sort_plan(n, 1024, align=ovl.aligned_nodes)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(23)
+        x = torch.randn(n, device=cuda, generator=gen)
+        results = {}
+        for name, eng in (("local", local), ("sharded", ovl),
+                          ("sharded-seq", seq)):
+            ops.reset_launches()
+            results[name] = eng.compile(plan)(x, key=3)
+            torch.cuda.synchronize()
+            results[name + "-launches"] = ops.launches()
+            assert eng.route_log.dense == 0 and eng.route_log.kernel > 0
+        want = results["local"]
+        assert torch.equal(want.values, torch.sort(x).values)
+        assert int(want.stats.dropped) == 0
+        assert ovl.route_log.overlapped > 0 and seq.route_log.overlapped == 0
+        for name in ("sharded", "sharded-seq"):
+            got = results[name]
+            assert got.values.device.type == "cuda"
+            assert torch.equal(got.values, want.values)
+            for a, b in zip(got.stats, want.stats):
+                assert torch.equal(a, b)
+            assert results[name + "-launches"] == results["local-launches"]
+    finally:
+        dist.destroy_process_group()

@@ -176,7 +176,10 @@ def test_engine_registry_and_device_rules():
     with pytest.raises(ValueError, match="shuffle_impl"):
         LocalEngine(shuffle_impl="fused", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        get_engine("sharded")
+        get_engine("mesh")
+    # "sharded" is registered; it needs a process group the caller starts
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        get_engine("sharded", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LocalEngine()

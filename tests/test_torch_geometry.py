@@ -537,9 +537,8 @@ def test_geometry_entry_points_default_to_the_card():
 
 def test_core_exports_every_name_of_the_jax_core_but_two():
     """``repro_torch.core`` exports every name ``repro.core`` exports,
-    geometry included, but the TPU ``HardwareModel`` and
-    ``ShardedEngine``."""
+    geometry and ``ShardedEngine`` included, but the TPU
+    ``HardwareModel``."""
     import repro_torch.core as T
-    assert set(J.__all__) - set(T.__all__) == {"HardwareModel",
-                                               "ShardedEngine"}
+    assert set(J.__all__) - set(T.__all__) == {"HardwareModel"}
     assert all(hasattr(T, name) for name in T.__all__)

@@ -166,6 +166,36 @@ def test_sorts_on_cpu_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_sharded_engine_and_gloo_helper_with_jax_blocked(tmp_path):
+    """In a fresh interpreter where ``import jax`` and ``import repro``
+    fail, ``repro_torch.core.distributed`` and the multi-rank helper
+    ``repro_torch.dist_check`` import, and one gloo rank runs the helper's
+    shuffle, round and plan cases and its own check against the port's
+    LocalEngine."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        from pathlib import Path
+        import repro_torch.core.distributed
+        from repro_torch import dist_check
+        out = Path({str(tmp_path)!r})
+        dist_check.run_rank(0, 1, out, ["shuffle", "rounds", "plans",
+                                        "collectives", "errors"], None)
+        assert dist_check.check_results(dist_check.load_ranks(out, 1)) > 50
+        assert not [m for m, mod in sys.modules.items() if mod is not None
+                    and (m in ("jax", "repro")
+                         or m.startswith(("jax.", "repro.")))]
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_default_to_the_card():
     from repro_torch.core import LocalEngine, compile_plan, sort_plan
     from repro_torch.core.engine import default_engine

@@ -624,8 +624,15 @@ def test_realign_mailbox_matches_jax():
 
 
 def test_elastic_engine_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        elastic_engine(2)
+    """``elastic_engine`` is ported (tests/test_torch_distributed.py runs
+    it on gloo ranks); without a process group it refuses to build one,
+    and it refuses zero shards."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        elastic_engine(2, device="cpu")
+    with pytest.raises(ValueError, match="n_shards"):
+        elastic_engine(0, device="cpu")
 
 
 def test_recovery_report_defaults():
