@@ -114,6 +114,33 @@ exits non-zero:
               ``bincount``, their plain versions and yardsticks, beside the
               bound, one row per shape, and the two models' timings and
               profiles;
+13b. vlm-* / encdec-* / kimi-* / scout-* — before ssm-timings, the
+              families the JAX package's other model modules hold, bf16
+              compute, ``attn_impl="flash"``, launch counts reset just
+              before and read just after each main path; first
+              (<tag>-flash) the flash kernel against its plain version at
+              the shapes each model's prefill gives it; internvl2-2b at
+              full size (prefill of 8 x (256 patches + 1792 tokens), 32
+              decode steps, a 16-request text drain; 24 launches), and
+              whisper-base (8 x 1500 frames, a 32-token prompt, 32 decode
+              steps; 18 launches: encoder, causal, cross), each bf16 flash
+              and plain-attention prefill against the float32 plain model
+              as TinyLlama's, whisper's float32 prefill against decode
+              within 2e-3; kimi-k2 (1 of 61 layers) and llama4-scout
+              (``moe_depth``: the deepest leaving 15 GB free) at full
+              width: prefill 8 x 2048, 32 decode steps, a drain, layer 0's
+              dropped fraction at prefill and decode, peak memory, the
+              MoE layer in bf16 against a float32 loop over its experts
+              with the same routes (and what the check reads on planted
+              faults, each of which must fail it), the flash against the
+              plain-attention model (routes that differ at 2048 tokens;
+              logits on rows whose routes all agree, one at least, at 4
+              tokens with a capacity that holds every choice), and
+              (<tag>-shuffle) the ``shuffle`` dispatch
+              over a one-rank NCCL expert group against the einsum one;
+              moe-gloo: the dispatch on 2 gloo CPU ranks (host work);
+              families-timings: host-clock timings and a profiled prefill
+              of each;
 14. search  — ``multisearch_plan(65,536 queries, 1,024 pivots, M 64)``
               (its steady rounds shuffle 1060 nodes x 65,536 slots);
 15. prefix-inclusive / prefix-exclusive — the physical
@@ -246,7 +273,8 @@ power line, and ``{"ok": true, "device": {...}}``.  Every row of the
 summary gives ``ms`` (one call per event pair) and ``b2b_ms`` (20 calls
 between one event pair, over the calls, so that the host's gap before a
 call drops out).  The summary's
-``flash_attention`` row also gives its launches by route and the float32
+``flash_attention`` row also gives its launches by route and by serving
+path (one prefill of each model), the float32
 route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
 sort, the batch-* runs, search, prefix, funnel, crcw, bsp, hull2d, hull3d
@@ -300,8 +328,9 @@ DECODE_WINDOW = 5                          # decode steps in a profiled window
 #: prefill, then the edge shapes of tests/test_kernels.py, one query
 #: against a 512-key cache, lengths off the wgmma kernel's tiles (128
 #: queries, 64 keys) at d 64 and 128, every head dim causal and ragged,
-#: d 128 causal at s 2048, and the padded head dims 16 (reduced configs)
-#: and 112 (kimi-k2)
+#: d 128 causal at s 2048, the padded head dims 16 (reduced configs)
+#: and 112 (kimi-k2), and whisper-base's encoder (bidirectional over 1500
+#: frames) and cross-attention (its 32-token prompt against the frames)
 FLASH_MAIN = (LM_B, 32, 4, LM_S, LM_S, 64, True)
 FLASH_EDGE = ((2, 4, 2, 128, 128, 64, True), (1, 2, 2, 200, 200, 32, False),
               (1, 8, 2, 256, 256, 64, True), (1, 2, 1, 100, 100, 48, True),
@@ -309,7 +338,8 @@ FLASH_EDGE = ((2, 4, 2, 128, 128, 64, True), (1, 2, 2, 200, 200, 32, False),
               (1, 4, 2, 300, 300, 128, True), (2, 4, 4, 200, 200, 64, False),
               (1, 2, 2, 77, 333, 128, False), (1, 4, 1, 129, 129, 32, True),
               (1, 4, 4, 65, 65, 48, False), (2, 16, 4, LM_S, LM_S, 128, True),
-              (1, 4, 2, 100, 100, 16, True), (2, 8, 2, 300, 300, 112, True))
+              (1, 4, 2, 100, 100, 16, True), (2, 8, 2, 300, 300, 112, True),
+              (8, 8, 8, 1500, 1500, 64, False), (8, 8, 8, 32, 1500, 64, False))
 #: bitonic_sort row widths that cross the kernel's mechanisms: one block
 #: of 4096 elements holding many rows, the register chunks (16), the lane
 #: and warp bits of a layout, a row per block (4096 to 16384), and the
@@ -617,17 +647,20 @@ def check_drain(eng, n: int) -> dict:
     return st
 
 
-def lm_host_timings(torch, model, prompt, requests, prefill_reps: int = 5):
+def lm_host_timings(torch, model, prompt, requests, prefill_reps: int = 5,
+                    **prefill_kw):
     """Host-clock timings of a served LM: prefill of ``prompt`` (median of
-    ``prefill_reps``), one decode step against LM_S - 1 cached tokens (15
+    ``prefill_reps``; ``prefill_kw`` passed on, the VLM's patch
+    embeddings), one decode step against LM_S - 1 cached positions (15
     reps; each step starts from the same state) and a serve drain (the
     middle of three).  Returns them with the prefill and decode closures."""
     def prefill():
-        return model.prefill(prompt, max_len=LM_S)
+        return model.prefill(prompt, max_len=LM_S, **prefill_kw)
 
     prefill_runs = host_times(prefill, torch, reps=prefill_reps)
     prefill_ms = statistics.median(prefill_runs)
-    _, state = model.prefill(prompt[:, :LM_S - 1], max_len=LM_S)
+    _, state = model.prefill(prompt[:, :-1], max_len=LM_S, **prefill_kw)
+    positions = int(state.pos[0]) + 1
     tok = prompt[:, -1]
 
     def decode():
@@ -643,7 +676,8 @@ def lm_host_timings(torch, model, prompt, requests, prefill_reps: int = 5):
     drain_s, drain_stats = sorted(drains, key=lambda d: d[0])[1]
     timings = {
         "prefill_ms": prefill_ms, "prefill_ms_runs": prefill_runs,
-        "prefill_tokens_per_s": prompt.numel() / (prefill_ms / 1e3),
+        "prefill_tokens_per_s": prompt.shape[0] * positions
+        / (prefill_ms / 1e3),
         "decode_step_ms": statistics.median(decode_runs),
         "decode_step_ms_runs": decode_runs, "decode_batch": prompt.shape[0],
         "serve_drain_s": drain_s,
@@ -1331,6 +1365,737 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
             {k: r[k] for k in ("shape", "ms", "b2b_ms", "plain_ms",
                                "bound_ms", "library_ms")})
     return totals
+
+
+# ---------------------------------------------------------------------------
+# The MoE, VLM and enc-dec serving paths
+# ---------------------------------------------------------------------------
+
+#: the MoE configurations served, (arch, phase tag); each is cut to the
+#: deepest whose params and compute copy leave MOE_HEADROOM bytes of the
+#: card's free memory: kimi-k2 keeps 1 layer (a layer's 384 experts take
+#: 33.8 GB in bf16), llama4-scout a few (13.2 GB a layer in float32 and
+#: bf16)
+MOE_ARCHS = (("kimi-k2-1t-a32b", "kimi"), ("llama4-scout-17b-a16e", "scout"))
+MOE_HEADROOM = 15e9
+VLM_ARCH, ENCDEC_ARCH = "internvl2-2b", "whisper-base"
+ENCDEC_PROMPT, ENCDEC_MAX_LEN = 32, 448
+#: the MoE layer's check: rows of LM_B tokens of this length
+MOE_CHECK_S = 512
+#: the shuffle dispatch's runs, (tokens a row, capacity factor), LM_B rows:
+#: its buffers hold n_ep cap = t k cf items of d a (sender, receiver) pair,
+#: and c_loc = n_ep cap cf / e_loc an expert, so they grow as cf^2 (at
+#: kimi-k2's 8 x 2048 tokens and cf 1.25, about 20 GB); the cf 8.0 run,
+#: where nothing drops, is the shorter
+MOE_SHUFFLE = ((64, 8.0), (512, 1.25))
+#: a short prompt at which the flash and plain-attention MoE models have
+#: rows whose routes all agree, at a capacity that holds every choice (so
+#: that rows do not couple through it): at LM_S, or at 32 tokens and the
+#: published capacity, a flipped route in every row is seen
+MOE_SHORT_S = 4
+#: bf16 against a computation of the same routes and weights in float32
+#: (or in bf16 another way): the error's rms within BF16_TOL of the
+#: reference's rms, and each element within BF16_TOL of itself plus
+#: 6 BF16_TOL of that rms.  bf16's unit roundoff is 2^-9; the bf16 path
+#: rounds gate, up, their product, the expert output, the weighted combine
+#: and the shared expert, each relative to the element or, for the inner
+#: sums, to the output's scale: 2e-2 is about ten roundings, and six
+#: standard deviations the tail of 10^7 to 10^8 elements' errors.  On an
+#: H100 80GB HBM3 (700 W) the MoE layers' sound bf16 output reads rms
+#: 0.43 % and 0.33 %, max 0.060 rms; the nearest planted fault the check
+#: fails (MOE_FAULTS) reads rms 4.6 %, max 0.26 rms (PERF.md §6)
+BF16_TOL = 2e-2
+#: the bf16 flash MoE model against the bf16 plain-attention one, on rows
+#: whose routes all agree: |got - want| <= tol (1 + |want|).  The two
+#: round attention differently; over 22 layers TinyLlama's bf16 flash and
+#: plain logits (unit rms) differ by up to 0.094 on an H100 (phase
+#: lm-prefill); a fault in the path moves logits by their own size
+MOE_MODEL_TOL = 0.1
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE routing inside the block, in call order: the einsum
+    dispatch's ``Routes`` (ids, keep, weights, each (groups, group, k))."""
+    from repro_torch.models import moe
+    calls = []
+    route = moe._route_tokens
+
+    def recording(*args, **kw):
+        calls.append(route(*args, **kw))
+        return calls[-1]
+
+    moe._route_tokens = recording
+    try:
+        yield calls
+    finally:
+        moe._route_tokens = route
+
+
+@contextlib.contextmanager
+def configured(model, **changes):
+    """The model with ``cfg`` fields changed inside the block (the compute
+    copy of its weights kept: the compute dtype must stay)."""
+    import dataclasses
+    cfg = model.cfg
+    check(changes.get("compute_dtype", cfg.compute_dtype) ==
+          cfg.compute_dtype, "configured: the compute dtype must stay")
+    model.cfg = dataclasses.replace(cfg, **changes)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
+def layer_error(got, want) -> dict:
+    err = got.float() - want
+    return {"max_abs_err": err.abs().max().item(),
+            "rms_err": err.pow(2).mean().sqrt().item(),
+            "rms_want": want.pow(2).mean().sqrt().item()}
+
+
+def dropped(keep) -> float:
+    return 1.0 - keep.float().mean().item()
+
+
+def moe_depth(torch, dev, cfg) -> dict:
+    """The deepest cut of ``cfg`` whose params and compute-dtype copy leave
+    MOE_HEADROOM bytes of the card's free memory, with the bytes counted."""
+    def nbytes(name):
+        return torch.finfo(getattr(torch, name)).bits // 8
+    pb = nbytes(cfg.param_dtype)
+    copy = 0 if cfg.param_dtype == cfg.compute_dtype \
+        else nbytes(cfg.compute_dtype)
+    d, hd, e = cfg.d_model, cfg.hd, cfg.n_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    cast = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+            + 3 * d * f * (e + int(cfg.shared_expert)))
+    layer = cast * (pb + copy) + d * e * 4 + 2 * d * pb
+    rest = 2 * cfg.padded_vocab * d * (pb + copy) + d * pb
+    free = torch.cuda.mem_get_info(dev)[0]
+    depth = max(1, min(cfg.n_layers,
+                       int((free - MOE_HEADROOM - rest) // layer)))
+    return {"layers": depth, "of": cfg.n_layers, "layer_bytes": layer,
+            "embed_head_bytes": rest, "free_bytes": free,
+            "headroom_bytes": MOE_HEADROOM}
+
+
+def token_rows(t):
+    """(groups, group, k) -> (tokens, k): the einsum dispatch groups the
+    tokens in their flattened (row, token) order."""
+    return t.reshape(-1, t.shape[-1])
+
+
+def route_agreement(calls_a, calls_b, b: int, s: int) -> dict:
+    """Routes of two runs of the same prompts (B rows of s tokens, the
+    groups whole rows or within one): (token, choice) routes whose expert
+    or keep differ, by layer, and each row's agreement over all layers."""
+    import torch
+    differ, row_ok = [], None
+    for (ia, ka), (ib, kb) in zip(calls_a, calls_b):
+        diff = ((ia != ib) | (ka != kb)).reshape(b, s, -1)
+        differ.append(int(diff.sum()))
+        ok = ~diff.flatten(1).any(1)
+        row_ok = ok if row_ok is None else row_ok & ok
+    return {"routes": int(calls_a[0][0].numel()) * len(calls_a),
+            "differ_by_layer": differ, "rows_agree": row_ok}
+
+
+def plain_in_rows(model, prompt, rows: int, **kw):
+    """Prefill logits of the plain-attention path, ``rows`` prompts at a
+    time (its scores take b h s^2 float32), and the routes of each part,
+    concatenated by layer.  The einsum dispatch groups tokens in the
+    flattened (row, token) order, so parts of whole groups route as the
+    whole batch does."""
+    import torch
+    logits, parts = [], []
+    with configured(model, attn_impl="xla"):
+        for i in range(0, prompt.shape[0], rows):
+            with recorded_routes() as calls:
+                lg, _ = model.prefill(prompt[i:i + rows], **kw)
+            logits.append(lg)
+            parts.append(calls)
+    calls = [tuple(torch.cat([token_rows(getattr(p[l], f)) for p in parts])
+                   for f in ("ids", "keep"))
+             for l in range(len(parts[0]))]
+    return torch.cat(logits), calls
+
+
+def moe_model_check(torch, model, prompt, compare: bool, **changes) -> dict:
+    """The bf16 flash model against the bf16 plain-attention model on the
+    same prompts, both with the config ``changes``: routes that differ,
+    and if ``compare`` the logits on the rows whose routes all agree
+    (within MOE_MODEL_TOL), of which there must be one at least."""
+    b, s = prompt.shape
+    with configured(model, **changes):
+        with recorded_routes() as flash_calls:
+            lf, _ = model.prefill(prompt)
+        flash_calls = [(token_rows(r.ids), token_rows(r.keep))
+                       for r in flash_calls]
+        # at LM_S, 2 rows a part are 8 whole groups of 512 tokens; a short
+        # prompt's batch is one group, run whole
+        lp, plain_calls = plain_in_rows(model, prompt,
+                                        2 if s >= 512 else b)
+    agree = route_agreement(flash_calls, plain_calls, b, s)
+    rows = agree.pop("rows_agree")
+    out = {"rows": b, "tokens": s, **changes, **agree,
+           "rows_agree": int(rows.sum()), "logits_compared": compare}
+    if compare:
+        check(out["rows_agree"] > 0, f"{model.cfg.name}: no row's routes "
+              f"agree between the flash and plain models: {out}")
+        vocab = model.cfg.vocab_size              # the padded tail: -1e30
+        got, want = lf[rows, :vocab].float(), lp[rows, :vocab].float()
+        out["agreeing_max_abs"] = (got - want).abs().max().item()
+        out["agreeing_rms"] = (got - want).pow(2).mean().sqrt().item()
+        check(rel_close(got, want, MOE_MODEL_TOL),
+              f"{model.cfg.name}: bf16 flash vs plain logits on agreeing "
+              f"rows: {out}")
+    return out
+
+
+def bf16_vs_f32_rule(torch, name: str, vocab: int, flash, plain,
+                     ref) -> dict:
+    """TinyLlama's rule on the logits of the ``vocab`` real tokens (the
+    padded tail holds -1e30 in both dtypes): the bf16 flash and
+    plain-attention outputs may differ by twice the plain one's own error
+    against the float32 plain model (max abs), and the flash one's rms
+    error may exceed the plain one's by 25 %."""
+    flash, plain, ref = (t[..., :vocab] for t in (flash, plain, ref))
+    err_fx = (flash.float() - plain.float()).abs().max().item()
+    err_f = (flash.float() - ref).abs().max().item()
+    err_x = (plain.float() - ref).abs().max().item()
+    rms_f = (flash.float() - ref).pow(2).mean().sqrt().item()
+    rms_x = (plain.float() - ref).pow(2).mean().sqrt().item()
+    check(err_fx <= 2 * err_x and rms_f <= 1.25 * rms_x,
+          f"{name}: bf16 flash vs plain path: max {err_fx} (tolerance "
+          f"{2 * err_x}); rms error vs the f32 model {rms_f}, plain {rms_x}")
+    return {"flash_vs_plain_max": err_fx, "flash_max": err_f,
+            "plain_max": err_x, "flash_rms": rms_f, "plain_rms": rms_x}
+
+
+def main_path(torch, ops, flash_kernel, name: str, run, n_flash: int):
+    """``run()`` with the launch counts reset just before and read just
+    after: its flash_attention launches must be ``n_flash``, all wgmma, and
+    no other kernel may launch.  Returns run()'s result and the counts."""
+    ops.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    routes = dict(flash_kernel.route_launches)
+    check(launches["flash_attention"] == n_flash
+          and routes == {"wgmma": n_flash, "cuda_core": 0},
+          f"{name}: flash_attention launches {launches}, routes {routes}: "
+          f"expected {n_flash}, all wgmma")
+    others = {k: v for k, v in launches.items()
+              if k.split(".")[0] != "flash_attention" and v}
+    check(not others, f"{name}: other kernels launched: {others}")
+    return out, launches, routes
+
+
+def moe_shuffle_phase(torch, dev, model, tag: str) -> dict:
+    """Phase <tag>-shuffle: layer 0's MoE through ``_moe_shuffle`` over a
+    one-rank NCCL expert group (started here, destroyed at the end) against
+    ``_moe_einsum`` on the same bf16 input: at cf 8.0 the outputs (within
+    BF16_TOL, both without drops), at the published cf both dropped
+    fractions; CUDA-event ms of each dispatch."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.models import moe, use_expert_group
+    from repro_torch.testing import scaled_close
+    cfg = model.cfg
+    p = model.compute_params()[1][0]["moe"]
+    allocated = torch.cuda.memory_allocated(dev)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    runs = []
+    try:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+        for s, cf in MOE_SHUFFLE:
+            c = dataclasses.replace(cfg, capacity_factor=cf)
+            x = torch.randn(LM_B, s, cfg.d_model, device=dev,
+                            generator=gen).to(torch.bfloat16)
+            with use_expert_group(dist.group.WORLD):
+                sh = moe._moe_shuffle(p, c, x)
+                shuffle_ms = event_ms(lambda: moe._moe_shuffle(p, c, x),
+                                      torch, reps=3)
+            ein = moe._moe_einsum(p, c, x)
+            einsum_ms = event_ms(lambda: moe._moe_einsum(p, c, x), torch,
+                                 reps=3)
+            run = {"tokens": [LM_B, s], "capacity_factor": cf,
+                   "dropped_shuffle": sh.dropped_frac.item(),
+                   "dropped_einsum": ein.dropped_frac.item(),
+                   "shuffle_ms": shuffle_ms, "einsum_ms": einsum_ms,
+                   "max_abs_diff": (sh.y.float() - ein.y.float()).abs()
+                   .max().item()}
+            if cf == 8.0:
+                check(run["dropped_shuffle"] == run["dropped_einsum"] == 0
+                      and scaled_close(sh.y, ein.y, BF16_TOL),
+                      f"{tag}-shuffle: shuffle vs einsum dispatch {run}")
+            runs.append(run)
+            del x, sh, ein
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase=f"{tag}-shuffle", arch=cfg.name, world_size=1, runs=runs,
+         allocated_before_bytes=allocated,
+         tolerance=f"rms(shuffle - einsum) <= {BF16_TOL} rms(einsum), "
+                   f"|shuffle - einsum| <= {BF16_TOL} |einsum| + "
+                   f"{6 * BF16_TOL} rms(einsum) at cf 8.0, where neither "
+                   "drops; ms: CUDA-event medians of 3")
+    return {"runs": runs}
+
+
+def family_flash_check(torch, dev, tag: str, arch: str, shapes) -> dict:
+    """Phase <tag>-flash: flash_attention against its plain version
+    (flash_check) at the shapes a model's prefill gives it, the cache
+    emptied after.  Returns the rows and their largest error."""
+    checked = [row for i, shape in enumerate(shapes)
+               for row in flash_check(torch, dev, shape, 300 + i)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"checked": checked, "max_abs_err": max(row[-1] for row in checked)}
+    emit(phase=f"{tag}-flash", arch=arch, **out,
+         columns="b hq hkv s_q s_k d causal dtype max_abs_err")
+    return out
+
+
+def moe_serve_phase(torch, dev, arch: str, tag: str) -> dict:
+    """Phases <tag>-flash, <tag>-serve, <tag>-prefill, <tag>-shuffle: the
+    flash kernel against its plain version at the model's prefill shape;
+    an MoE LM at full
+    width, cut in depth by moe_depth (bf16 compute, ``attn_impl="flash"``,
+    einsum dispatch): prefill of 8 x 2048 tokens, 32 greedy decode steps,
+    a 16-request drain, launch counts reset just before and read just
+    after, layer 0's dropped fraction at prefill and at each decode step,
+    peak memory; the MoE layer in bf16 against a float32 loop over its
+    experts with the same routes, and what that check reads on planted
+    faults; the flash model against the plain-attention model (routes that
+    differ at LM_S; logits on agreeing rows of a short prompt);
+    host-clock timings and a profiled prefill; then the shuffle dispatch.
+    Returns the launches and timings."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, moe
+    from repro_torch.testing import MOE_FAULTS, moe_layer_f32, scaled_close
+
+    t_phase = time.perf_counter()
+    full = get_config(arch, attn_impl="flash")
+    # the kernel at the shape prefill gives it, before the model takes the
+    # card (the plain version's float32 scores take up to 3 x 8.6 GB)
+    flash = family_flash_check(torch, dev, tag, arch, [
+        (LM_B, full.n_heads, full.n_kv_heads, LM_S, LM_S, full.hd, True)])
+    cut = moe_depth(torch, dev, full)
+    L = cut["layers"]
+    cfg = dataclasses.replace(full, n_layers=L)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = np.random.default_rng(0)
+    prompt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (LM_B, LM_S))
+                              .astype(np.int32)).to(dev)
+    requests = serve_requests(gen, cfg.vocab_size)
+
+    # -- the main path: counts reset just before, read just after ----------
+    def run():
+        with recorded_routes() as calls:
+            logits, state = model.prefill(prompt, max_len=LM_S + LM_DECODE)
+            torch.cuda.synchronize()
+            per_prefill = ops.launches()["flash_attention"]
+            tokens = [logits.argmax(-1)]
+            for _ in range(LM_DECODE):
+                logits, state = model.decode_step(tokens[-1], state)
+                tokens.append(logits.argmax(-1))
+            main = [r.keep for r in calls]
+            return per_prefill, tokens, logits, state, main, serve_drain(
+                model, requests)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (per_prefill, tokens, logits, state, keeps, eng), launches, routes = \
+        main_path(torch, ops, flash_kernel, arch, run, L)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(per_prefill == L, f"{arch}: {per_prefill} flash launches per "
+          f"prefill, expected {L}")
+    check(len(keeps) == L * (1 + LM_DECODE),
+          f"{arch}: {len(keeps)} MoE routings")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch}: decode logits not finite")
+    check(state.pos.tolist() == [LM_S + LM_DECODE] * LM_B,
+          f"{arch}: decode pos {state.pos.tolist()}")
+    drop_prefill = dropped(keeps[0])
+    drop_decode = [dropped(keeps[L * (1 + i)]) for i in range(LM_DECODE)]
+    st = check_drain(eng, len(requests))
+    emit(phase=f"{tag}-serve", arch=arch, stats=st,
+         cost=dataclasses.asdict(eng.cost), admitted=eng.admitted,
+         finished=[r.uid for r in eng.finished][:8])
+    del state, eng, keeps
+
+    # -- the MoE layer at full width: bf16 against a float32 expert loop ---
+    p0 = model.compute_params()[1][0]["moe"]
+    gx = torch.Generator(device=dev)
+    gx.manual_seed(11)
+    x = torch.randn(LM_B, MOE_CHECK_S, cfg.d_model, device=dev,
+                    generator=gx).to(torch.bfloat16)
+    with recorded_routes() as seen:
+        y = moe._moe_einsum(p0, cfg, x).y
+    r = seen[0]
+    want = moe_layer_f32(p0, cfg, x, r)
+    layer_check = {"tokens": [LM_B, MOE_CHECK_S],
+                   "dropped": dropped(r.keep), **layer_error(y, want)}
+    check(torch.isfinite(y.float()).all() and scaled_close(y, want,
+                                                           BF16_TOL),
+          f"{arch}: bf16 MoE layer vs the float32 expert loop "
+          f"{layer_check}")
+    # what the same check reads on a layer with a planted fault, rounded
+    # to bf16 as the path's output is.  A lost expert or choice must fail
+    # it, and so must weights left out where top_k > 1 (at 1 the
+    # renormalised weight is 1).  The shared expert's loss is recorded
+    # only: the reference draws the routed experts' weights with the
+    # expert count as fan-in, so at random init the shared expert carries
+    # a few per cent of the output or less
+    planted = {}
+    for fault in MOE_FAULTS:
+        bad = moe_layer_f32(p0, cfg, x, r, fault=fault).to(torch.bfloat16)
+        planted[fault] = {**layer_error(bad, want),
+                          "passes": scaled_close(bad, want, BF16_TOL)}
+        del bad
+    layer_check["planted_faults"] = planted
+    caught = ("last_choice", "expert0") + (("unweighted",)
+                                           if cfg.top_k > 1 else ())
+    check(not any(planted[f]["passes"] for f in caught),
+          f"{arch}: the MoE layer check passes a planted fault: {planted}")
+    del x, y, want, seen, r
+
+    # -- the flash model against the plain-attention model -----------------
+    # at LM_S routes flip in every row, so the logits are compared on the
+    # short prompt, where rows agree
+    model_check = [moe_model_check(torch, model, prompt, compare=False),
+                   moe_model_check(torch, model, prompt[:, :MOE_SHORT_S],
+                                   compare=True,
+                                   capacity_factor=cfg.n_experts
+                                   / cfg.top_k)]
+    emit(phase=f"{tag}-prefill", arch=arch, batch=LM_B, seq=LM_S,
+         decode_steps=LM_DECODE, cut=cut, build_s=build_s,
+         launches_per_prefill=per_prefill,
+         main_path_launches=launches,
+         greedy_tokens_slot0=[int(t[0]) for t in tokens[:8]],
+         layer0_dropped_prefill=drop_prefill,
+         layer0_dropped_decode=drop_decode,
+         layer0_dropped_decode_mean=sum(drop_decode) / len(drop_decode),
+         flash_max_abs_err=flash["max_abs_err"],
+         moe_layer_vs_f32=layer_check, flash_vs_plain=model_check,
+         tolerances={"moe_layer": f"rms(bf16 - f32) <= {BF16_TOL} "
+                                  f"rms(f32), |bf16 - f32| <= {BF16_TOL} "
+                                  f"|f32| + {6 * BF16_TOL} rms(f32); same "
+                                  "routes",
+                     "model": f"|flash - plain| <= {MOE_MODEL_TOL} (1 + "
+                              "|plain|) on rows whose routes all agree, at "
+                              "least one (the short prompt); the full "
+                              "prompt's routes are reported"},
+         peak_mem_bytes=peak)
+
+    # -- timings: host clock, then a profiled prefill -----------------------
+    timings, prefill, _ = lm_host_timings(torch, model, prompt, requests,
+                                          prefill_reps=3)
+    prof = profiled(prefill, torch, named={"flash_attention":
+                                           "flash_wgmma_kernel"})
+    prof["busy_share"] = prof["device_ms"] / timings["prefill_ms"]
+    shuffle = moe_shuffle_phase(torch, dev, model, tag)
+    del model
+    return {"tag": tag, "launches": launches, "routes": routes,
+            "per_prefill": L, "seconds": time.perf_counter() - t_phase,
+            "flash": flash,
+            "timings": {"arch": arch, "layers": L, **timings,
+                        "peak_mem_bytes": peak,
+                        "layer0_dropped_prefill": drop_prefill,
+                        "layer0_dropped_decode_mean":
+                            sum(drop_decode) / len(drop_decode),
+                        "profiled_prefill": prof},
+            "shuffle": shuffle}
+
+
+def vlm_phase(torch, dev) -> dict:
+    """Phases vlm-flash, vlm-serve and vlm-prefill: the flash kernel
+    against its plain version at the prefill's shape; internvl2-2b at full
+    width and depth (bf16 compute, ``attn_impl="flash"``): prefill of 8 x (256
+    patches + 1792 tokens), 32 greedy decode steps and a 16-request text
+    drain, launch counts reset just before and read just after; the bf16
+    flash and plain-attention prefills each against the float32 plain
+    model; host-clock timings and a profiled prefill."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecoderLM, build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_ARCH, attn_impl="flash")
+    # the prefill runs over the patches and the text, LM_S positions
+    flash = family_flash_check(torch, dev, "vlm", VLM_ARCH, [
+        (LM_B, cfg.n_heads, cfg.n_kv_heads, LM_S, LM_S, cfg.hd, True)])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = np.random.default_rng(0)
+    s_text = LM_S - cfg.n_patches
+    prompt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (LM_B, s_text))
+                              .astype(np.int32)).to(dev)
+    gp = torch.Generator(device=dev)
+    gp.manual_seed(17)
+    patches = torch.randn(LM_B, cfg.n_patches, cfg.d_model, device=dev,
+                          generator=gp)
+    requests = serve_requests(gen, cfg.vocab_size)
+    L = cfg.n_layers
+
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def run():
+        logits, state = model.prefill(prompt, max_len=LM_S + LM_DECODE,
+                                      patch_embeds=patches)
+        torch.cuda.synchronize()
+        per_prefill = ops.launches()["flash_attention"]
+        tokens = [logits.argmax(-1)]
+        for _ in range(LM_DECODE):
+            logits, state = model.decode_step(tokens[-1], state)
+            tokens.append(logits.argmax(-1))
+        return per_prefill, tokens, logits, state, serve_drain(model,
+                                                               requests)
+
+    (per_prefill, tokens, logits, state, eng), launches, routes = \
+        main_path(torch, ops, flash_kernel, VLM_ARCH, run, L)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(per_prefill == L, f"{VLM_ARCH}: {per_prefill} flash launches "
+          f"per prefill, expected {L}")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{VLM_ARCH}: decode logits not finite")
+    check(state.pos.tolist() == [LM_S + LM_DECODE] * LM_B,
+          f"{VLM_ARCH}: decode pos {state.pos.tolist()}")
+    st = check_drain(eng, len(requests))
+    emit(phase="vlm-serve", arch=VLM_ARCH, stats=st,
+         cost=dataclasses.asdict(eng.cost), admitted=eng.admitted,
+         finished=[r.uid for r in eng.finished][:8])
+    del state, eng
+
+    lf, _ = model.prefill(prompt, max_len=LM_S, patch_embeds=patches)
+    with configured(model, attn_impl="xla"):
+        lx, _ = model.prefill(prompt, max_len=LM_S, patch_embeds=patches)
+    m_ref = DecoderLM(dataclasses.replace(cfg, attn_impl="xla",
+                                          compute_dtype="float32"),
+                      model.param_tree())
+    lr, _ = m_ref.prefill(prompt, max_len=LM_S, patch_embeds=patches)
+    del m_ref
+    rule = bf16_vs_f32_rule(torch, VLM_ARCH, cfg.vocab_size, lf, lx, lr)
+    del lf, lx, lr
+    emit(phase="vlm-prefill", arch=VLM_ARCH, batch=LM_B,
+         patches=cfg.n_patches, text=s_text, decode_steps=LM_DECODE,
+         build_s=build_s, launches_per_prefill=per_prefill,
+         main_path_launches=launches,
+         greedy_tokens_slot0=[int(t[0]) for t in tokens[:8]],
+         flash_max_abs_err=flash["max_abs_err"],
+         bf16_vs_f32_model=rule, peak_mem_bytes=peak)
+    timings, prefill, _ = lm_host_timings(torch, model, prompt, requests,
+                                          prefill_reps=3,
+                                          patch_embeds=patches)
+    prof = profiled(prefill, torch, named={"flash_attention":
+                                           "flash_wgmma_kernel"})
+    prof["busy_share"] = prof["device_ms"] / timings["prefill_ms"]
+    del model
+    return {"tag": "vlm", "launches": launches, "routes": routes,
+            "per_prefill": L, "seconds": time.perf_counter() - t_phase,
+            "flash": flash,
+            "timings": {"arch": VLM_ARCH, **timings, "peak_mem_bytes": peak,
+                        "profiled_prefill": prof}}
+
+
+def encdec_phase(torch, dev) -> dict:
+    """Phases encdec-flash, encdec-serve and encdec-prefill: the flash
+    kernel against its plain version at the decoder's self-attention shape
+    (the encoder's and the cross-attention's are in FLASH_EDGE);
+    whisper-base at full width and depth (bf16 compute, ``attn_impl="flash"``): 8 x 1500 frames, a
+    32-token prompt (max_len 448), 32 greedy decode steps, launch counts
+    reset just before and read just after (the flash kernel in the
+    encoder, the decoder's self-attention and its cross-attention, none in
+    decode); the bf16 flash and plain-attention prefills each against the
+    float32 plain model; float32 prefill against token-by-token decode
+    from the prefill's cross K/V within 2e-3; encode, prefill and
+    decode-step ms and the generation's tokens/s on the host clock."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.models import EncDecLM, build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH, attn_impl="flash")
+    flash = family_flash_check(torch, dev, "encdec", ENCDEC_ARCH, [
+        (LM_B, cfg.n_heads, cfg.n_kv_heads, ENCDEC_PROMPT, ENCDEC_PROMPT,
+         cfg.hd, True)])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = np.random.default_rng(0)
+    prompt = torch.from_numpy(gen.integers(0, cfg.vocab_size,
+                                           (LM_B, ENCDEC_PROMPT))
+                              .astype(np.int32)).to(dev)
+    gf = torch.Generator(device=dev)
+    gf.manual_seed(19)
+    frames = torch.randn(LM_B, cfg.n_frames, cfg.d_model, device=dev,
+                         generator=gf)
+    n_flash = cfg.enc_layers + 2 * cfg.n_layers
+
+    def generate():
+        logits, state = model.prefill(prompt, frames, ENCDEC_MAX_LEN)
+        tokens = [logits.argmax(-1)]
+        for _ in range(LM_DECODE):
+            logits, state = model.decode_step(tokens[-1], state)
+            tokens.append(logits.argmax(-1))
+        return tokens, logits, state
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (tokens, logits, state), launches, routes = main_path(
+        torch, ops, flash_kernel, ENCDEC_ARCH, generate, n_flash)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{ENCDEC_ARCH}: decode logits not finite")
+    check(state.pos.tolist() == [ENCDEC_PROMPT + LM_DECODE] * LM_B
+          and state.cross_k.shape[2] == cfg.n_frames,
+          f"{ENCDEC_ARCH}: decode pos {state.pos.tolist()}")
+    emit(phase="encdec-serve", arch=ENCDEC_ARCH, frames=cfg.n_frames,
+         prompt=ENCDEC_PROMPT, max_len=ENCDEC_MAX_LEN,
+         decode_steps=LM_DECODE, main_path_launches=launches,
+         greedy_tokens_slot0=[int(t[0]) for t in tokens[:8]])
+    del state
+
+    lf, _ = model.prefill(prompt, frames, ENCDEC_MAX_LEN)
+    with configured(model, attn_impl="xla"):
+        lx, _ = model.prefill(prompt, frames, ENCDEC_MAX_LEN)
+    c32 = dataclasses.replace(cfg, attn_impl="xla", compute_dtype="float32")
+    m32 = EncDecLM(c32, model.param_tree())
+    lr, sp = m32.prefill(prompt, frames, ENCDEC_MAX_LEN)
+    rule = bf16_vs_f32_rule(torch, ENCDEC_ARCH, cfg.vocab_size, lf, lx,
+                            lr)
+    sd = m32.init_decode_state(LM_B, ENCDEC_MAX_LEN)._replace(
+        cross_k=sp.cross_k, cross_v=sp.cross_v)
+    for i in range(ENCDEC_PROMPT):
+        ld, sd = m32.decode_step(prompt[:, i], sd)
+    f32_err = {"logits": (lr - ld).abs().max().item(),
+               "self_k": (sp.self_k - sd.self_k).abs().max().item()}
+    check(rel_close(ld, lr, 2e-3) and rel_close(sd.self_k, sp.self_k, 2e-3),
+          f"{ENCDEC_ARCH}: f32 prefill vs decode {f32_err}")
+    del m32, sp, sd, lf, lx, lr
+    emit(phase="encdec-prefill", arch=ENCDEC_ARCH, batch=LM_B,
+         build_s=build_s, launches_per_prefill=launches["flash_attention"],
+         flash_max_abs_err=flash["max_abs_err"],
+         bf16_vs_f32_model=rule, f32_prefill_vs_decode_max_abs=f32_err,
+         peak_mem_bytes=peak)
+
+    # -- timings: encode, prefill (encode included), a decode step, and the
+    # generation (prefill + 32 steps) as served tokens/s
+    encode_runs = host_times(lambda: model.encode(frames), torch)
+    prefill_runs = host_times(
+        lambda: model.prefill(prompt, frames, ENCDEC_MAX_LEN), torch)
+    _, state = model.prefill(prompt, frames, ENCDEC_MAX_LEN)
+    tok = prompt[:, -1]
+    decode_runs = host_times(lambda: model.decode_step(tok, state), torch,
+                             reps=15)
+    gen_runs = host_times(generate, torch, reps=3)
+    gen_s = statistics.median(gen_runs) / 1e3
+    prof = profiled(lambda: model.prefill(prompt, frames, ENCDEC_MAX_LEN),
+                    torch, named={"flash_attention": "flash_wgmma_kernel"})
+    timings = {"arch": ENCDEC_ARCH,
+               "encode_ms": statistics.median(encode_runs),
+               "encode_ms_runs": encode_runs,
+               "prefill_ms": statistics.median(prefill_runs),
+               "prefill_ms_runs": prefill_runs,
+               "decode_step_ms": statistics.median(decode_runs),
+               "decode_step_ms_runs": decode_runs, "decode_batch": LM_B,
+               "generate_s": gen_s,
+               "serve_tokens_per_s": LM_B * LM_DECODE / gen_s,
+               "serve_note": f"prefill + {LM_DECODE} greedy steps of {LM_B} "
+                             "requests "
+                             "(EncDecLM.prefill, decode_step), median of 3",
+               "peak_mem_bytes": peak, "profiled_prefill": prof}
+    prof["busy_share"] = prof["device_ms"] / timings["prefill_ms"]
+    del model, state
+    return {"tag": "encdec", "launches": launches, "routes": routes,
+            "per_prefill": n_flash, "seconds": time.perf_counter() - t_phase,
+            "flash": flash,
+            "timings": timings}
+
+
+def moe_gloo_phase() -> dict:
+    """Phase moe-gloo, host work: ``python -m repro_torch.dist_check --cases
+    moe --check`` at 2 gloo CPU ranks (phase sharded-gloo runs the case at
+    SHARDED_GLOO_WORLD among the others), the reduced kimi-k2 layer of
+    ``dist_check.moe_inputs`` in float32: every rank's aux and dropped
+    fraction equal (``--check``), and each rank's shuffle output equal to
+    rank 0's einsum output within 2e-4 where nothing drops (cf 8.0)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import dist_check
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_gloo_"))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.dist_check", "--world", "2",
+             "--out", str(tmp), "--cases", "moe", "--check", "--timeout",
+             "120"], capture_output=True, text=True, timeout=180,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        check(proc.returncode == 0,
+              f"moe-gloo: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        ranks = dist_check.load_ranks(tmp, 2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = ranks[0]["moe-8.0/einsum/0"]
+    err = [float(np.abs(r["moe-8.0/per-rank/0"] - want).max())
+           for r in ranks]
+    check(all(np.allclose(r["moe-8.0/per-rank/0"], want, rtol=2e-4,
+                          atol=2e-4) for r in ranks),
+          f"moe-gloo: shuffle vs einsum at cf 8.0, max abs {err}")
+    rec.update(shuffle_vs_einsum_max_abs=err,
+               dropped={str(cf): float(ranks[0][f"moe-{cf}/shuffle/1"])
+                        for cf in dist_check.MOE_CFS})
+    emit(phase="moe-gloo", kind="host work (CPU ranks, gloo)", **rec)
+    return rec
+
+
+def family_phases(torch, dev) -> list:
+    """The VLM, enc-dec and MoE phases, each model freed before the next;
+    then phase families-timings.  Returns each path's result."""
+    paths = []
+    for phase, args in ([(vlm_phase, ()), (encdec_phase, ())]
+                        + [(moe_serve_phase, a) for a in MOE_ARCHS]):
+        paths.append(phase(torch, dev, *args))
+        gc.collect()
+        torch.cuda.empty_cache()
+    moe_gloo_phase()
+    emit(phase="families-timings",
+         seconds={p["tag"]: p["seconds"] for p in paths},
+         models=[p["timings"] for p in paths],
+         note="host-clock medians ending in a synchronize (prefill of 3, "
+              "decode step of 15, the middle of 3 drains); one profiled "
+              "prefill each; busy_share = device ms over the unprofiled "
+              "median wall ms")
+    return paths
 
 
 def same_accum(torch, a, b, ctx: str) -> None:
@@ -3468,6 +4233,8 @@ def main() -> int:
         lms.append(ssm_lm_phase(torch, dev, mem_rate, arch, tag))
         gc.collect()                 # free each model before the next one
         torch.cuda.empty_cache()
+    # -- 13b. the MoE, VLM and enc-dec serving paths ------------------------
+    families = family_phases(torch, dev)
     totals = ssm_timings_phase(torch, dev, mem_rate,
                                [r["timings"] for r in lms])
     # flash_attention: the sums over one call at each main-path shape
@@ -3482,9 +4249,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
         "launches": (tinyllama["launches"]
-                     + sum(r["launches"]["flash_attention"] for r in lms)),
+                     + sum(r["launches"]["flash_attention"]
+                           for r in lms + families)),
         "max_abs_err": max([tinyllama["max_abs_err"]]
-                           + [r["flash"]["max_abs_err"] for r in lms
+                           + [r["flash"]["max_abs_err"] for r in lms + families
                               if r["flash"]]),
         "ms": sum(t["flash_ms"] for t in parts),
         "b2b_ms": sum(t["flash_b2b_ms"] for t in parts),
@@ -3496,8 +4264,16 @@ def main() -> int:
         # the float32 route's time at the same shapes beside its bound at
         # the CUDA-core rate
         "launches_by_route": {
-            r: tinyllama["routes"][r] + sum(x["routes"][r] for x in lms)
+            r: tinyllama["routes"][r] + sum(x["routes"][r]
+                                            for x in lms + families)
             for r in ("wgmma", "cuda_core")},
+        # each serving path's main run: one prefill (none in decode)
+        "launches_by_path": {
+            LM_ARCH: tinyllama["launches"],
+            **{arch: r["launches"]["flash_attention"]
+               for (arch, _), r in zip(SSM_ARCHS, lms)},
+            **{p["timings"]["arch"]: p["launches"]["flash_attention"]
+               for p in families}},
         "f32_ms": sum(t["flash_f32_ms"] for t in parts),
         "f32_library_ms": sum(t["sdpa_f32_ms"] for t in parts),
         "f32_bound_ms": max(bytes_ms * 2, sum(t["flops_ms_f32"]

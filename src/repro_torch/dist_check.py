@@ -13,7 +13,10 @@ variant ``local``.  The launcher exits 0 when every rank did and 1 with the
 ranks' errors otherwise; a rank that fails ends the others at once, and
 ``--timeout`` bounds the whole run.  With ``--check`` it then holds every
 rank's entries equal to rank 0's and every sharded variant equal, bit for
-bit, to ``local``.  It prints one JSON line.
+bit, to ``local``.  It prints one JSON line.  Case ``moe`` runs the MoE
+layer's ``shuffle`` dispatch with the experts sharded over the ranks
+(variant ``shuffle``) and, on rank 0, the ``einsum`` dispatch (variant
+``einsum``), at each of ``MOE_CFS``.
 
 Nothing here imports JAX.  The plan families are written once for either
 package's ``core`` module (``m``) and array module (``xp``), so the tests
@@ -47,7 +50,7 @@ from .core.recovery import (Checkpointer, FaultConfig, ShardFailure,
 from .obs import Tracer
 
 CASES = ("shuffle", "rounds", "plans", "collectives", "elastic", "tracer",
-         "errors")
+         "errors", "moe")
 #: the plan families run on the kernel scatter as well
 KERNEL_FAMILIES = ("sort", "hull2d")
 SEED = 5
@@ -410,6 +413,52 @@ def case_tracer(res: Results, rank: int, keys) -> None:
             res.meta("tracer", variant, hops=kinds.count("pipeline.hop"),
                      overlaps=kinds.count("pipeline.overlap"),
                      pipeline=sum(k.startswith("pipeline.") for k in kinds))
+
+
+#: the MoE scenario: reduced kimi-k2 without its shared expert, so that
+#: the outputs are the dispatch's alone, at a capacity factor that drops
+#: choices and one that drops none
+MOE_ARCH = "kimi-k2-1t-a32b"
+MOE_OVERRIDES = dict(shared_expert=False, moe_dispatch="shuffle")
+MOE_CFS = (1.0, 8.0)
+
+
+def moe_inputs(d: int = 64, f: int = 96, e: int = 8, shape=(4, 16)):
+    """One MoE layer's params (numpy, float32, the names and scales of
+    ``init_moe`` at reduced kimi-k2's widths) and its input x."""
+    rng = np.random.default_rng(300)
+    params = {"router": rng.normal(size=(d, e)) * 0.02,
+              "w_gate": rng.normal(size=(e, d, f)) / np.sqrt(e),
+              "w_up": rng.normal(size=(e, d, f)) / np.sqrt(e),
+              "w_down": rng.normal(size=(e, f, d)) / np.sqrt(e)}
+    x = rng.normal(size=shape + (d,)) * 0.3
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            x.astype(np.float32))
+
+
+def case_moe(res: Results, rank: int, keys) -> None:
+    """``_moe_shuffle`` with the experts sharded over the group, every rank
+    on the same tokens (the JAX package's (1, k) mesh); rank 0 also runs
+    ``_moe_einsum`` (variant ``einsum``: y, aux, dropped_frac).  Variant
+    ``shuffle`` holds (aux, dropped_frac), which every rank shares, and
+    ``per-rank`` the rank's y: where choices drop, each receiver admits
+    its senders' copies of a token in rank order, so the ranks' outputs
+    differ, as the shards' do in the JAX package."""
+    from .configs import get_config
+    from .interop import tree_from_numpy
+    from .models import moe
+    from .models.sharding import use_expert_group
+    params, x = moe_inputs()
+    p, xt = tree_from_numpy(params), torch.from_numpy(x)
+    for cf in MOE_CFS:
+        cfg = get_config(MOE_ARCH, reduced=True, capacity_factor=cf,
+                         **MOE_OVERRIDES)
+        with use_expert_group(dist.group.WORLD):
+            out = moe._moe_shuffle(p, cfg, xt)
+        res.put(f"moe-{cf}", "shuffle", (out.aux_loss, out.dropped_frac))
+        res.put(f"moe-{cf}", "per-rank", out.y)
+        if rank == 0:
+            res.put(f"moe-{cf}", "einsum", moe._moe_einsum(p, cfg, xt))
 
 
 def case_errors(res: Results, rank: int, keys) -> None:

@@ -6,10 +6,14 @@ here imports JAX.  A ``Mailbox`` or ``CostAccum`` of the JAX package, read
 into numpy, becomes this port's with :func:`mailbox_from_numpy` and
 :func:`accum_from_numpy`, and goes back with :func:`to_numpy`.  An LM's
 params nest (``model.init`` of the JAX package, read into numpy) becomes
-the port's model of the config's family (:class:`~repro_torch.models.DecoderLM`,
-:class:`~repro_torch.models.HybridLM` or :class:`~repro_torch.models.RWKVLM`)
+the port's model of the config's family (:class:`~repro_torch.models.DecoderLM`
+for the dense, MoE and VLM families, :class:`~repro_torch.models.HybridLM`,
+:class:`~repro_torch.models.RWKVLM` or :class:`~repro_torch.models.EncDecLM`)
 with :func:`lm_params_from_numpy` and goes back with
-:func:`lm_params_to_numpy`.  An optimizer state (``AdamWState`` or
+:func:`lm_params_to_numpy`: the MoE layers' ``moe`` subtree (``router``,
+``w_gate``, ``w_up``, ``w_down``, the optional ``shared``), the VLM's
+``vision_proj`` and the encoder-decoder's ``enc`` / ``dec`` lists of layer
+nests with their ``xattn`` and ``xattn_norm`` included.  An optimizer state (``AdamWState`` or
 ``AdafactorState`` of either package) goes over with
 :func:`opt_state_from_numpy` and back with :func:`opt_state_to_numpy`.
 """

@@ -3,8 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --reduced --requests 16 --max-batch 4 --device cpu
 
-``--arch`` takes any config of a ported family: the dense ones,
-``zamba2-1.2b`` (hybrid) and ``rwkv6-1.6b`` (RWKV6).
+``--arch`` takes every decoder-only config: the dense ones, the MoE ones
+(``kimi-k2-1t-a32b``, ``llama4-scout-17b-a16e``), the VLM's text
+(``internvl2-2b``), ``zamba2-1.2b`` (hybrid) and ``rwkv6-1.6b`` (RWKV6).
+``whisper-base`` (enc-dec) exits with a message, as the JAX launcher does:
+its serving needs the frames feed (``EncDecLM.prefill`` then
+``decode_step``).
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU;
 params are drawn from a generator seeded with ``--seed``.  Prints the
@@ -34,6 +38,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.family == "encdec":
+        raise SystemExit("enc-dec serving needs the frames feed; use the "
+                         "decoder-only archs for this launcher")
     model = build_model(cfg, device=args.device, seed=args.seed)
     eng = ServeEngine(model, ServeConfig(max_batch=args.max_batch,
                                          max_len=args.max_len))

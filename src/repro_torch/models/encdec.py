@@ -1,0 +1,227 @@
+"""Whisper-style encoder-decoder LM (the audio frontend is a stub).
+
+The port of ``repro.models.encdec``.  As there, the conv frontend is not
+modelled: the encoder takes precomputed frame embeddings (B, n_frames,
+d_model).  The encoder is bidirectional self-attention; the decoder is
+causal self-attention, cross-attention and GELU MLPs, with LayerNorm and
+biases and sinusoidal positions instead of rope, the whisper flavour.
+
+Params (the JAX package's names): ``embed``, ``enc_norm``, ``dec_norm``,
+``lm_head``, and the lists ``enc`` (``attn_norm``, ``attn``, ``mlp_norm``,
+``mlp`` a layer) and ``dec`` (the same with ``xattn_norm`` and ``xattn``),
+one nest a layer.  Decode state :class:`EncDecState`: the decoder's
+self-attention K/V caches and the cross-attention K/V, computed once at
+prefill from the encoder output.
+
+Attention goes through the flash kernel under ``attn_impl="flash"``
+wherever more than one query attends: the encoder (unmasked), the
+decoder's prefill (causal) and its cross-attention at prefill (the prompt
+against every frame, s_q != s_k).
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
+                     apply_mlp, apply_norm, attention_decode,
+                     attention_prefill, cdtype, cross_attention,
+                     init_attention, init_cross_kv, init_embed, init_lm_head,
+                     init_mlp, init_norm)
+from .transformer import _LM
+
+LN = "layernorm"
+
+
+def _sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d) float32 sinusoidal embeddings of the positions ``pos``:
+    sin then cos of pos / 10000^(2 i / d), i < d / 2."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    angle = pos.float()[..., None] / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _sinusoid(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) float32: the embeddings of positions 0..length-1."""
+    return _sinusoid_at(torch.arange(length, device=device), d)
+
+
+class EncDecState(NamedTuple):
+    self_k: torch.Tensor      # (L, B, T, kvh, hd) compute dtype
+    self_v: torch.Tensor
+    cross_k: torch.Tensor     # (L, B, F, kvh, hd) compute dtype
+    cross_v: torch.Tensor
+    pos: torch.Tensor         # (B,) int32
+
+
+def _ln(p, cfg, x):
+    return apply_norm(p, cfg, x, kind=LN)
+
+
+def _enc_block(lp, cfg, positions, h):
+    h = h + apply_attention(lp["attn"], cfg, _ln(lp["attn_norm"], cfg, h),
+                            positions, causal=False)
+    return h + apply_mlp(lp["mlp"], cfg, _ln(lp["mlp_norm"], cfg, h))
+
+
+def _dec_tail(lp, cfg, x, kx, vx):
+    """The decoder block after its self-attention: cross-attention over
+    (kx, vx), then the MLP."""
+    x = x + cross_attention(lp["xattn"], cfg, _ln(lp["xattn_norm"], cfg, x),
+                            kx, vx)
+    return x + apply_mlp(lp["mlp"], cfg, _ln(lp["mlp_norm"], cfg, x))
+
+
+class EncDecLM(_LM):
+    """The whisper-style encoder-decoder over a params nest (see the module
+    docstring)."""
+
+    FAMILIES = ("encdec",)
+    CAST = frozenset({"embed", "lm_head", "enc.attn", "enc.mlp", "dec.attn",
+                      "dec.xattn", "dec.mlp"})
+    STACKED = False
+
+    @staticmethod
+    def param_names(cfg):
+        return {"embed", "enc_norm", "dec_norm", "lm_head", "enc", "dec"}
+
+    @staticmethod
+    def init(cfg: ArchConfig, gen: torch.Generator) -> Params:
+        """The params nest of the JAX ``build_encdec(cfg).init``, drawn from
+        ``gen`` with the same distributions: LayerNorm, GELU MLPs with
+        biases."""
+        enc = [{"attn_norm": init_norm(gen, cfg, kind=LN),
+                "attn": init_attention(gen, cfg),
+                "mlp_norm": init_norm(gen, cfg, kind=LN),
+                "mlp": init_mlp(gen, cfg, bias=True)}
+               for _ in range(cfg.enc_layers)]
+        dec = [{"attn_norm": init_norm(gen, cfg, kind=LN),
+                "attn": init_attention(gen, cfg),
+                "xattn_norm": init_norm(gen, cfg, kind=LN),
+                "xattn": init_attention(gen, cfg),
+                "mlp_norm": init_norm(gen, cfg, kind=LN),
+                "mlp": init_mlp(gen, cfg, bias=True)}
+               for _ in range(cfg.n_layers)]
+        return {"embed": init_embed(gen, cfg),
+                "enc_norm": init_norm(gen, cfg, kind=LN),
+                "dec_norm": init_norm(gen, cfg, kind=LN),
+                "lm_head": init_lm_head(gen, cfg),
+                "enc": enc, "dec": dec}
+
+    def _encode(self, P: Params, frames) -> torch.Tensor:
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(cdtype(cfg))
+        b, f = x.shape[:2]
+        x = x + _sinusoid(f, cfg.d_model, self.device).to(x.dtype)[None]
+        positions = torch.arange(f, device=self.device).expand(b, f)
+        # cfg.remat applies where a gradient is built (loss_fn)
+        remat = self._remat if torch.is_grad_enabled() else (lambda fn: fn)
+        for lp in P["enc"]:
+            x = remat(lambda h, lp=lp: _enc_block(lp, cfg, positions, h))(x)
+        return _ln(P["enc_norm"], cfg, x)
+
+    @torch.no_grad()
+    def encode(self, frames) -> torch.Tensor:
+        """frames (B, F, d), the stub frontend's embeddings -> the encoder
+        output (B, F, d) in the compute dtype."""
+        return self._encode(self.compute_params()[0], frames)
+
+    def _embed(self, P: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = apply_embed(P["embed"], self.cfg, tokens)
+        pe = _sinusoid(tokens.shape[1], self.cfg.d_model, self.device)
+        return x + pe.to(x.dtype)[None]
+
+    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+        return apply_lm_head(P["lm_head"], self.cfg,
+                             _ln(P["dec_norm"], self.cfg, x))
+
+    def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"ce": loss}) of the JAX enc-dec ``loss_fn`` on ``batch``
+        (``frames`` (B, F, d), ``tokens``, ``labels`` (B, S) int32, optional
+        ``loss_mask``), each encoder and decoder layer under
+        ``cfg.remat``."""
+        cfg = self.cfg
+        P, _ = self.train_params()
+        enc_out = self._encode(P, self._batch_tensor(batch, "frames"))
+        tokens = self._batch_tensor(batch, "tokens")
+        b, s = tokens.shape
+        x = self._embed(P, tokens)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+
+        def dec_block(lp, h):
+            h = h + apply_attention(lp["attn"], cfg,
+                                    _ln(lp["attn_norm"], cfg, h), positions,
+                                    causal=True)
+            return _dec_tail(lp, cfg, h, *init_cross_kv(lp["xattn"], cfg,
+                                                        enc_out))
+
+        for lp in P["dec"]:
+            x = self._remat(lambda h, lp=lp: dec_block(lp, h))(x)
+        loss = self._ce(self._logits(P, x), batch)
+        return loss, {"ce": loss}
+
+    def init_decode_state(self, batch_size: int,
+                          max_len: int) -> EncDecState:
+        cfg = self.cfg
+        dt, dev = cdtype(cfg), self.device
+        kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        xkv = (cfg.n_layers, batch_size, max(cfg.n_frames, 1),
+               cfg.n_kv_heads, cfg.hd)
+        return EncDecState(
+            self_k=torch.zeros(kv, dtype=dt, device=dev),
+            self_v=torch.zeros(kv, dtype=dt, device=dev),
+            cross_k=torch.zeros(xkv, dtype=dt, device=dev),
+            cross_v=torch.zeros(xkv, dtype=dt, device=dev),
+            pos=self._pos(batch_size, 0))
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, frames: torch.Tensor,
+                max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, EncDecState]:
+        """Encode ``frames`` (B, F, d), then prefill the decoder on the
+        prompt ``tokens`` (B, S): (logits of the last position (B, V), the
+        decode state with the prompt's K/V in slots 0..S-1 of ``max_len``
+        and every layer's cross K/V of the F frames)."""
+        cfg = self.cfg
+        P, _ = self.compute_params()
+        enc_out = self._encode(P, frames)
+        tokens, max_len = self._prompt(tokens, max_len)
+        b, s = tokens.shape
+        x = self._embed(P, tokens)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        f = enc_out.shape[1]
+        state = self.init_decode_state(b, max_len)
+        if state.cross_k.shape[2] != f:       # frames other than n_frames
+            shape = (cfg.n_layers, b, f, cfg.n_kv_heads, cfg.hd)
+            state = state._replace(cross_k=state.cross_k.new_zeros(shape),
+                                   cross_v=state.cross_v.new_zeros(shape))
+        for i, lp in enumerate(P["dec"]):
+            z = _ln(lp["attn_norm"], cfg, x)
+            h, (k, v) = attention_prefill(lp["attn"], cfg, z, positions)
+            state.self_k[i, :, :s] = k
+            state.self_v[i, :, :s] = v
+            kx, vx = init_cross_kv(lp["xattn"], cfg, enc_out)
+            state.cross_k[i] = kx
+            state.cross_v[i] = vx
+            x = _dec_tail(lp, cfg, x + h, kx, vx)
+        logits = self._logits(P, x[:, -1:])[:, 0]
+        return logits, state._replace(pos=self._pos(b, s))
+
+    @torch.no_grad()
+    def decode_step(self, tok: torch.Tensor, state: EncDecState
+                    ) -> Tuple[torch.Tensor, EncDecState]:
+        """tok (B,) -> (logits (B, V), the next state); the token's
+        sinusoidal position is ``state.pos``."""
+        cfg = self.cfg
+        P, _ = self.compute_params()
+        tok = torch.as_tensor(tok, device=self.device)
+        x = apply_embed(P["embed"], cfg, tok[:, None])
+        x = x + _sinusoid_at(state.pos, cfg.d_model)[:, None].to(x.dtype)
+        for i, lp in enumerate(P["dec"]):
+            z = _ln(lp["attn_norm"], cfg, x)
+            h, _, _ = attention_decode(lp["attn"], cfg, z, state.self_k[i],
+                                       state.self_v[i], state.pos)
+            x = _dec_tail(lp, cfg, x + h, state.cross_k[i], state.cross_v[i])
+        return self._logits(P, x)[:, 0], state._replace(pos=state.pos + 1)

@@ -13,8 +13,10 @@ Attention has the JAX package's three execution paths, picked by
 :func:`sdpa`: plain einsum, query-chunked softmax for long sequences, and
 the flash kernel (``attn_impl="flash"``, more than one query), which is the
 hand-written CUDA kernel on the card (:mod:`repro_torch.kernels.ops`),
-forward only there: training runs ``attn_impl="xla"``.  The training loss
-is :func:`cross_entropy`.
+forward only there: training runs ``attn_impl="xla"``.  The
+encoder-decoder's :func:`cross_attention` takes the same paths, unmasked,
+over the K/V :func:`init_cross_kv` computes once from the encoder output.
+The training loss is :func:`cross_entropy`.
 The JAX package's sharding constraints are identities on one device and
 are left out.
 """
@@ -31,6 +33,8 @@ from ..kernels import ops as kops
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
+#: the most float32 elements _dense_init draws at once (1 GiB)
+_INIT_CHUNK = 1 << 28
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -50,8 +54,20 @@ def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
     """Normal(0, 1) * scale (default 1/sqrt(fan_in)), cast to ``dtype``;
     ``lead`` prepends stacked-layer axes."""
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    x = torch.randn(*lead, *shape, generator=gen, device=gen.device) * s
-    return x.to(dtype)
+    full = (*lead, *shape)
+    if math.prod(full) <= _INIT_CHUNK:
+        x = torch.randn(*full, generator=gen, device=gen.device) * s
+        return x.to(dtype)
+    # too large to hold in float32 beside its cast (kimi-k2's experts, 22.5
+    # GB a tensor): drawn a block of rows of the first axis at a time
+    out = torch.empty(full, dtype=dtype, device=gen.device)
+    rows = out.flatten(0, len(lead))
+    step = max(1, _INIT_CHUNK // math.prod(rows.shape[1:]))
+    for i in range(0, rows.shape[0], step):
+        blk = rows[i:i + step]
+        blk.copy_(torch.randn(blk.shape, generator=gen,
+                              device=gen.device).mul_(s))
+    return out
 
 
 def _full(value: float, shape, cfg, gen, lead=()):
@@ -331,6 +347,28 @@ def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
     out = torch.einsum("bngst,btnd->bsngd", w, cache_v.float())
     out = out.reshape(b, 1, h * hd).to(dt)
     return out @ p["wo"].to(dt), cache_k, cache_v
+
+
+def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                    kv_k: torch.Tensor, kv_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention of x (b, s, d) against the encoder's
+    precomputed K/V (b, t, kvh, hd), unmasked and without rope: the flash
+    kernel (s_q != s_k) for more than one query under ``attn_impl="flash"``,
+    the einsum path at decode."""
+    dt = cdtype(cfg)
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.hd)
+    out = sdpa(cfg, q, kv_k, kv_v, causal=False)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
+
+
+def init_cross_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
+    """The cross-attention K/V (b, t, kvh, hd) of the encoder output."""
+    dt = cdtype(cfg)
+    b, t, _ = enc_out.shape
+    k = (enc_out @ p["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+    return k, v
 
 
 # ------------------------------------------------------------------- loss

@@ -1,21 +1,28 @@
-"""Decoder-only LMs: the dense, hybrid (zamba2) and RWKV6 families of
-``repro.models.transformer``.
+"""The port's LMs: the dense, MoE, VLM, hybrid (zamba2), RWKV6 and
+encoder-decoder families of ``repro.models.transformer`` and
+``repro.models.encdec``.
 
 One model object per family serves the JAX package's model API:
 
   model = build_model(cfg)                          # on cuda, seeded
-  loss, metrics = model.loss_fn(batch)              # train: {"ce": ...}
+  loss, metrics = model.loss_fn(batch)              # train: {"ce", ...}
   logits, state = model.prefill(tokens, max_len)    # (B, V), decode state
   logits, state = model.decode_step(tok, state)     # one token per slot
   state = model.init_decode_state(batch, max_len)   # zeroed state
 
 Each family is an ``nn.Module`` whose parameters keep the JAX params
-nest's names, the layers stacked on axis 0 as ``jax.vmap`` init makes them,
-stored in ``cfg.param_dtype``:
+nest's names, the layers stacked on axis 0 as ``jax.vmap`` init makes them
+(the encoder-decoder's are lists, one nest a layer, as the JAX package
+keeps them), stored in ``cfg.param_dtype``:
 
-- :class:`DecoderLM` (``family == "dense"``): ``embed``, ``final_norm``,
-  ``lm_head`` (untied only), ``layers.{attn_norm, attn, mlp_norm, mlp}``;
-  state :class:`KVDecodeState`.
+- :class:`DecoderLM` (``family`` ``"dense"``, ``"moe"`` or ``"vlm"``):
+  ``embed``, ``final_norm``, ``lm_head`` (untied only),
+  ``layers.{attn_norm, attn, mlp_norm, mlp}``, with ``layers.moe`` (the
+  router, the experts and the optional shared expert, :mod:`.moe`) in
+  place of ``layers.mlp`` for MoE configs, and ``vision_proj`` for the VLM,
+  whose ``prefill`` and ``loss_fn`` put the projected ``patch_embeds``
+  (B, n_patches, d) before the token embeddings; state
+  :class:`KVDecodeState`.  The MoE loss is ``ce + 0.01 aux``.
 - :class:`HybridLM` (``"hybrid"``, zamba2): ``embed``, ``final_norm``,
   ``lm_head``, ``shared.{attn_norm, attn, mlp_norm, mlp}``,
   ``layers.{norm, mamba}``.  One shared attention + MLP block runs before
@@ -24,28 +31,30 @@ stored in ``cfg.param_dtype``:
 - :class:`RWKVLM` (``"ssm"``, rwkv6): ``embed``, ``final_norm``
   (layernorm), ``lm_head``, ``layers.{ln1, time, ln2, chan}``; state
   :class:`RWKVDecodeState`.
+- :class:`~repro_torch.models.encdec.EncDecLM` (``"encdec"``, whisper):
+  see :mod:`.encdec`.
 
 The parameters are trainable (``requires_grad``): ``loss_fn`` builds its
 graph on them and ``loss.backward()`` leaves each gradient in ``.grad``
 (:mod:`repro_torch.train` reads them there).  ``loss_fn`` casts ``CAST``'s
 leaves inside the graph on every call, and applies ``cfg.remat`` where the
 JAX package applies ``_remat``: per layer with
-``torch.utils.checkpoint.checkpoint`` for the dense family and the hybrid,
-and for RWKV6 under ``cfg.scan_layers``.
+``torch.utils.checkpoint.checkpoint`` for the decoder families and the
+hybrid, and for RWKV6 under ``cfg.scan_layers``.
 
 Prefill and decode run under ``torch.no_grad()``.  Their products run in
 ``cfg.compute_dtype`` from one copy of the weights cast at first use:
 exactly the leaves the JAX package casts with ``.astype`` to the compute
 dtype where it reads them (each class's ``CAST``).  Every other
 leaf stays as stored, because the JAX code reads it in float32 or the param
-dtype: norm params, Mamba2's ``A_log``, ``D``, ``dt_bias`` and
-``norm_scale``, RWKV6's ``w0``, ``w_lora_a``, ``w_lora_b``, ``u`` and
-``ln_x_scale``.  That gives the bits of a cast at every use without moving
-the float32 weights each step.  The copy is made again when a parameter has
-changed since: ``load_state_dict``, an in-place update such as an
-optimizer's step, or ``model.to(...)``.  Writes through ``param.data``
-bypass PyTorch's version counter and are not seen: update parameters in
-place under ``torch.no_grad()`` instead.
+dtype: norm params, the MoE router, Mamba2's ``A_log``, ``D``,
+``dt_bias`` and ``norm_scale``, RWKV6's ``w0``, ``w_lora_a``,
+``w_lora_b``, ``u`` and ``ln_x_scale``.  That gives the bits of a cast at
+every use without moving the float32 weights each step.  The copy is made
+again when a parameter has changed since: ``load_state_dict``, an
+in-place update such as an optimizer's step, or ``model.to(...)``.  Writes
+through ``param.data`` bypass PyTorch's version counter and are not seen:
+update parameters in place under ``torch.no_grad()`` instead.
 
 ``decode_step`` writes the new state into the given state's buffers in
 place and returns a state that shares them, with ``pos + 1``.  Buffers keep
@@ -55,9 +64,8 @@ values are the same (a bfloat16 value is exact in float32).
 
 Prefill attention goes through :func:`repro_torch.kernels.ops.flash_attention`
 when ``cfg.attn_impl == "flash"``, and the Mamba2 and RWKV6 prefill through
-:func:`repro_torch.kernels.ops.ssm_scan`.  :func:`build_model` raises
-``NotImplementedError`` for the moe, vlm and encdec families, which a later
-slice of the port adds.
+:func:`repro_torch.kernels.ops.ssm_scan`.  :func:`model_class` raises
+``ValueError`` for a family it does not know.
 """
 from __future__ import annotations
 
@@ -70,32 +78,32 @@ from torch.utils.checkpoint import checkpoint
 from .._device import as_device
 from .._tree import tree_flatten, tree_map, tree_unflatten
 from ..configs.base import ArchConfig
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      apply_mlp, apply_norm, attention_decode,
                      attention_prefill, cdtype, cross_entropy,
                      init_attention, init_embed, init_lm_head, init_mlp,
-                     init_norm)
-
-#: the slice of the port that brings each family that is not ported yet
-_LATER = {"moe": "the MoE/VLM/enc-dec slice",
-          "vlm": "the MoE/VLM/enc-dec slice",
-          "encdec": "the MoE/VLM/enc-dec slice"}
+                     init_norm, pdtype)
 
 class ParamNest(nn.Module):
-    """A nest of parameters that indexes like the JAX params dict:
-    ``p["attn"]["wq"]``, ``"b_up" in p``."""
+    """A nest of parameters that indexes like the JAX params nest:
+    ``p["attn"]["wq"]``, ``"b_up" in p``, and ``p["enc"][0]`` for a list
+    of nests (its children named "0", "1", ...)."""
 
-    def __init__(self, tree: Dict):
+    def __init__(self, tree):
         super().__init__()
-        for name, val in tree.items():
-            if isinstance(val, dict):
-                self.add_module(name, ParamNest(val))
+        self.is_list = isinstance(tree, (list, tuple))
+        for name, val in (enumerate(tree) if self.is_list else tree.items()):
+            if isinstance(val, (dict, list, tuple)):
+                self.add_module(str(name), ParamNest(val))
             else:
-                self.register_parameter(name, nn.Parameter(val.detach()))
+                self.register_parameter(str(name),
+                                        nn.Parameter(val.detach()))
 
-    def __getitem__(self, name: str):
+    def __getitem__(self, name):
+        name = str(name)
         if name in self._parameters:
             return self._parameters[name]
         if name in self._modules:
@@ -105,31 +113,37 @@ class ParamNest(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def _nest(self, out: Dict):
+        return [out[str(i)] for i in range(len(out))] if self.is_list else out
+
     def param_tree(self) -> Params:
-        """The nest as plain dicts of tensors (parameter data, no copies),
-        under the JAX package's names and shapes."""
+        """The nest as plain dicts (and lists) of tensors (parameter data,
+        no copies), under the JAX package's names and shapes."""
         out = {n: p.data for n, p in self._parameters.items()}
         out.update({n: m.param_tree() for n, m in self._modules.items()})
-        return out
+        return self._nest(out)
 
     def trainable_tree(self) -> Params:
         """The nest of the parameters themselves, under the JAX package's
         names: what a loss is built on and an optimizer updates."""
         out = dict(self._parameters)
         out.update({n: m.trainable_tree() for n, m in self._modules.items()})
-        return out
+        return self._nest(out)
 
 
-def _cast_tree(tree: Params, dt: torch.dtype, cast: frozenset,
-               prefix: str = "") -> Params:
+def _cast_tree(tree, dt: torch.dtype, cast: frozenset, prefix: str = ""):
     """``tree`` with every leaf whose dotted name is, or lies under, one of
-    the names in ``cast`` cast to ``dt``; everything else kept as it is."""
+    the names in ``cast`` cast to ``dt``; everything else kept as it is.  A
+    list's items take the list's own name (``enc.attn`` names the
+    ``attn`` of every layer in ``enc``)."""
+    if isinstance(tree, (list, tuple)):
+        return [_cast_tree(v, dt, cast, prefix) for v in tree]
     out = {}
     for k, v in tree.items():
         name = prefix + k
         if any(name == c or name.startswith(c + ".") for c in cast):
             out[k] = tree_map(lambda a: a.to(dt), v)
-        elif isinstance(v, dict):
+        elif isinstance(v, (dict, list, tuple)):
             out[k] = _cast_tree(v, dt, cast, name + ".")
         else:
             out[k] = v
@@ -137,17 +151,24 @@ def _cast_tree(tree: Params, dt: torch.dtype, cast: frozenset,
 
 
 class _LM(ParamNest):
-    """What the three families share: the params nest, its check against
-    the family's names, and the compute-dtype copy."""
+    """What the families share: the params nest, its check against the
+    family's names, and the compute-dtype copy.  Each family's class sets
+    ``FAMILIES`` and ``CAST`` and defines ``param_names(cfg)`` (the
+    nest's top-level names) and ``init(cfg, gen)``."""
 
-    FAMILY = ""
+    #: the config families the class serves
+    FAMILIES: Tuple[str, ...] = ()
     #: the dotted names (leaves or subtrees) the compute copy casts
     CAST: frozenset = frozenset()
+    #: whether the layers are stacked on axis 0 under ``layers``
+    STACKED = True
 
     def __init__(self, cfg: ArchConfig, params: Params):
-        if cfg.family != self.FAMILY:
-            raise ValueError(f"{type(self).__name__} serves family "
-                             f"{self.FAMILY!r}, not {cfg.family!r}")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(
+                f"{type(self).__name__} serves family "
+                f"{' or '.join(map(repr, self.FAMILIES))}, not "
+                f"{cfg.family!r}")
         want = self.param_names(cfg)
         if set(params) != want:
             raise ValueError(f"{cfg.name}: params nest has {sorted(params)}, "
@@ -156,10 +177,6 @@ class _LM(ParamNest):
         self.cfg = cfg
         self._compute: Optional[Tuple[Params, List[Params]]] = None
         self._compute_key: Optional[Tuple] = None
-
-    @staticmethod
-    def param_names(cfg: ArchConfig) -> set:
-        raise NotImplementedError
 
     @property
     def device(self) -> torch.device:
@@ -172,14 +189,15 @@ class _LM(ParamNest):
                      for p in self.parameters())
 
     def compute_params(self) -> Tuple[Params, List[Params]]:
-        """(whole nest, per-layer nests) with ``CAST``'s leaves in the
-        compute dtype, made at first use and again whenever a parameter has
-        changed since."""
+        """(whole nest, per-layer nests of the stack: none where the layers
+        are not stacked) with ``CAST``'s leaves in the compute dtype, made
+        at first use and again whenever a parameter has changed since."""
         key = self._params_key()
         if key != self._compute_key:
             tree = _cast_tree(self.param_tree(), cdtype(self.cfg), self.CAST)
             layers = [tree_map(lambda a, i=i: a[i], tree["layers"])
-                      for i in range(self.cfg.n_layers)]
+                      for i in range(self.cfg.n_layers)] if self.STACKED \
+                else []
             self._compute, self._compute_key = (tree, layers), key
         return self._compute
 
@@ -189,6 +207,8 @@ class _LM(ParamNest):
         gradient reaches the stored parameters.  The layers are unbound from
         their stack once: the backward stacks their gradients once."""
         tree = _cast_tree(self.trainable_tree(), cdtype(self.cfg), self.CAST)
+        if not self.STACKED:
+            return tree, []
         leaves, structure = tree_flatten(tree["layers"])
         cols = [leaf.unbind(0) for leaf in leaves]
         layers = [tree_unflatten(structure, [c[i] for c in cols])
@@ -214,9 +234,11 @@ class _LM(ParamNest):
         return cross_entropy(logits, self._batch_tensor(batch, "labels"),
                              self._batch_tensor(batch, "loss_mask"))
 
-    def _prompt(self, tokens, max_len: Optional[int]):
+    def _prompt(self, tokens, max_len: Optional[int], prefix: int = 0):
+        """The prompt on the model's device and the cache length: at least
+        the ``prefix`` positions before the prompt and the prompt."""
         tokens = torch.as_tensor(tokens, device=self.device)
-        s = tokens.shape[1]
+        s = prefix + tokens.shape[1]
         max_len = s if max_len is None else int(max_len)
         if max_len < s:
             raise ValueError(f"max_len {max_len} < prompt length {s}")
@@ -233,11 +255,20 @@ class KVDecodeState(NamedTuple):
     pos: torch.Tensor        # (B,) int32: tokens already in the cache
 
 
+def _ffn(p, cfg, z):
+    """The block's FFN on z: the MoE layer's output and auxiliary loss
+    where the config has experts, else the MLP's output and None."""
+    if cfg.is_moe:
+        out = moe_mod.apply_moe(p["moe"], cfg, z)
+        return out.y, out.aux_loss
+    return apply_mlp(p["mlp"], cfg, z), None
+
+
 def _block_prefill(p, cfg, x, positions):
     z = apply_norm(p["attn_norm"], cfg, x)
     h, kv = attention_prefill(p["attn"], cfg, z, positions)
     x = x + h
-    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
+    x = x + _ffn(p, cfg, apply_norm(p["mlp_norm"], cfg, x))[0]
     return x, kv
 
 
@@ -245,28 +276,36 @@ def _block_decode(p, cfg, x, ck, cv, pos):
     z = apply_norm(p["attn_norm"], cfg, x)
     h, ck, cv = attention_decode(p["attn"], cfg, z, ck, cv, pos)
     x = x + h
-    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
+    x = x + _ffn(p, cfg, apply_norm(p["mlp_norm"], cfg, x))[0]
     return x, ck, cv
 
 
 def _block_train(p, cfg, positions, x):
+    """(the block's output, its auxiliary loss: 0 without experts)."""
     h = apply_attention(p["attn"], cfg, apply_norm(p["attn_norm"], cfg, x),
                         positions, causal=True)
     x = x + h
-    return x + apply_mlp(p["mlp"], cfg, apply_norm(p["mlp_norm"], cfg, x))
+    y, aux = _ffn(p, cfg, apply_norm(p["mlp_norm"], cfg, x))
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return x + y, aux
 
 
 class DecoderLM(_LM):
-    """The dense decoder LM over a params nest (see the module
-    docstring)."""
+    """The dense, MoE and VLM decoder LM over a params nest (see the
+    module docstring)."""
 
-    FAMILY = "dense"
-    CAST = frozenset({"embed", "lm_head", "layers.attn", "layers.mlp"})
+    FAMILIES = ("dense", "moe", "vlm")
+    CAST = frozenset({"embed", "lm_head", "layers.attn", "layers.mlp",
+                      "layers.moe.w_gate", "layers.moe.w_up",
+                      "layers.moe.w_down", "layers.moe.shared",
+                      "vision_proj"})
 
     @staticmethod
     def param_names(cfg):
         return {"embed", "final_norm", "layers"} | (
-            set() if cfg.tie_embeddings else {"lm_head"})
+            set() if cfg.tie_embeddings else {"lm_head"}) | (
+            {"vision_proj"} if cfg.family == "vlm" else set())
 
     @staticmethod
     def init(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -279,8 +318,16 @@ class DecoderLM(_LM):
             params["lm_head"] = init_lm_head(gen, cfg)
         params["layers"] = {"attn_norm": init_norm(gen, cfg, lead=L),
                             "attn": init_attention(gen, cfg, lead=L),
-                            "mlp_norm": init_norm(gen, cfg, lead=L),
-                            "mlp": init_mlp(gen, cfg, lead=L)}
+                            "mlp_norm": init_norm(gen, cfg, lead=L)}
+        if cfg.is_moe:
+            params["layers"]["moe"] = moe_mod.init_moe(gen, cfg, lead=L)
+        else:
+            params["layers"]["mlp"] = init_mlp(gen, cfg, lead=L)
+        if cfg.family == "vlm":
+            # N(0, 1) * 0.02, cast to the param dtype before the scale
+            w = torch.randn(cfg.d_model, cfg.d_model, generator=gen,
+                            device=gen.device).to(pdtype(cfg))
+            params["vision_proj"] = {"w": w * 0.02}
         return params
 
     def init_decode_state(self, batch_size: int,
@@ -300,33 +347,57 @@ class DecoderLM(_LM):
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
         return self._head(P, x)[:, 0]
 
+    def _embed_inputs(self, P: Params, tokens: torch.Tensor,
+                      patch_embeds) -> torch.Tensor:
+        """The token embeddings, after the projected patch embeddings for
+        the VLM."""
+        cfg = self.cfg
+        x = apply_embed(P["embed"], cfg, tokens)
+        if cfg.family != "vlm":
+            return x
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name}: the VLM needs patch_embeds "
+                             f"(B, n_patches, d)")
+        dt = cdtype(cfg)
+        pe = torch.as_tensor(patch_embeds, device=self.device).to(dt)
+        return torch.cat([pe @ P["vision_proj"]["w"].to(dt), x], dim=1)
+
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(total, {"ce", "aux"}) of the JAX dense ``loss_fn`` on ``batch``
-        (``tokens``, ``labels`` (B, S) int32, optional ``loss_mask``): the
-        mean next-token CE with z-loss; ``aux`` is 0 without experts."""
+        """(ce + 0.01 aux, {"ce", "aux"}) of the JAX decoder ``loss_fn`` on
+        ``batch`` (``tokens``, ``labels`` (B, S) int32, optional
+        ``loss_mask``, and ``patch_embeds`` for the VLM): the mean
+        next-token CE with z-loss, over the text positions; ``aux`` is the
+        MoE layers' load-balancing loss summed over layers, 0 without
+        experts."""
         cfg = self.cfg
         P, layers = self.train_params()
         tokens = self._batch_tensor(batch, "tokens")
-        b, s = tokens.shape
-        x = apply_embed(P["embed"], cfg, tokens)
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        for lp in layers:
-            x = self._remat(lambda h, lp=lp: _block_train(lp, cfg, positions,
-                                                          h))(x)
-        loss = self._ce(self._head(P, x), batch)
+        s = tokens.shape[1]
+        x = self._embed_inputs(P, tokens, batch.get("patch_embeds"))
+        b, t_all = x.shape[:2]
+        positions = torch.arange(t_all, device=self.device).expand(b, t_all)
         aux = torch.zeros((), device=self.device)
+        for lp in layers:
+            x, a = self._remat(lambda h, lp=lp: _block_train(
+                lp, cfg, positions, h))(x)
+            aux = aux + a
+        loss = self._ce(self._head(P, x[:, -s:]), batch)
         return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, KVDecodeState]:
         """tokens (B, S) -> (logits of the last position (B, V), the decode
-        state with the prompt's K/V in slots 0..S-1 of ``max_len``)."""
+        state with the prompt's K/V in slots 0..S-1 of ``max_len``).  The
+        VLM takes ``patch_embeds`` (B, n_patches, d) too: they fill the
+        first n_patches slots and the prompt the S after them."""
         cfg = self.cfg
         P, layers = self.compute_params()
-        tokens, max_len = self._prompt(tokens, max_len)
-        b, s = tokens.shape
-        x = apply_embed(P["embed"], cfg, tokens)
+        n_pre = 0 if patch_embeds is None else patch_embeds.shape[1]
+        tokens, max_len = self._prompt(tokens, max_len, n_pre)
+        x = self._embed_inputs(P, tokens, patch_embeds)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
         state = self.init_decode_state(b, max_len)
         for i, lp in enumerate(layers):
@@ -374,7 +445,7 @@ class HybridLM(_LM):
     """The zamba2 hybrid: a Mamba2 stack with one shared attention block
     (see the module docstring)."""
 
-    FAMILY = "hybrid"
+    FAMILIES = ("hybrid",)
     CAST = frozenset({"embed", "lm_head", "shared.attn", "shared.mlp",
                       "layers.mamba.in_proj", "layers.mamba.conv_w",
                       "layers.mamba.out_proj"})
@@ -520,7 +591,7 @@ class RWKVDecodeState(NamedTuple):
 class RWKVLM(_LM):
     """The RWKV6 LM (see the module docstring)."""
 
-    FAMILY = "ssm"
+    FAMILIES = ("ssm",)
     CAST = frozenset({"embed", "lm_head", "layers.chan"} | {
         f"layers.time.{k}" for k in ("mu", "receptance", "key", "value",
                                      "gate", "output")})
@@ -634,17 +705,14 @@ class RWKVLM(_LM):
 
 
 # ================================================================== building
-_FAMILIES = {"dense": DecoderLM, "hybrid": HybridLM, "ssm": RWKVLM}
-
-
 def model_class(cfg: ArchConfig):
-    """The module class that serves ``cfg.family``; raises
-    ``NotImplementedError`` for a family the port does not have yet."""
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
-            f"with {_LATER.get(cfg.family, 'a later slice')}")
-    return _FAMILIES[cfg.family]
+    """The module class that serves ``cfg.family``; raises ``ValueError``
+    for an unknown family."""
+    from .encdec import EncDecLM
+    for cls in (DecoderLM, HybridLM, RWKVLM, EncDecLM):
+        if cfg.family in cls.FAMILIES:
+            return cls
+    raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}")
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:

@@ -14,10 +14,16 @@ generating.  Slots evolve independently because the decode state is
 per-slot (per-slot pos, per-slot cache lines), so prefill and decode mix
 freely in one ``decode_step`` call per round.
 
-Any of the port's LMs (:class:`~repro_torch.models.DecoderLM`,
-:class:`~repro_torch.models.HybridLM`, :class:`~repro_torch.models.RWKVLM`):
-the engine reads only ``init_decode_state``, ``decode_step``, ``device`` and
-the state's per-slot fields.  The decode state lives on the model's device
+The decoder-only LMs of the port, as the JAX engine serves them: the
+dense, MoE and (its text) VLM families of
+:class:`~repro_torch.models.DecoderLM`, :class:`~repro_torch.models.HybridLM`
+and :class:`~repro_torch.models.RWKVLM`.  The engine reads only
+``init_decode_state``, ``decode_step``, ``device`` and the state's per-slot
+fields.  An MoE decode step groups the B slots for its capacity, an idle
+slot's pad token included, so a request's output depends on the other
+slots, as in the JAX engine.  Enc-dec serving is
+:meth:`~repro_torch.models.EncDecLM.prefill` (frames and prompt) then
+``decode_step``: this engine has no per-slot frames feed.  The decode state lives on the model's device
 and is updated in place; each round moves the B sampled token ids to the
 host.
 """

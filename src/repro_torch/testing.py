@@ -195,3 +195,54 @@ def extreme_run(n: int) -> np.ndarray:
     out = pts.astype(np.float32)
     assert np.array_equal(out.astype(np.float64), pts), "not float32 points"
     return out
+
+
+# -- the MoE layer's float32 reference ----------------------------------------
+
+def scaled_close(got, want, tol: float) -> bool:
+    """rms(got - want) <= tol rms(want), and |got - want| <= tol |want| +
+    6 tol rms(want) everywhere: a bf16 result against float32, with the
+    error of the inner sums relative to the output's scale."""
+    err, want = got.float() - want.float(), want.float()
+    rms = want.pow(2).mean().sqrt()
+    return bool(err.pow(2).mean().sqrt() <= tol * rms) and bool(
+        (err.abs() <= tol * want.abs() + 6 * tol * rms).all())
+
+
+#: faults :func:`moe_layer_f32` can plant, to read what a broken layer
+#: scores on a check: the routing weights left out, the shared expert
+#: dropped, each token's last choice dropped, expert 0 left out
+MOE_FAULTS = ("unweighted", "no_shared", "last_choice", "expert0")
+
+
+def moe_layer_f32(p, cfg, x, r, fault: str = None):
+    """The MoE layer's output in float32 for one run's ``Routes`` r (ids,
+    keep and weights, (groups, group, k), over x's tokens padded to whole
+    groups): a loop over the experts, one expert's weights cast at a time,
+    plus the shared expert; with one of MOE_FAULTS planted if ``fault``."""
+    import torch
+    import torch.nn.functional as F
+    b, s, d = x.shape
+    k = r.ids.shape[-1]
+    xt = x.float().reshape(-1, d)
+    ids, keep = r.ids.reshape(-1, k)[:b * s], r.keep.reshape(-1, k)[:b * s]
+    w = r.w.float().reshape(-1, k)[:b * s]
+    if fault == "unweighted":
+        w = torch.ones_like(w)
+    if fault == "last_choice":
+        keep = keep.clone()
+        keep[:, -1] = False
+    out = torch.zeros_like(xt)
+    for j in range(int(fault == "expert0"), cfg.n_experts):
+        tok, choice = torch.nonzero((ids == j) & keep, as_tuple=True)
+        if tok.numel():
+            xj = xt[tok]
+            h = F.silu(xj @ p["w_gate"][j].float()) * (xj @ p["w_up"][j]
+                                                      .float())
+            out.index_add_(0, tok, (h @ p["w_down"][j].float())
+                           * w[tok, choice, None])
+    if cfg.shared_expert and fault != "no_shared":
+        sp = p["shared"]
+        h = F.silu(xt @ sp["w_gate"].float()) * (xt @ sp["w_up"].float())
+        out += h @ sp["w_down"].float()
+    return out.reshape(b, s, d)

@@ -29,7 +29,9 @@ that pop below the shared-memory window, near-collinear float32 runs, x
 ties, subnormal coordinates, clamped counts and a merge-shaped batch of
 2048 runs; the three geometry plans on the kernel engine equal the dense
 engine.  The fault proxy keeps the card and the kernels, and a traced, a
-recovered and a served query on the card equal the plain ones.
+recovered and a served query on the card equal the plain ones.  The MoE
+layer's bf16 einsum dispatch on the card agrees with a float32 loop over
+its experts that takes the same routes.
 Marked ``cuda``: they skip without a card.  They import no JAX, so they run
 where only the port is installed:
 
@@ -159,6 +161,8 @@ def test_bitonic_sort_kernel_on_ties(cuda, rows, n, dtype):
     (1, 4, 2, 100, 100, 16, True),     # head dim padded to 32
     (2, 8, 2, 300, 300, 112, True),    # kimi-k2's head dim, padded to 128
     (1, 2, 2, 70, 90, 8, False),       # head dim padded to 32
+    (8, 8, 8, 1500, 1500, 64, False),  # whisper-base's encoder
+    (8, 8, 8, 32, 1500, 64, False),    # its cross-attention at prefill
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
@@ -1072,3 +1076,29 @@ def test_sharded_engine_on_one_nccl_rank_equals_local(cuda, tmp_path):
             assert results[name + "-launches"] == results["local-launches"]
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e"])
+def test_moe_einsum_bf16_matches_a_float32_expert_loop(cuda, arch):
+    """bf16 against float32 with the same routes: rms(got - want) <= 2e-2
+    rms(want) and |got - want| <= 2e-2 |want| + 0.12 rms(want), about ten
+    bf16 roundings (unit roundoff 2^-9) of the element or of the output's
+    scale, and six times that at the tail; chip_smoke.py's rule at full
+    width.  Groups of 16 over 4 x 10 tokens pad the last group."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.testing import moe_layer_f32, scaled_close
+    cfg = get_config(arch, reduced=True, compute_dtype="bfloat16",
+                     param_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn(4, 10, cfg.d_model, device=cuda,
+                    generator=gen).to(torch.bfloat16)
+    r = moe._route_tokens(p, cfg, x, group=16)
+    got = moe._moe_einsum(p, cfg, x, group=16)
+    torch.cuda.synchronize()
+    want = moe_layer_f32(p, cfg, x, r)
+    assert got.y.dtype == torch.bfloat16
+    assert scaled_close(got.y, want, 2e-2)
+    assert 0.0 <= got.dropped_frac.item() < 1.0

@@ -334,9 +334,7 @@ def test_compute_copy_follows_parameter_changes(change):
         assert not torch.allclose(after, before)
 
 
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "internvl2-2b",
-                                  "whisper-base"])
-def test_families_not_ported_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+def test_unknown_family_raises():
+    cfg = get_config("tinyllama-1.1b", reduced=True, family="retnet")
+    with pytest.raises(ValueError, match="unknown model family"):
         build_model(cfg, device="cpu")
