@@ -239,9 +239,9 @@ exits non-zero:
               the local and the overlapped engine under torch.profiler
               (device ms and the costliest kernels); then
               sharded-gloo, host work: ``python -m repro_torch.dist_check
-              --world 4 --check``, four CPU ranks over gloo at the tests'
-              small sizes, every case equal on every rank and to the
-              port's LocalEngine;
+              --world 4 --check`` with the round machine's cases, four CPU
+              ranks over gloo at the tests' small sizes, every case equal
+              on every rank and to the port's LocalEngine;
 27. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
               Function) against autograd through the plain version, da and
               dx for a seeded dh, at the zamba2 and rwkv6 training shapes
@@ -266,7 +266,33 @@ exits non-zero:
 30. train-resume — zamba2-1.2b at full width and 2 layers: 4 steps
               against 2 steps, a checkpoint, a fresh ``Trainer`` resumed
               from it and 2 more, final losses within 1e-5 (checkpoints in
-              a temporary directory, deleted afterwards).
+              a temporary directory, deleted afterwards);
+31. train-mesh — the parallel-training slice's main path: phase train's
+              zamba2-1.2b run through the mesh ``Trainer`` on a (1, 1, 1)
+              NCCL mesh, in "auto" (losses equal phase train's within 1e-5
+              relative) and "compressed" (the error-feedback int8 pod hop:
+              its first 4 losses equal its plain version's within 1e-5
+              relative, last loss below the first), launch counts reset
+              just before and read just after each (76 + 38 ``ssm_scan`` a
+              step, nothing else); step ms, peak memory, the hop's wire
+              bytes, and compressed over auto loss at the last step
+              (recorded, not held to a bound), beside two readings of its
+              cause: the share of each stacked layer's elements that
+              quantize to 0 at step 2, under the leaf's one scale and
+              under one scale a layer, and the plain compressed step with
+              one scale a layer run 8 steps, its last loss over auto's;
+32. families-train — internvl2-2b (8 x (256 patches + 1792 tokens)) and
+              whisper-base (8 x 1500 frames, 448 tokens) at full size
+              through the mesh ``Trainer``, 8 steps, losses finite and
+              falling; internvl2-2b's batch halved only if 8 rows do not
+              fit (recorded);
+33. moe-train — the reduced MoE on one NCCL rank: the ``shuffle``
+              dispatch's gradients equal the ``einsum`` dispatch's within
+              1e-4 (float32, no drops), a planted detached ``all_to_all``
+              fails that check; reduced kimi-k2 (both dispatches, equal
+              losses) and llama4-scout train 4 steps;
+34. train-gloo — host work: ``dist_check --cases train,elastic-train,
+              pipeline,moe-grad --check`` at 4 gloo CPU ranks.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Every row of the
@@ -286,9 +312,11 @@ main-path inputs (16 of merge-0's runs, the finalize's run), with their
 serial floor (``serial_floor_ms``), and gives the kernel's time at the
 query's own two calls as ``main_path_ms`` (``main_path_b2b_ms``) and at
 2^20 extreme points as ``worst_case_ms``.  The
-``ssm_scan`` row's launches add the training path's forward launches to
-the serving prefills' (``launches_by_path``), and ``ssm_scan.bwd`` is the
-backward kernel's row: its launches in phase train, its times and bound
+``ssm_scan`` row's launches add the training paths' forward launches
+(phases train and train-mesh) to the serving prefills'
+(``launches_by_path``), and ``ssm_scan.bwd`` is the backward kernel's
+row: its launches on the main path, phase train-mesh's auto run (phase
+train's beside them), its times and bound
 summed over the two training shapes.  A kernel's times and
 bound in the summary are sums over one call at each main-path shape: the
 two calls of a sort query, TinyLlama's and the hybrid's prefill attention,
@@ -3385,6 +3413,10 @@ def service_phases(torch, dev, ops, engine, dense, sort_query_ms):
 
 #: the sharded-gloo phase: CPU ranks over gloo at the tests' small sizes
 SHARDED_GLOO_WORLD = 4
+#: dist_check's cases of the sharded round machine (phase train-gloo runs
+#: the training ones)
+SHARDED_GLOO_CASES = ("shuffle", "rounds", "plans", "collectives",
+                      "elastic", "tracer", "errors", "moe")
 
 
 def sharded_phase(torch, dev, ops, engine):
@@ -3502,7 +3534,8 @@ def sharded_gloo_phase() -> dict:
     try:
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.dist_check", "--world",
-             str(SHARDED_GLOO_WORLD), "--out", str(tmp), "--check",
+             str(SHARDED_GLOO_WORLD), "--out", str(tmp), "--cases",
+             ",".join(SHARDED_GLOO_CASES), "--check",
              "--timeout", "240"],
             capture_output=True, text=True, timeout=300,
             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
@@ -3735,7 +3768,7 @@ def train_phase(torch, dev) -> dict:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": got, "timing": timing}
+    return {"launches": got, "timing": timing, "losses": losses}
 
 
 def train_resume_phase(torch, dev) -> dict:
@@ -3775,6 +3808,429 @@ def train_resume_phase(torch, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"final_loss_diff": diff}
+
+
+# -- the parallel-training half (the mesh Trainer) ---------------------------
+TRAIN_GLOO_WORLDS = (4,)          # the tests also run 2 and 8 ranks
+TRAIN_GLOO_CASES = ("train", "elastic-train", "pipeline", "moe-grad")
+FAMILY_TRAIN = (("internvl2-2b", 8, 1792), ("whisper-base", 8, 448))
+FAMILY_TRAIN_STEPS = 8
+FAMILY_TRAIN_LR = (1e-4, 4)       # peak lr, warmup steps
+MOE_TRAIN_STEPS = 4
+#: steps of phase train-mesh's plain compressed reference
+COMPRESSED_REF_STEPS = 4
+#: the step whose gradient phase train-mesh reads for int8 zeros (the
+#: first update with a learning rate above 0)
+COMPRESSED_PROBE_STEP = 2
+
+
+def nccl_world(tag: str):
+    """A one-rank NCCL process group over a file store (a context manager;
+    the group is destroyed at the end)."""
+    import contextlib
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def ctx():
+        tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return ctx()
+
+
+def mesh_train_run(torch, dev, tc, mesh, steps: int) -> dict:
+    """``steps`` steps of a mesh Trainer, launch counts reset just before
+    and read just after; host-clock ms of each step (ending in a
+    synchronize: the loss is read every step), peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import Trainer
+    t0 = time.perf_counter()
+    trainer = Trainer(tc, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    step_ms = []
+    for k in range(1, steps + 1):
+        t0 = time.perf_counter()
+        trainer.train(steps=k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in ops.launches().items() if v}
+    return {"trainer": trainer, "losses": [l for _, l in trainer.history],
+            "step_ms": step_ms, "launches": launches, "build_s": build_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def int8_zero_shares(torch, paths, grads, residuals, n_layers) -> dict:
+    """How much of the error-corrected gradient ``grads + residuals`` (one
+    pod) quantizes to 0 where it is not 0: for each stacked layer (the leaves under
+    ``layers/``, leading dim ``n_layers``), the share of its elements that
+    are 0 under the leaf's one scale (the JAX package's formulation) and
+    under one scale for the layer; for each other leaf, its share; and the
+    share over all elements under either scaling."""
+    from repro_torch.optim import compress
+    zero_leaf = torch.zeros(n_layers, dtype=torch.float64)
+    zero_layer = torch.zeros(n_layers, dtype=torch.float64)
+    size = torch.zeros(n_layers, dtype=torch.float64)
+    amax_ratio = {}
+    other, other_zero, other_n = {}, 0, 0
+    for path, g, r in zip(paths, grads, residuals):
+        c = g[0].float() + r[0]
+        q, _ = compress.quantize_int8(c)
+        if path.startswith("layers/") and c.shape[0] == n_layers:
+            lost = (q == 0) & (c != 0)
+            zero_leaf += lost.reshape(n_layers, -1).sum(1).double().cpu()
+            size += c[0].numel()
+            for i in range(n_layers):
+                zero_layer[i] += int(((compress.quantize_int8(c[i])[0] == 0)
+                                      & (c[i] != 0)).sum())
+            amax = c.abs().reshape(n_layers, -1).amax(1)
+            amax_ratio[path] = float(amax.min() / amax.max())
+        else:
+            zeros = int(((q == 0) & (c != 0)).sum())
+            other[path] = zeros / c.numel()
+            other_zero += zeros
+            other_n += c.numel()
+    total = float(size.sum()) + other_n
+    return {
+        "stacked_layer_share_leaf_scale": (zero_leaf / size).tolist(),
+        "stacked_layer_share_layer_scale": (zero_layer / size).tolist(),
+        "stacked_min_over_max_layer_amax": amax_ratio,
+        "other_leaf_share": other,
+        "all_elements_share_leaf_scale":
+            (float(zero_leaf.sum()) + other_zero) / total,
+        "all_elements_share_layer_scale":
+            (float(zero_layer.sum()) + other_zero) / total}
+
+
+def layer_scaled_mean(torch, grads, ef, paths, n_layers):
+    """``tree_stacked_compressed_mean`` with one int8 scale for each layer
+    of a stacked leaf (the leaves under ``layers/``) instead of one for the
+    leaf: a variant, not the JAX package's formulation."""
+    from repro_torch._tree import tree_flatten, tree_leaves, tree_unflatten
+    from repro_torch.optim import compress
+    flat, tdef = tree_flatten(grads)
+    means, residuals = [], []
+    for path, g, r in zip(paths, flat, tree_leaves(ef.residual)):
+        if path.startswith("layers/") and g.shape[1] == n_layers:
+            parts = [compress.stacked_compressed_mean(g[:, i], r[:, i])
+                     for i in range(n_layers)]
+            m = torch.stack([p for p, _ in parts])
+            nr = torch.stack([p for _, p in parts], dim=1)
+        else:
+            m, nr = compress.stacked_compressed_mean(g, r)
+        means.append(m.to(g.dtype))
+        residuals.append(nr)
+    return (tree_unflatten(tdef, means),
+            compress.EFState(residual=tree_unflatten(tdef, residuals)))
+
+
+def plain_compressed_run(torch, dev, tc, steps: int, layer_scale=False,
+                         probe_step=None) -> tuple:
+    """The compressed step's plain version on one device: the one-device
+    Trainer with each gradient passed through
+    ``compress.tree_stacked_compressed_mean`` (the JAX package's
+    formulation, one pod) before AdamW, or with ``layer_scale`` through
+    :func:`layer_scaled_mean`.  Returns (losses, the
+    :func:`int8_zero_shares` of step ``probe_step``'s gradient, or None)."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models.sharding import tree_paths
+    from repro_torch.optim import compress
+    from repro_torch.train import Trainer, build_train_step
+    t = Trainer(tc, device=dev)
+    ef = compress.ef_init(t.params, n_pod=1)
+    paths = tree_leaves(tree_paths(t.params))
+    n_layers = tc.arch.n_layers
+    exact = t.opt.update
+    calls, probe = 0, None
+
+    def update(grads, state, params, lr, **kw):
+        nonlocal ef, calls, probe
+        calls += 1
+        stacked = tree_map(lambda g: g[None], grads)
+        if calls == probe_step:
+            probe = int8_zero_shares(torch, paths, tree_leaves(stacked),
+                                     tree_leaves(ef.residual), n_layers)
+        if layer_scale:
+            mean, ef = layer_scaled_mean(torch, stacked, ef, paths, n_layers)
+        else:
+            mean, ef = compress.tree_stacked_compressed_mean(stacked, ef)
+        return exact(mean, state, params, lr, **kw)
+    t._step_fn = build_train_step(tc, t.model, t.opt._replace(update=update))
+    losses = [l for _, l in t.train(steps=steps)["history"]]
+    del t, ef
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, probe
+
+
+def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
+    """Phase train-mesh: the slice's main path.  zamba2-1.2b at full width
+    and depth as phase train (bf16 compute, remat "full", AdamW, 8 x 2048,
+    TRAIN_STEPS steps) through the mesh Trainer on a (1, 1, 1) NCCL mesh
+    (``make_host_mesh``), in "auto" and "compressed" modes: auto's losses
+    equal phase train's within 1e-5 relative; 76 ``ssm_scan`` and 38
+    ``ssm_scan.bwd`` launches a step and no other kernel; compressed's
+    first COMPRESSED_REF_STEPS losses equal its plain version's
+    (``plain_compressed_run``) within 1e-5 relative, and its last loss
+    is below its first.  Recorded: compressed over auto loss at the last
+    step (not held to a bound: at 8 full-size steps the int8 hop trails
+    the exact one; PERF.md §6), step ms beside phase train's, peak memory,
+    the pod hop's wire bytes (``compression_wire_bytes``), and two readings
+    of the gap's cause: the int8 zero shares of step
+    COMPRESSED_PROBE_STEP's gradient (``int8_zero_shares``) and the plain
+    compressed step with one scale a layer (``layer_scaled_mean``) run
+    TRAIN_STEPS steps, its last loss over auto's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.compress import compression_wire_bytes
+    from repro_torch.train import TrainConfig
+    cfg = get_config("zamba2-1.2b")
+    b, s = TRAIN_SHAPE
+    want = {"ssm_scan": 2 * cfg.n_layers * TRAIN_STEPS,
+            "ssm_scan.bwd": cfg.n_layers * TRAIN_STEPS}
+    runs = {}
+    with nccl_world("mesh"):
+        mesh = make_host_mesh()
+        for mode in ("auto", "compressed"):
+            tc = TrainConfig(arch=cfg, global_batch=b, seq_len=s,
+                             steps=TRAIN_STEPS, warmup_steps=2, log_every=1,
+                             seed=0, pod_grad_mode=mode)
+            r = mesh_train_run(torch, dev, tc, mesh, TRAIN_STEPS)
+            trainer = r.pop("trainer")
+            if mode == "compressed":
+                check(trainer.ef_state is not None,
+                      "train-mesh: compressed mode kept no residuals")
+                r["wire_bytes"] = dict(zip(
+                    ("float32", "int8"),
+                    compression_wire_bytes(trainer.params)))
+            r["median_step_ms_3_to_8"] = statistics.median(r["step_ms"][2:])
+            runs[mode] = r
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    tc = TrainConfig(arch=cfg, global_batch=b, seq_len=s, steps=TRAIN_STEPS,
+                     warmup_steps=2, log_every=1, seed=0,
+                     pod_grad_mode="compressed")
+    plain, zero_shares = plain_compressed_run(
+        torch, dev, tc, COMPRESSED_REF_STEPS, probe_step=COMPRESSED_PROBE_STEP)
+    per_layer, _ = plain_compressed_run(torch, dev, tc, TRAIN_STEPS,
+                                        layer_scale=True)
+    auto, comp = runs["auto"]["losses"], runs["compressed"]["losses"]
+    rel = [abs(a - t) / abs(t) for a, t in zip(auto, train_losses)]
+    rel_plain = [abs(c - p) / abs(p) for c, p in zip(comp, plain)]
+    ratio = comp[-1] / auto[-1]
+    per_layer_ratio = per_layer[-1] / auto[-1]
+    emit(phase="train-mesh", arch=cfg.name, mesh=[1, 1, 1],
+         mesh_axes=["pod", "data", "model"], backend="nccl", batch=b, seq=s,
+         steps=TRAIN_STEPS, runs=runs, auto_vs_train_max_rel=max(rel),
+         compressed_plain_losses=plain,
+         compressed_vs_plain_max_rel=max(rel_plain),
+         compressed_over_auto_loss_at_last_step=ratio,
+         compressed_int8_zero_shares_at_step=COMPRESSED_PROBE_STEP,
+         compressed_int8_zero_shares=zero_shares,
+         layer_scale_losses=per_layer,
+         layer_scale_over_auto_loss_at_last_step=per_layer_ratio,
+         train_median_step_ms_3_to_8=train_timing["median_step_ms_3_to_8"],
+         train_peak_mem_bytes=train_timing["peak_mem_bytes"],
+         launches_per_step={k: v // TRAIN_STEPS for k, v in want.items()},
+         note="host-clock ms of each step ending in a synchronize; "
+              "collectives over a group of one rank are skipped, so the "
+              "mesh step on one card adds the funnel's copies, the "
+              "compressed hop's int8 round trip and its residuals")
+    for mode, r in runs.items():
+        check(r["launches"] == want, f"train-mesh {mode}: launches "
+              f"{r['launches']}, want {want}")
+        losses = r["losses"]
+        check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0],
+              f"train-mesh {mode}: losses {losses}")
+    check(max(rel) <= 1e-5, f"train-mesh: auto losses {auto} against phase "
+          f"train's {train_losses}")
+    check(len(plain) == COMPRESSED_REF_STEPS and max(rel_plain) <= 1e-5,
+          f"train-mesh: compressed losses {comp} against the plain "
+          f"compressed step's {plain}")
+    check(zero_shares is not None and len(per_layer) == TRAIN_STEPS
+          and all(map(math.isfinite, per_layer)),
+          f"train-mesh: the one-scale-a-layer run's losses {per_layer}")
+    return {"launches": runs["auto"]["launches"], "runs": runs}
+
+
+def families_train_phase(torch, dev) -> dict:
+    """Phase families-train: internvl2-2b (8 x (256 patches + 1792
+    tokens)) and whisper-base (8 x 1500 frames, 448 tokens) at full size
+    (bf16 compute, AdamW, peak lr 1e-4 after 4 warmup steps: at 3e-4
+    after one, internvl2-2b's loss rose from 10.0 to 13.6 at its third
+    step) through the mesh Trainer on a (1, 1, 1) NCCL mesh,
+    FAMILY_TRAIN_STEPS steps: losses finite, the last below the first;
+    step ms and peak memory.  internvl2-2b's batch is halved only
+    if 8 rows do not fit the card, and the cut is recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import TrainConfig
+    out = {}
+    with nccl_world("families"):
+        mesh = make_host_mesh()
+        for arch, b, s in FAMILY_TRAIN:
+            cfg = get_config(arch)
+            cut = None
+            while True:
+                tc = TrainConfig(arch=cfg, global_batch=b, seq_len=s,
+                                 steps=FAMILY_TRAIN_STEPS,
+                                 peak_lr=FAMILY_TRAIN_LR[0],
+                                 warmup_steps=FAMILY_TRAIN_LR[1],
+                                 log_every=1, seed=0)
+                try:
+                    r = mesh_train_run(torch, dev, tc, mesh,
+                                       FAMILY_TRAIN_STEPS)
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    check(arch == "internvl2-2b" and b == 8,
+                          f"families-train: {arch} at batch {b} does not "
+                          f"fit the card")
+                    cut = f"batch {b} -> {b // 2}: {b} rows did not fit"
+                    b //= 2
+            del r["trainer"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            r.update(batch=b, seq=s, cut=cut, layers=cfg.n_layers,
+                     d_model=cfg.d_model,
+                     median_step_ms=statistics.median(r["step_ms"][2:]))
+            out[arch] = r
+    emit(phase="families-train", runs=out, mesh=[1, 1, 1], backend="nccl",
+         note="host-clock ms of each step ending in a synchronize; median "
+              "over steps 3-8; no kernel launches (attention under a "
+              "gradient runs the plain path)")
+    for arch, r in out.items():
+        losses = r["losses"]
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"families-train {arch}: losses {losses}")
+        check(not r["launches"], f"families-train {arch}: kernels launched "
+              f"{r['launches']}")
+    return out
+
+
+def moe_train_phase(torch, dev) -> dict:
+    """Phase moe-train: the reduced MoE configs on one NCCL rank.  The
+    ``shuffle`` dispatch's gradients (``dist_check.moe_grads``: y, x and
+    every parameter, float32, capacity factor 8 where nothing drops)
+    equal the ``einsum`` dispatch's within 1e-4; with a planted detached
+    ``all_to_all`` (the parent commit's) the check must fail.  Then
+    MOE_TRAIN_STEPS Trainer steps of reduced kimi-k2 with the shuffle
+    dispatch in the expert group against the einsum dispatch (losses
+    within 1e-4 relative), and of reduced llama4-scout."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import dist_check
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_expert_group
+    from repro_torch.train import Trainer, TrainConfig
+    tol = dist_check.MOE_GRAD_TOL
+    params, x = dist_check.moe_inputs()
+    cfg = get_config(dist_check.MOE_ARCH, reduced=True,
+                     capacity_factor=dist_check.MOE_CFS[-1],
+                     **dist_check.MOE_OVERRIDES)
+    p = {k: v.to(dev) for k, v in tree_from_numpy(params).items()}
+    xt = torch.from_numpy(x).to(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def errors():
+        with use_expert_group(dist.group.WORLD):
+            got = dist_check.moe_grads(p, cfg, xt, moe._moe_shuffle)
+        want = dist_check.moe_grads(p, cfg, xt, moe._moe_einsum)
+        err = {"y": (got[0] - want[0]).abs().max().item(),
+               "x": (got[2] - want[2]).abs().max().item()}
+        for k in want[1]:
+            err[k] = (got[1][k] - want[1][k]).abs().max().item()
+        ok = all(torch.allclose(a, b, rtol=tol, atol=tol) for a, b in
+                 [(got[0], want[0]), (got[2], want[2])]
+                 + [(got[1][k], want[1][k]) for k in want[1]])
+        return ok, err
+
+    losses = {}
+    with nccl_world("moe_train"):
+        ok, err = errors()
+        check(ok, f"moe-train: shuffle vs einsum gradients {err}")
+        real = moe.all_to_all
+        moe.all_to_all = lambda send, group=None: D._all_to_all(
+            send.detach(), group)
+        try:
+            planted_ok, planted_err = errors()
+        finally:
+            moe.all_to_all = real
+        check(not planted_ok, "moe-train: the check passed a detached "
+              f"all_to_all {planted_err}")
+        for arch, dispatch in (("kimi-k2-1t-a32b", "einsum"),
+                               ("kimi-k2-1t-a32b", "shuffle"),
+                               ("llama4-scout-17b-a16e", "einsum")):
+            c = get_config(arch, reduced=True, capacity_factor=8.0,
+                           moe_dispatch=dispatch)
+            tc = TrainConfig(arch=c, global_batch=8, seq_len=64,
+                             steps=MOE_TRAIN_STEPS, warmup_steps=1,
+                             log_every=1, seed=0)
+            t = Trainer(tc, device=dev)
+            with use_expert_group(dist.group.WORLD if dispatch == "shuffle"
+                                  else None):
+                losses[f"{arch}/{dispatch}"] = [
+                    l for _, l in t.train()["history"]]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k, v in losses.items():
+        check(len(v) == MOE_TRAIN_STEPS and all(map(math.isfinite, v)),
+              f"moe-train {k}: losses {v}")
+    a, b = losses["kimi-k2-1t-a32b/shuffle"], losses["kimi-k2-1t-a32b/einsum"]
+    check(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(a, b)),
+          f"moe-train: shuffle losses {a} against einsum {b}")
+    emit(phase="moe-train", grad_max_abs_err=err, tolerance=tol,
+         planted_detached_all_to_all={"check_passed": planted_ok,
+                                      "max_abs_err": planted_err},
+         losses=losses, world_size=1, backend="nccl")
+    return {"err": err}
+
+
+def train_gloo_phase() -> dict:
+    """Phase train-gloo, host work: ``python -m repro_torch.dist_check
+    --cases train,elastic-train,pipeline,moe-grad --check`` on gloo CPU
+    ranks at each world size of TRAIN_GLOO_WORLDS (the mesh trainer on
+    every layout of ``TRAIN_MESHES`` against one device, elastic resume on half the ranks, the GPipe
+    schedule and the MoE shuffle's gradients, each checked on every
+    rank)."""
+    import os
+    import shutil
+    import tempfile
+    recs = []
+    for world in TRAIN_GLOO_WORLDS:
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_gloo_"))
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.dist_check", "--world",
+                 str(world), "--out", str(tmp), "--cases",
+                 ",".join(TRAIN_GLOO_CASES), "--check", "--timeout", "240"],
+                capture_output=True, text=True, timeout=300,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                     "CUDA_VISIBLE_DEVICES": ""})
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        check(proc.returncode == 0,
+              f"train-gloo: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(rec["ok"] and rec["entries_held"] > 0, f"train-gloo: {rec}")
+        recs.append(rec)
+    emit(phase="train-gloo", kind="host work (CPU ranks, gloo)", runs=recs)
+    return {"runs": recs}
 
 
 def main() -> int:
@@ -4351,8 +4807,17 @@ def main() -> int:
     parity = train_parity_phase(torch, dev)
     trained = train_phase(torch, dev)
     resume = train_resume_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 31-34. the parallel-training half: the mesh Trainer ------------
+    meshed = train_mesh_phase(torch, dev, trained["losses"],
+                              trained["timing"])
+    families_train_phase(torch, dev)
+    moe_train_phase(torch, dev)
+    train_gloo_phase()
     emit(phase="train-summary", seconds=time.perf_counter() - t0,
          parity=parity, launches=trained["launches"],
+         mesh_launches=meshed["launches"],
          resume_final_loss_diff=resume["final_loss_diff"])
     t = bwd["totals"]
     bytes_ms, ops_ms = t["bytes"] / mem_rate * 1e3, t["ops"] / ALU_RATE * 1e3
@@ -4362,7 +4827,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan.py:65",
         "vjp": "src/repro/kernels/ops.py:95 (_ssm_scan_bwd runs the "
                "kernel reversed)",
-        "launches": trained["launches"]["ssm_scan.bwd"],
+        "launches": meshed["launches"]["ssm_scan.bwd"],
+        "launches_by_path": {"train": trained["launches"]["ssm_scan.bwd"],
+                             "train-mesh": meshed["launches"][
+                                 "ssm_scan.bwd"]},
         "max_abs_err": bwd["max_abs_err"], "ms": t["ms"],
         "b2b_ms": t["b2b_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
@@ -4377,8 +4845,10 @@ def main() -> int:
             # the forward kernel's launches on the training path as well
             row["launches_by_path"] = {
                 "serving": row["launches"],
-                "train": trained["launches"]["ssm_scan"]}
-            row["launches"] += trained["launches"]["ssm_scan"]
+                "train": trained["launches"]["ssm_scan"],
+                "train-mesh": meshed["launches"]["ssm_scan"]}
+            row["launches"] += (trained["launches"]["ssm_scan"]
+                                + meshed["launches"]["ssm_scan"])
     for row in summary[:2]:
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in by_path.items()}

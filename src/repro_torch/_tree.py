@@ -3,7 +3,9 @@
 Payloads, plan outputs and cost accumulators are nests of dicts, lists,
 tuples and NamedTuples with tensors (or arrays, or scalars) at the leaves.
 Dicts flatten in sorted-key order and ``None`` is an empty node, as in
-``jax.tree_util``, so leaf orders agree with the JAX package's.
+``jax.tree_util``, so leaf orders agree with the JAX package's.  A tuple
+whose class sets ``_tree_leaf`` (a sharding spec) is a leaf, as JAX's
+``PartitionSpec`` is.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
     def walk(node):
         if node is None:
             return None
+        if getattr(node, "_tree_leaf", False):
+            leaves.append(node)
+            return "*"
         if isinstance(node, dict):
             keys = sorted(node)
             return (dict, keys, [walk(node[k]) for k in keys])

@@ -50,30 +50,116 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
-    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``: block
-    j of ``send``'s leading axis goes to rank j; block i of the result
-    came from rank i."""
+def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     send = send.contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(_wire(recv), _wire(send), group=group)
     return recv
 
 
-def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along the leading axis in rank
-    order (``lax.all_gather(tiled=True)``)."""
+def _all_gather_plain(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
-    out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
+                      + tuple(x.shape[1:]))
     _all_gather(_wire(out), _wire(x), group=group)
     return out
 
 
-def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM,
-               group=None) -> torch.Tensor:
-    """``psum`` (SUM) or ``pmax`` (MAX) as a new tensor."""
+def _all_reduce_plain(x: torch.Tensor, op, group) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """A tiled all-to-all is a permutation of blocks across the group; its
+    backward sends each block of the gradient back where it came from,
+    which is the same all-to-all."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        return _all_to_all(send, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The backward of an all-gather is a reduce-scatter: every rank's
+    block of the gradient, summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather_plain(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.group), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The backward of a SUM all-reduce is a SUM all-reduce: every rank's
+    output reads every rank's input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_plain(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_plain(grad, dist.ReduceOp.SUM, ctx.group), None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+# The collectives below carry a gradient where their input does (a float
+# tensor that requires grad, under grad mode): the objective is the sum of
+# every rank's loss, and each rank calls ``backward`` on its own, so the
+# backward collectives meet as the forward ones did.  Other inputs (ints,
+# bools, detached floats) take the plain collective.
+
+def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``: block
+    j of ``send``'s leading axis goes to rank j; block i of the result
+    came from rank i."""
+    if _tracked(send):
+        return _AllToAll.apply(send, group)
+    return _all_to_all(send, group)
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the leading axis in rank
+    order (``lax.all_gather(tiled=True)``)."""
+    if _tracked(x):
+        return _AllGather.apply(x, group)
+    return _all_gather_plain(x, group)
+
+
+def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM,
+               group=None) -> torch.Tensor:
+    """``psum`` (SUM) or ``pmax`` (MAX) as a new tensor.  A SUM carries a
+    gradient; a MAX carries none (its result is detached)."""
+    if _tracked(x):
+        if op == dist.ReduceOp.SUM:
+            return _AllReduceSum.apply(x, group)
+        x = x.detach()
+    return _all_reduce_plain(x, op, group)
+
+
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.psum_scatter(tiled=True)``: the group's SUM of ``x``, whose
+    leading axis is split into one block a rank; rank i keeps block i.
+    Carries no gradient."""
+    x = x.contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
+                      + tuple(x.shape[1:]))
+    _reduce_scatter(out, x, group=group)
     return out
 
 
@@ -187,9 +273,7 @@ def funnel_allreduce(x: torch.Tensor, inner_group,
         if outer_group is not None:
             dist.all_reduce(y, group=outer_group)
         return y
-    xt = x.movedim(scatter_dim, 0).contiguous()
-    shard = xt.new_empty((xt.shape[0] // k,) + tuple(xt.shape[1:]))
-    _reduce_scatter(shard, xt, group=inner_group)
+    shard = reduce_scatter(x.movedim(scatter_dim, 0), inner_group)
     if outer_group is not None:
         dist.all_reduce(shard, group=outer_group)
     return all_gather(shard, inner_group).movedim(0, scatter_dim)
@@ -287,5 +371,5 @@ __all__ = [
     "ShuffleOut", "shuffle_alltoall", "keyed_hop", "funnel_allreduce",
     "segment_scatter_add", "AttnPartial", "softmax_merge_pair",
     "softmax_merge_axis", "ShardedSortOut", "sharded_sample_sort",
-    "all_to_all", "all_gather", "all_reduce",
+    "all_to_all", "all_gather", "all_reduce", "reduce_scatter",
 ]

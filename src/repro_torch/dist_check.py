@@ -18,11 +18,28 @@ layer's ``shuffle`` dispatch with the experts sharded over the ranks
 (variant ``shuffle``) and, on rank 0, the ``einsum`` dispatch (variant
 ``einsum``), at each of ``MOE_CFS``.
 
+The training cases run the mesh ``Trainer`` (:mod:`repro_torch.train.zero`)
+on ``DeviceMesh``es over the ranks.  ``train``: every layout of
+``TRAIN_MESHES[world]`` for each of ``TRAIN_ARCHS``, five steps in
+``"auto"`` mode, the ``"compressed"`` pod hop where the layout has two
+pods, and AdamW / Adafactor ZeRO state where a layout shards it; rank 0
+also trains without a mesh (variant ``single``) and holds every mesh run
+to it within ``TRAIN_TOL``.  ``elastic-train``: three steps on every rank
+with a checkpoint, a resume on half the ranks through ``plan_mesh`` and
+three more steps, against an uninterrupted run on that half.
+``pipeline``: ``run_pipeline`` with one stage a rank against the
+sequential chain, forward and gradients.  ``moe-grad``: the gradients of
+the ``shuffle`` dispatch (every rank on the same tokens, at a capacity
+where nothing drops) against the ``einsum`` dispatch's.  These cases
+check themselves on every rank (``check``), ``--check`` or not.
+
 Nothing here imports JAX.  The plan families are written once for either
 package's ``core`` module (``m``) and array module (``xp``), so the tests
 run the same cases on the JAX package as the oracle.  Draws: ``--keys``
-gives each family's sample indices (the tests hand over the JAX package's
-own draws); without it each family takes an int seed.
+gives each family's sample indices and the training cases' initial params
+(the tests hand over the JAX package's own draws and init, under
+``train/<arch>/<leaf index>``); without it each family takes an int seed
+and each model the port's seeded init.
 """
 from __future__ import annotations
 
@@ -50,7 +67,7 @@ from .core.recovery import (Checkpointer, FaultConfig, ShardFailure,
 from .obs import Tracer
 
 CASES = ("shuffle", "rounds", "plans", "collectives", "elastic", "tracer",
-         "errors", "moe")
+         "errors", "moe", "train", "elastic-train", "pipeline", "moe-grad")
 #: the plan families run on the kernel scatter as well
 KERNEL_FAMILIES = ("sort", "hull2d")
 SEED = 5
@@ -461,6 +478,255 @@ def case_moe(res: Results, rank: int, keys) -> None:
             res.put(f"moe-{cf}", "einsum", moe._moe_einsum(p, cfg, xt))
 
 
+# ---------------------------------------------------------------------------
+# The parallel-training cases
+# ---------------------------------------------------------------------------
+
+#: the configs the mesh trainer runs: a dense and a hybrid one
+TRAIN_ARCHS = ("qwen1.5-0.5b", "zamba2-1.2b")
+#: (pod, data, model) layouts a world runs
+TRAIN_MESHES = {1: ((1, 1, 1),), 2: ((1, 2, 1), (2, 1, 1)),
+                4: ((1, 4, 1), (2, 2, 1), (1, 2, 2)), 8: ((2, 2, 2),)}
+TRAIN_STEPS = 5
+#: mesh against single-device runs: losses and params, relative to each
+#: leaf's largest magnitude (the sums are taken in another order)
+TRAIN_TOL = 1e-5
+#: the compressed hop against the exact one after TRAIN_STEPS: the JAX
+#: package's own bound
+COMPRESSED_TOL = 0.05
+
+
+def train_config(arch: str, steps: int = TRAIN_STEPS, **kw):
+    from .configs import get_config
+    from .train import TrainConfig
+    over = {k: kw.pop(k) for k in ("optimizer",) if k in kw}
+    cfg = get_config(arch, reduced=True, **over)
+    return TrainConfig(**{**dict(arch=cfg, global_batch=8, seq_len=16,
+                                 steps=steps, warmup_steps=2, log_every=1,
+                                 seed=5), **kw})
+
+
+def _init_params(arch: str, keys):
+    """The training case's initial params: the ``--keys`` leaves (the JAX
+    init) on the port's nest, else None (the port's seeded init)."""
+    if keys is None or f"train/{arch}/0" not in keys:
+        return None
+    from ._tree import tree_flatten, tree_unflatten
+    from .models import build_model
+    struct = tree_flatten(build_model(train_config(arch).arch,
+                                      device="cpu").param_tree())[1]
+    n = sum(1 for k in keys if k.startswith(f"train/{arch}/"))
+    return tree_unflatten(struct, [keys[f"train/{arch}/{i}"]
+                                   for i in range(n)])
+
+
+def _train(tc, params, mesh):
+    from .train import Trainer
+    t = Trainer(tc, device="cpu", params=params, mesh=mesh)
+    r = t.train()
+    return t, np.array([l for _, l in r["history"]], np.float64)
+
+
+def _held(got_losses, got_params, want_losses, want_params, tol, what):
+    """Losses within ``tol`` relative; params within ``tol`` in the
+    relative L2 norm of the whole tree and ``10 tol`` of each leaf (AdamW
+    turns a gradient near its eps, or one that is rounding noise, such as
+    a key bias's, into a step that differs with the summation order)."""
+    check(np.all(np.abs(got_losses - want_losses)
+                 <= tol * np.abs(want_losses)), f"{what}: losses "
+          f"{got_losses} against {want_losses}")
+    sq_err = sq_ref = 0.0
+    for i, (g, w) in enumerate(zip(got_params, want_params)):
+        g, w = _np(g).astype(np.float64), _np(w).astype(np.float64)
+        e, n = float(np.sum((g - w) ** 2)), float(np.sum(w ** 2))
+        check(e <= (10 * tol) ** 2 * n, f"{what}: param leaf {i} off by "
+              f"{np.sqrt(e / max(n, 1e-300))} relative")
+        sq_err, sq_ref = sq_err + e, sq_ref + n
+    check(sq_err <= tol ** 2 * sq_ref, f"{what}: params off by "
+          f"{np.sqrt(sq_err / sq_ref)} relative")
+
+
+def case_train(res: Results, rank: int, keys) -> None:
+    from .launch.mesh import make_host_mesh
+    world = dist.get_world_size()
+    for arch in TRAIN_ARCHS:
+        params = _init_params(arch, keys)
+        single = None
+        if rank == 0:
+            t, losses = _train(train_config(arch), params, None)
+            single = (losses, [p.detach().clone()
+                               for p in tree_leaves(t.params)])
+            res.put(f"train-{arch}", "single", (losses, t.params))
+        for shape in TRAIN_MESHES[world]:
+            tag = f"train-{arch}-{'x'.join(map(str, shape))}"
+            mesh = make_host_mesh(shape, ("pod", "data", "model"))
+            t, losses = _train(train_config(arch), params, mesh)
+            res.put(tag, "mesh", (losses, t.params))
+            local, whole = t._mesh_step.moment_bytes(t.opt_state)
+            # AdamW's two float32 moments, each leaf's whole bytes over
+            # the shard count its spec implies
+            want = sum(2 * 4 * int(np.prod(lay.shape)) // lay.n_shards
+                       for lay in t._mesh_step.layouts)
+            res.meta(tag, "per-rank", moment_bytes=local,
+                     whole_bytes=whole, implied_bytes=want)
+            check(local == want, f"{tag}: moment bytes {local} != {want}")
+            if single is not None:
+                _held(losses, tree_leaves(t.params), *single, TRAIN_TOL,
+                      tag)
+            if shape[0] == 2 and arch == TRAIN_ARCHS[0]:
+                tc = train_config(arch, pod_grad_mode="compressed")
+                tcomp, closs = _train(tc, params, mesh)
+                res.put(tag, "compressed", (closs, tcomp.params))
+                check(tcomp.ef_state is not None, f"{tag}: no EF state")
+                check(abs(closs[-1] - losses[-1]) <= COMPRESSED_TOL
+                      * abs(losses[-1]), f"{tag}: compressed final loss "
+                      f"{closs[-1]} against exact {losses[-1]}")
+    # Adafactor's factored statistics over a layout that splits both
+    # dimensions of a matrix, against one device
+    shape = TRAIN_MESHES[world][-1]
+    tc = train_config(TRAIN_ARCHS[0], optimizer="adafactor")
+    want = None
+    if rank == 0:
+        t, losses = _train(tc, None, None)
+        want = (losses, [p.detach().clone() for p in tree_leaves(t.params)])
+    t, losses = _train(tc, None, make_host_mesh(shape,
+                                                ("pod", "data", "model")))
+    res.put("train-adafactor", "mesh", (losses, t.params))
+    if want is not None:
+        _held(losses, tree_leaves(t.params), *want, TRAIN_TOL,
+              "train-adafactor")
+
+
+def case_elastic_train(res: Results, rank: int, keys, out_dir: Path) -> None:
+    """Train 3 steps on every rank with a checkpoint at step 3; resume on
+    half the ranks (``plan_mesh``) and train to step 6; against an
+    uninterrupted run on that half."""
+    from .launch.mesh import make_host_mesh
+    from .train import Trainer
+    from .train.elastic import plan_mesh
+    world = dist.get_world_size()
+    half = max(1, world // 2)
+    arch = "tinyllama-1.1b"
+    ck = out_dir / "elastic-train"
+    tc = lambda d: train_config(arch, steps=6, ckpt_dir=str(d), ckpt_every=3)
+    t1 = Trainer(tc(ck), device="cpu", mesh=make_host_mesh())
+    t1.train(steps=3)
+    state = t1.state_tree()
+    if rank == 0:
+        res.put("elastic-train", "step3", state)
+    small = plan_mesh(half)
+    res.meta("elastic-train", "plan", shape=np.array(tuple(small.shape)))
+    res.meta("elastic-train", "per-rank",
+             member=small.get_coordinate() is not None)
+    if small.get_coordinate() is not None:
+        t2 = Trainer(tc(ck), device="cpu", mesh=small)
+        check(t2.maybe_resume() and t2.step == 3, "elastic-train: resume")
+        r2 = t2.train()
+        t3 = Trainer(tc(out_dir / f"elastic-train-ref{rank}"), device="cpu",
+                     mesh=small)
+        r3 = t3.train()
+        got = np.array([l for _, l in r2["history"]])
+        want = np.array([l for _, l in r3["history"]])[-len(got):]
+        _held(got, tree_leaves(t2.params), want, tree_leaves(t3.params),
+              TRAIN_TOL, "elastic-train")
+        if rank == 0:
+            res.put("elastic-train", "resumed", (got, t2.params))
+            res.put("elastic-train", "uninterrupted", (want, t3.params))
+    dist.barrier()
+
+
+def pipeline_inputs(n_stages: int):
+    """tests/test_distributed.py's pipeline: (ws (S, d, d), xs (6, 8, d))."""
+    rng = np.random.default_rng(0)
+    ws = rng.normal(size=(n_stages, 16, 16)).astype(np.float32) * \
+        np.float32(0.3)
+    xs = rng.normal(size=(6, 8, 16)).astype(np.float32)
+    return ws, xs
+
+
+PIPE_FWD_TOL, PIPE_GRAD_TOL = 2e-5, 1e-5
+
+
+def case_pipeline(res: Results, rank: int, keys) -> None:
+    from .train.pipeline import run_pipeline
+    world = dist.get_world_size()
+    ws_np, xs_np = pipeline_inputs(world)
+    stage_fn = lambda w, x: torch.tanh(x @ w)
+    ws = torch.from_numpy(ws_np).requires_grad_()
+    xs = torch.from_numpy(xs_np).requires_grad_()
+    out = run_pipeline(stage_fn, ws, xs)
+    (out ** 2).sum().backward()
+    res.put("pipeline", "pipelined", out)
+    res.put("pipeline", "per-rank", (ws.grad[rank], xs.grad))
+    # the sequential chain
+    ws2 = torch.from_numpy(ws_np).requires_grad_()
+    xs2 = torch.from_numpy(xs_np).requires_grad_()
+    want = xs2
+    for s in range(world):
+        want = stage_fn(ws2[s], want)
+    (want ** 2).sum().backward()
+    res.put("pipeline", "sequential", want)
+    check(torch.allclose(out, want, rtol=PIPE_FWD_TOL, atol=PIPE_FWD_TOL),
+          "pipeline: outputs differ from the sequential chain")
+    check(torch.allclose(ws.grad[rank], ws2.grad[rank], rtol=PIPE_GRAD_TOL,
+                         atol=PIPE_GRAD_TOL),
+          f"pipeline: stage {rank}'s gradient differs")
+    if rank == 0:
+        check(torch.allclose(xs.grad, xs2.grad, rtol=PIPE_GRAD_TOL,
+                             atol=PIPE_GRAD_TOL),
+              "pipeline: the input's gradient differs")
+    else:
+        check(float(xs.grad.abs().max()) == 0,
+              "pipeline: the input's gradient reached a later stage")
+    others = [s for s in range(world) if s != rank]
+    check(all(float(ws.grad[s].abs().max()) == 0 for s in others),
+          "pipeline: a stage's gradient reached another rank")
+
+
+#: the shuffle dispatch's gradients against the einsum one's (float32)
+MOE_GRAD_TOL = 1e-4
+
+
+def moe_grads(p, cfg, x, dispatch):
+    """(y, {name: grad}, x.grad) of ``dispatch(p, cfg, x).y.sum()``."""
+    p = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    x = x.detach().clone().requires_grad_()
+    y = dispatch(p, cfg, x).y
+    y.sum().backward()
+    return y.detach(), {k: (torch.zeros_like(v) if v.grad is None
+                            else v.grad) for k, v in p.items()}, x.grad
+
+
+def case_moe_grad(res: Results, rank: int, keys) -> None:
+    """Every rank holds every token (the (1, k) mesh), so each rank's
+    expert slice gathers every rank's copy: the group's summed expert
+    gradient over k is the einsum dispatch's."""
+    from .configs import get_config
+    from .interop import tree_from_numpy
+    from .models import moe
+    from .models.sharding import use_expert_group
+    world = dist.get_world_size()
+    params, x = moe_inputs()
+    cfg = get_config(MOE_ARCH, reduced=True, capacity_factor=MOE_CFS[-1],
+                     **MOE_OVERRIDES)
+    p, xt = tree_from_numpy(params), torch.from_numpy(x)
+    with use_expert_group(dist.group.WORLD):
+        y, grads, gx = moe_grads(p, cfg, xt, moe._moe_shuffle)
+    experts = {k: D.all_reduce(v, group=None) / world
+               for k, v in grads.items() if k != "router"}
+    res.put("moe-grad", "per-rank", (y, grads, gx))
+    res.put("moe-grad", "group", experts)
+    ye, ge, gxe = moe_grads(p, cfg, xt, moe._moe_einsum)
+    close = lambda a, b: torch.allclose(a, b, rtol=MOE_GRAD_TOL,
+                                        atol=MOE_GRAD_TOL)
+    check(close(y, ye), "moe-grad: outputs differ")
+    check(close(gx, gxe), "moe-grad: x's gradient differs")
+    check(close(grads["router"], ge["router"]),
+          "moe-grad: the router's gradient differs")
+    for k, v in experts.items():
+        check(close(v, ge[k]), f"moe-grad: {k}'s gradient differs")
+
+
 def case_errors(res: Results, rank: int, keys) -> None:
     eng = ShardedEngine(device="cpu")
     k = eng.n_shards
@@ -493,10 +759,12 @@ def run_rank(rank: int, world: int, out_dir: Path, cases, keys) -> None:
         res = Results()
         t0 = time.perf_counter()
         for case in cases:
-            if case == "elastic":
-                case_elastic(res, rank, keys, out_dir)
+            if case in ("elastic", "elastic-train"):
+                globals()[f"case_{case.replace('-', '_')}"](res, rank, keys,
+                                                             out_dir)
             else:
-                globals()[f"case_{case}"](res, rank, keys)
+                globals()[f"case_{case.replace('-', '_')}"](res, rank,
+                                                             keys)
         res["#seconds"] = np.asarray(time.perf_counter() - t0)
         np.savez(out_dir / f"rank{rank}.npz", **res)
     finally:
@@ -539,8 +807,9 @@ def check_results(ranks) -> int:
 def launch(world: int, out_dir: Path, cases, keys_path, timeout: float,
            do_check: bool) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
-    for stale in out_dir.glob("ckpt-rank*"):
-        shutil.rmtree(stale)
+    for pattern in ("ckpt-rank*", "elastic-train*"):
+        for stale in out_dir.glob(pattern):
+            shutil.rmtree(stale)
     for stale in out_dir.glob("rank*"):
         stale.unlink()
     (out_dir / "store").unlink(missing_ok=True)

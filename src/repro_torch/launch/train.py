@@ -4,17 +4,44 @@
       --reduced --steps 50 --batch 8 --seq 64 --device cpu \\
       [--ckpt-dir /tmp/run1]
 
-``--arch`` takes any config of a ported family (the dense ones,
-``zamba2-1.2b``, ``rwkv6-1.6b``).  Trains on the card (``--device cuda``,
-the default) unless asked for the CPU.  The loop is restart-safe:
-launching again with the same ``--ckpt-dir`` resumes exactly.  Prints the
-JAX launcher's JSON line.
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen1.5-0.5b --reduced --device cpu --mesh host \\
+      [--pod-grad-mode compressed]
+
+``--arch`` takes any of the ten configs: the dense ones, ``zamba2-1.2b``,
+``rwkv6-1.6b``, the MoE ``kimi-k2-1t-a32b`` and ``llama4-scout-17b-a16e``,
+the VLM ``internvl2-2b`` and the enc-dec ``whisper-base``.  Trains on the
+card (``--device cuda``, the default) unless asked for the CPU.
+
+``--mesh host`` trains on every rank of a process group started from
+torchrun's environment (NCCL on the card, one rank a card; gloo with
+``--device cpu``) over the ``(1, world, 1)`` ``("pod", "data", "model")``
+mesh of ``make_host_mesh``; ``--mesh none`` (the default) trains on one
+device.  The loop is restart-safe: launching again with the same
+``--ckpt-dir`` resumes exactly, on any mesh.  Rank 0 prints the JAX
+launcher's JSON line.
 """
 import argparse
 import json
+import os
+
+import torch
+import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config
 from ..train import Trainer, TrainConfig
+from .mesh import make_host_mesh
+
+
+def _host_mesh(device: str):
+    """Start the process group from torchrun's environment and build the
+    host mesh; on the card each rank takes the card of its local rank."""
+    if device.startswith("cuda"):
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return make_host_mesh()
 
 
 def main(argv=None):
@@ -29,24 +56,34 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", choices=["host", "none"], default="none")
     ap.add_argument("--pod-grad-mode", choices=["auto", "compressed"],
                     default="auto")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    tc = TrainConfig(arch=cfg, global_batch=args.batch, seq_len=args.seq,
-                     steps=args.steps, peak_lr=args.lr,
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                     seed=args.seed, pod_grad_mode=args.pod_grad_mode)
-    trainer = Trainer(tc, device=args.device)
-    if trainer.maybe_resume():
-        print(f"resumed from step {trainer.step}")
-    result = trainer.train()
-    print(json.dumps({"arch": cfg.name, "steps": trainer.step,
-                      "final_loss": result["final_loss"],
-                      "wall_s": round(result["wall_s"], 1),
-                      "history": result["history"][-5:]}))
+    mesh = _host_mesh(args.device) if args.mesh == "host" else None
+    device = args.device
+    if mesh is not None and device == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
+    try:
+        tc = TrainConfig(arch=cfg, global_batch=args.batch, seq_len=args.seq,
+                         steps=args.steps, peak_lr=args.lr,
+                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                         seed=args.seed, pod_grad_mode=args.pod_grad_mode)
+        trainer = Trainer(tc, device=device, mesh=mesh)
+        if trainer.maybe_resume() and trainer.is_writer:
+            print(f"resumed from step {trainer.step}")
+        result = trainer.train()
+        if trainer.is_writer:
+            print(json.dumps({"arch": cfg.name, "steps": trainer.step,
+                              "final_loss": result["final_loss"],
+                              "wall_s": round(result["wall_s"], 1),
+                              "history": result["history"][-5:]}))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

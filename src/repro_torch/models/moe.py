@@ -239,14 +239,14 @@ def _moe_shuffle(p: Params, cfg: ArchConfig, x: torch.Tensor) -> MoEOut:
     yb = _expert_ffn(p, cfg, buf[:-1].reshape(e_loc, c_loc, d), mine)
     # back to the arrival slots, then the inverse shuffle
     y_send = yb.reshape(-1, d)[cell.clamp(max=e_loc * c_loc - 1)]
-    y_send = y_send.masked_fill_(~ok[:, None], 0).reshape(n_ep, cap, d)
+    y_send = y_send.masked_fill(~ok[:, None], 0).reshape(n_ep, cap, d)
     back = all_to_all(y_send, group).reshape(-1, d)
     back_slot = all_to_all(out.payload["slot"], group).reshape(-1)
     back_ok = all_to_all(out.valid & ok.reshape(n_ep, cap),
                          group).reshape(-1)
     # the funnel combine: each returned choice, weighted, in its (token,
     # choice) slot; a token's k slots summed
-    contrib = back.mul_(wf[back_slot.long()][:, None].to(dt))
+    contrib = back * wf[back_slot.long()][:, None].to(dt)
     slots = back.new_zeros((n_items + 1, d))
     slots[torch.where(back_ok, back_slot.long(), n_items)] = contrib
     y = slots[:-1].reshape(t_l, k, d).sum(1).reshape(b, s, d)

@@ -69,6 +69,7 @@ when ``cfg.attn_impl == "flash"``, and the Mamba2 and RWKV6 prefill through
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -224,7 +225,14 @@ class _LM(ParamNest):
         rest)."""
         if self.cfg.remat == "none":
             return fn
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+        def run(*args):
+            # the recompute runs in the backward, which on the card runs on
+            # autograd's device thread, where context variables (the MoE's
+            # expert group) are unset: recompute in the forward's context
+            ctx = contextvars.copy_context()
+            return checkpoint(ctx.run, fn, *args, use_reentrant=False)
+        return run
 
     def _batch_tensor(self, batch, key: str) -> Optional[torch.Tensor]:
         v = batch.get(key)

@@ -34,14 +34,18 @@ def adamw_init(params) -> AdamWState:
 def adamw_update(grads, state: AdamWState, params, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
-                 grad_clip: float = 1.0) -> Tuple[Any, AdamWState]:
+                 grad_clip: float = 1.0, gnorm=None
+                 ) -> Tuple[Any, AdamWState]:
     """One step: ``params`` and ``state``'s moments updated in place;
     returns (params, the state with step + 1).  ``lr`` is a float or a 0-d
-    tensor (the schedule's, on the device)."""
+    tensor (the schedule's, on the device).  ``gnorm``, when given, is the
+    global norm to clip by: a ZeRO rank updates shards of the parameters
+    and passes the norm of the whole gradient."""
     step = state.step + 1
     g_leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in g_leaves))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in g_leaves))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.float()
     bc1 = 1 - b1 ** stepf

@@ -1,17 +1,32 @@
-"""Training on one device: the port of ``repro.train.trainer``.
+"""The training loop, on one device or over a mesh: the port of
+``repro.train.trainer``.
 
-One ``train_step`` is one BSP superstep of the JAX package without the
-exchange: the loss and its gradients (``model.loss_fn`` and autograd, with
-``ssm_scan``'s backward kernel on the card), then the optimizer's in-place
-update.  There is no mesh: the gradient funnel across chips
-(``pod_grad_mode="compressed"``) belongs to the distributed slice.
+One ``train_step`` is one BSP superstep.  Without a mesh it is the local
+half alone: the loss and its gradients (``model.loss_fn`` and autograd,
+with ``ssm_scan``'s backward kernel on the card), then the optimizer's
+in-place update.  With a mesh (a ``DeviceMesh`` over ``("pod", "data",
+"model")``, e.g. :func:`repro_torch.launch.mesh.make_host_mesh`) the step
+is :class:`repro_torch.train.zero.MeshStep`: each rank's rows of the
+batch, the two-level gradient funnel (reduce-scatter over ``"data"``, then
+the ``"pod"`` hop), a ZeRO update of the rank's shards and an all-gather
+of the parameters.  The pod hop follows ``pod_grad_mode``:
+
+  'auto'        an exact SUM;
+  'compressed'  the error-feedback int8 funnel (``optim.compress``),
+                cutting the hop's bytes 4x.  Without a ``"pod"`` axis (or
+                without a mesh) it is the exact step, as in the JAX
+                package.
 
 Fault tolerance as in the JAX package: async step-atomic checkpoints every
 ``ckpt_every`` steps, resume from the latest one, and batches that are a
 pure function of the step, so a restart continues the exact data stream.
+Checkpoints are topology-agnostic: a mesh trainer gathers its state to
+whole logical tensors and rank 0 writes them in the JAX package's format;
+on restore every rank takes its shard, on any mesh.
 
   tc = TrainConfig(arch=get_config("zamba2-1.2b"), seq_len=2048)
   trainer = Trainer(tc)                 # on the card; device="cpu" to ask
+  trainer = Trainer(tc, mesh=make_host_mesh())   # every rank of a group
   trainer.maybe_resume()
   result = trainer.train()              # {"history", "final_loss", ...}
 
@@ -31,9 +46,11 @@ from .._tree import tree_leaves, tree_map
 from ..configs.base import ArchConfig
 from ..data import make_pipeline
 from ..models import build_model, model_class
+from ..models.sharding import axis_sizes
 from ..optim import make_optimizer
 from ..optim.schedule import warmup_cosine
 from . import checkpoint as ckpt
+from .zero import MeshStep
 
 
 @dataclasses.dataclass
@@ -51,23 +68,36 @@ class TrainConfig:
     log_every: int = 10
 
 
-def _one_device(tc: TrainConfig) -> None:
-    if tc.pod_grad_mode == "compressed":
-        raise NotImplementedError(
-            "pod_grad_mode='compressed' reduces gradients across pods; it "
-            "comes with the distributed slice of the port")
-
-
-def build_train_step(tc: TrainConfig, model, opt):
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    loss)``: ``params`` is the model's ``trainable_tree()``, which the step
-    updates in place; ``loss`` stays on the device."""
-    _one_device(tc)
-
+def _lr_schedule(tc: TrainConfig):
     def lr_at(step):
         return warmup_cosine(step, peak_lr=tc.peak_lr,
                              warmup_steps=tc.warmup_steps,
                              total_steps=max(tc.steps, 2 * tc.warmup_steps))
+    return lr_at
+
+
+def _check_mesh(tc: TrainConfig, mesh) -> None:
+    if mesh is None:
+        return
+    sizes = axis_sizes(mesh)
+    if tc.arch.family == "moe" and any(n > 1 for n in sizes.values()):
+        # Over 'pod' x 'data' each rank would route its own rows: the aux
+        # loss's router statistics and the capacity groups would form per
+        # rank, not over the global batch as in the JAX Trainer(mesh).
+        raise NotImplementedError(
+            f"a MoE config trains only on a mesh of one rank (got "
+            f"{sizes}): global router statistics and capacity groups "
+            f"over 'pod' x 'data', and expert- and tensor-parallel "
+            f"training over 'model', are not ported yet (ROADMAP item 5d)")
+
+
+def build_train_step(tc: TrainConfig, model, opt):
+    """The one-device step: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, loss)``, where ``params`` is the model's
+    ``trainable_tree()``, updated in place, and ``loss`` stays on the
+    device.  The mesh step is :class:`repro_torch.train.zero.MeshStep`,
+    which :class:`Trainer` builds when it is given a mesh."""
+    lr_at = _lr_schedule(tc)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -91,11 +121,15 @@ class Trainer:
     unless the caller asks for the CPU).  ``params``, when given, is the
     params nest to start from (numpy arrays or tensors under the JAX
     package's names, e.g. the JAX trainer's initial params); otherwise the
-    params are drawn from a generator seeded with ``tc.seed``."""
+    params are drawn from a generator seeded with ``tc.seed``.  ``mesh``,
+    a ``DeviceMesh`` this rank belongs to, makes every rank of it run the
+    mesh step together (the same ``tc`` and params on each)."""
 
-    def __init__(self, tc: TrainConfig, device="cuda", params=None):
-        _one_device(tc)
+    def __init__(self, tc: TrainConfig, device="cuda", params=None,
+                 mesh=None):
+        _check_mesh(tc, mesh)
         self.tc = tc
+        self.mesh = mesh
         self.device = as_device(device, "trainer")
         if params is None:
             self.model = build_model(tc.arch, device=self.device,
@@ -112,12 +146,31 @@ class Trainer:
         self.step = 0
         self.history: list = []
         self.params = self.model.trainable_tree()
-        self.opt_state = self.opt.init(self.params)
-        self._step_fn = build_train_step(tc, self.model, self.opt)
+        self._mesh_step = None
+        self.ef_state = None
+        if mesh is None:
+            self.opt_state = self.opt.init(self.params)
+            self._step_fn = build_train_step(tc, self.model, self.opt)
+        else:
+            self._mesh_step = MeshStep(
+                self.model, self.opt, mesh, _lr_schedule(tc),
+                compressed=tc.pod_grad_mode == "compressed")
+            self.opt_state = self._mesh_step.init_state(self.params)
+            self.ef_state = self._mesh_step.init_ef(self.params)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank writes checkpoints (rank 0 of a mesh)."""
+        return self.mesh is None or all(
+            c == 0 for c in self.mesh.get_coordinate())
 
     def state_tree(self) -> Dict[str, Any]:
-        """What a checkpoint holds: {"params", "opt_state"}."""
-        return {"params": self.params, "opt_state": self.opt_state}
+        """What a checkpoint holds: {"params", "opt_state"}, as whole
+        logical tensors (with a mesh, gathered: every rank must call)."""
+        opt_state = self.opt_state
+        if self._mesh_step is not None:
+            opt_state = self._mesh_step.gather_state(opt_state)
+        return {"params": self.params, "opt_state": opt_state}
 
     def maybe_resume(self) -> bool:
         tc = self.tc
@@ -132,6 +185,8 @@ class Trainer:
                             tree_leaves(restored["params"])):
                 p.copy_(r)
         self.opt_state = restored["opt_state"]
+        if self._mesh_step is not None:
+            self.opt_state = self._mesh_step.shard_state(self.opt_state)
         self.step = int(meta["step"])
         return True
 
@@ -142,18 +197,30 @@ class Trainer:
         steps = steps if steps is not None else tc.steps
         t0 = time.time()
         while self.step < steps:
+            batch = self.pipeline.batch_at(self.step)
+            if self._mesh_step is not None:
+                batch = self._mesh_step.local_rows(batch)
             batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.pipeline.batch_at(self.step).items()}
-            self.params, self.opt_state, loss = self._step_fn(
-                self.params, self.opt_state, batch)
+                     for k, v in batch.items()}
+            if self._mesh_step is None:
+                self.params, self.opt_state, loss = self._step_fn(
+                    self.params, self.opt_state, batch)
+            else:
+                (self.params, self.opt_state, self.ef_state,
+                 loss) = self._mesh_step.step_local(
+                     self.params, self.opt_state, self.ef_state, batch)
             self.step += 1
             if self.step % tc.log_every == 0 or self.step == steps:
                 self.history.append((self.step, float(loss)))
             if tc.ckpt_dir and self.step % tc.ckpt_every == 0:
-                self.saver.save_async(
-                    tc.ckpt_dir, self.step, self.state_tree(),
-                    extra_meta={"arch": tc.arch.name, "seed": tc.seed})
+                tree = self.state_tree()
+                if self.is_writer:
+                    self.saver.save_async(
+                        tc.ckpt_dir, self.step, tree,
+                        extra_meta={"arch": tc.arch.name, "seed": tc.seed})
         self.saver.wait()
+        if self._mesh_step is not None:
+            self._mesh_step.g.barrier(self.device)
         return {"history": self.history, "final_loss": self.history[-1][1]
                 if self.history else None,
                 "wall_s": time.time() - t0}

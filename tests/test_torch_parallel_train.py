@@ -1,0 +1,354 @@
+"""The mesh ``Trainer`` (``repro_torch.train.zero``: rows per rank, the
+funnel, ZeRO-sharded updates, the parameter all-gather) against the JAX
+package's trainer, on gloo CPU ranks.
+
+Exact mode: ``python -m repro_torch.dist_check --cases train`` at 4 and
+8 ranks runs reduced qwen1.5-0.5b (dense) and zamba2-1.2b (hybrid) from
+the JAX trainer's initial params (handed over with ``--keys``) for five
+steps on the (pod, data, model) layouts (1, 4, 1), (2, 2, 1), (1, 2, 2)
+and (2, 2, 2); each is held to the JAX
+``Trainer(mesh=None)``: every logged loss within 1e-5 relative, and the
+final params within 1e-5 in the relative L2 norm of the whole tree and
+1e-4 of each leaf.  (AdamW moves a parameter whose gradient is rounding
+noise, such as qwen's key bias, which softmax ignores, by a step that
+depends on the summation order: the port on one device already differs
+from JAX by 4.5e-5 relative in that leaf.)  Every rank ends with the same
+params, bit for bit (``--check``).
+
+Compressed mode: on the two-pod layouts the error-feedback int8 hop is
+held to the JAX compressed ``build_train_step`` run with a stand-in mesh
+of ``pod = 2`` (it reads only the axis names and the pod size): losses
+within 1e-3 relative, and the final loss within 5 % of exact mode (the
+JAX package's own bound).  ZeRO: each rank's AdamW moment bytes are the
+whole tree's over the shard count each leaf's spec implies.  Elastic:
+``--cases elastic-train`` trains 3 steps on every rank, resumes on half
+through ``plan_mesh`` and equals an uninterrupted run there (dist_check
+holds it); the JAX ``ckpt.restore`` reads the checkpoint the port wrote to
+the port's state, bit for bit.  The MoE (einsum and, in an expert group of
+one gloo rank, shuffle), VLM and enc-dec reduced configs train as the JAX
+``Trainer(mesh=None)`` does, step for step.  ``torchrun ...
+repro_torch.launch.train --mesh host`` prints one JSON line.
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import get_config as jax_get_config
+from repro.data import make_pipeline as jax_make_pipeline
+from repro.models import build_model as jax_build_model
+from repro.optim import compress as jax_compress
+from repro.optim import make_optimizer as jax_make_optimizer
+from repro.train import TrainConfig as JaxTrainConfig
+from repro.train import Trainer as JaxTrainer
+from repro.train import checkpoint as jax_ckpt
+from repro.train.trainer import build_train_step as jax_build_train_step
+from repro_torch import dist_check as DC
+from repro_torch._tree import tree_leaves
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import sharding as sh
+from repro_torch.models.sharding import use_expert_group
+from repro_torch.train import Trainer, TrainConfig
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+STEPS = DC.TRAIN_STEPS
+LOSS_TOL_COMPRESSED = 1e-3
+WORLDS = (4, 8)
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "JAX_PLATFORMS": "cpu"}
+
+
+def _jax_tc(arch, **kw):
+    """The JAX twin of ``dist_check.train_config``."""
+    tc = DC.train_config(arch, **kw)
+    over = {"optimizer": tc.arch.optimizer}
+    return JaxTrainConfig(
+        arch=jax_get_config(arch, reduced=True, **over),
+        global_batch=tc.global_batch, seq_len=tc.seq_len, steps=tc.steps,
+        warmup_steps=tc.warmup_steps, log_every=tc.log_every, seed=tc.seed,
+        pod_grad_mode=tc.pod_grad_mode, ckpt_dir=tc.ckpt_dir,
+        ckpt_every=tc.ckpt_every)
+
+
+def _losses(history):
+    return np.array([l for _, l in history], np.float64)
+
+
+def _jax_compressed(arch, init, n_pod):
+    """The JAX compressed step with a stand-in mesh of ``n_pod`` pods."""
+    jtc = _jax_tc(arch, pod_grad_mode="compressed")
+    model, opt = jax_build_model(jtc.arch), jax_make_optimizer(jtc.arch)
+    mesh = SimpleNamespace(axis_names=("pod", "data", "model"),
+                           shape={"pod": n_pod, "data": 1, "model": 1})
+    step = jax.jit(jax_build_train_step(jtc, model, opt, mesh))
+    params = jax.tree_util.tree_map(jnp.asarray, init)
+    opt_state, ef = opt.init(params), jax_compress.ef_init(params,
+                                                           n_pod=n_pod)
+    pipe = jax_make_pipeline(jtc.arch, jtc.global_batch, jtc.seq_len,
+                             seed=jtc.seed)
+    losses = []
+    for s in range(jtc.steps):
+        batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(s).items()}
+        params, opt_state, ef, loss = step(params, opt_state, ef, batch)
+        losses.append(float(loss))
+    return np.array(losses), params
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """arch -> (init params, exact losses, exact final params, compressed
+    losses at pod = 2)."""
+    out = {}
+    for arch in DC.TRAIN_ARCHS:
+        jt = JaxTrainer(_jax_tc(arch))
+        init = jax.tree_util.tree_map(np.array, jt.params)
+        r = jt.train()
+        final = [np.asarray(x) for x in jax.tree_util.tree_leaves(jt.params)]
+        comp = _jax_compressed(arch, init, 2)[0] \
+            if arch == DC.TRAIN_ARCHS[0] else None
+        out[arch] = (init, _losses(r["history"]), final, comp)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, jax_runs):
+    """world -> (out dir, each rank's results) of the training cases, from
+    the JAX init."""
+    root = tmp_path_factory.mktemp("train_ranks")
+    keys = {f"train/{arch}/{i}": leaf
+            for arch, (init, *_) in jax_runs.items()
+            for i, leaf in enumerate(jax.tree_util.tree_leaves(init))}
+    np.savez(root / "keys.npz", **keys)
+    out = {}
+    for world in WORLDS:
+        cases = "train,elastic-train" if world == 4 else "train"
+        d = root / f"w{world}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.dist_check", "--world",
+             str(world), "--out", str(d), "--cases", cases, "--keys",
+             str(root / "keys.npz"), "--check", "--timeout", "240"],
+            capture_output=True, text=True, timeout=280, env=_env())
+        assert proc.returncode == 0, proc.stdout + proc.stderr[-6000:]
+        out[world] = (d, DC.load_ranks(d, world))
+    return out
+
+
+def _run(res, tag, variant):
+    """(losses, param leaves) of one training variant in a rank's file."""
+    n = sum(1 for k in res if k.startswith(f"{tag}/{variant}/"))
+    return res[f"{tag}/{variant}/0"], [res[f"{tag}/{variant}/{i}"]
+                                       for i in range(1, n)]
+
+
+LAYOUTS = [(w, s) for w in WORLDS for s in DC.TRAIN_MESHES[w]]
+
+
+def _tag(arch, shape):
+    return f"train-{arch}-{'x'.join(map(str, shape))}"
+
+
+@pytest.mark.parametrize("world,shape", LAYOUTS,
+                         ids=["x".join(map(str, s)) for _, s in LAYOUTS])
+@pytest.mark.parametrize("arch", DC.TRAIN_ARCHS)
+def test_exact_mesh_trainer_matches_jax(arch, world, shape, ranks, jax_runs):
+    _, want_losses, want_params, _ = jax_runs[arch]
+    for r, res in enumerate(ranks[world][1]):
+        losses, params = _run(res, _tag(arch, shape), "mesh")
+        assert len(losses) == STEPS
+        DC._held(losses, params, want_losses, want_params, DC.TRAIN_TOL,
+                 f"{arch} {shape} rank {r}")
+
+
+@pytest.mark.parametrize("world,shape", [(w, s) for w, s in LAYOUTS
+                                         if s[0] == 2])
+def test_compressed_pod_hop_matches_jax(world, shape, ranks, jax_runs):
+    arch = DC.TRAIN_ARCHS[0]
+    _, exact, _, want = jax_runs[arch]
+    for res in ranks[world][1]:
+        losses, _ = _run(res, _tag(arch, shape), "compressed")
+        np.testing.assert_allclose(losses, want, rtol=LOSS_TOL_COMPRESSED,
+                                   atol=0)
+        assert abs(losses[-1] - exact[-1]) <= DC.COMPRESSED_TOL * exact[-1]
+        assert not np.array_equal(losses, exact)     # it did quantize
+
+
+@pytest.mark.parametrize("world,shape", LAYOUTS,
+                         ids=["x".join(map(str, s)) for _, s in LAYOUTS])
+def test_zero_moment_bytes_scale_with_the_shards(world, shape, ranks):
+    for arch in DC.TRAIN_ARCHS:
+        for res in ranks[world][1]:
+            meta = {k: int(res[f"{_tag(arch, shape)}/per-rank/#{k}"])
+                    for k in ("moment_bytes", "whole_bytes",
+                              "implied_bytes")}
+            assert meta["moment_bytes"] == meta["implied_bytes"]
+            if shape[0] * shape[1] > 1:
+                assert meta["moment_bytes"] < meta["whole_bytes"]
+            else:
+                assert meta["moment_bytes"] == meta["whole_bytes"]
+
+
+def test_adafactor_shards_train_as_one_device(ranks):
+    """dist_check held it to the one-device run; every rank agrees."""
+    for world in WORLDS:
+        losses = [res["train-adafactor/mesh/0"] for res in ranks[world][1]]
+        assert all(np.array_equal(l, losses[0]) for l in losses)
+        assert np.all(np.isfinite(losses[0])) and len(losses[0]) == STEPS
+
+
+def test_elastic_resume_and_the_jax_reader(ranks):
+    d, got = ranks[4]
+    r0 = got[0]
+    assert tuple(r0["elastic-train/plan/#shape"]) == (1, 2)
+    assert [bool(res["elastic-train/per-rank/#member"]) for res in got] == \
+        [True, True, False, False]
+    resumed, _ = _run(r0, "elastic-train", "resumed")
+    want, _ = _run(r0, "elastic-train", "uninterrupted")
+    np.testing.assert_allclose(resumed, want, rtol=DC.TRAIN_TOL, atol=0)
+    # the 4-rank checkpoint, read by the JAX package
+    jt = JaxTrainer(_jax_tc("tinyllama-1.1b", steps=6))
+    restored, meta = jax_ckpt.restore(str(d / "elastic-train"), 3, {
+        "params": jt.params, "opt_state": jt.opt_state})
+    assert meta["step"] == 3
+    leaves = jax.tree_util.tree_leaves(restored)
+    n = sum(1 for k in r0 if k.startswith("elastic-train/step3/"))
+    assert n == len(leaves)
+    for i, leaf in enumerate(leaves):
+        np.testing.assert_array_equal(np.asarray(leaf),
+                                      r0[f"elastic-train/step3/{i}"])
+
+
+# --------------------------------------------------------- one process
+@pytest.fixture
+def world1(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+FAMILIES = ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "internvl2-2b",
+            "whisper-base"]
+
+
+def _family_pair(arch, steps=4, **over):
+    common = dict(global_batch=4, seq_len=16, steps=steps, warmup_steps=2,
+                  log_every=1, seed=5)
+    return (JaxTrainConfig(arch=jax_get_config(arch, reduced=True, **over),
+                           **common),
+            TrainConfig(arch=get_config(arch, reduced=True, **over),
+                        **common))
+
+
+def _held_to_jax(jt, jr, tt, tr):
+    DC._held(_losses(tr["history"]), tree_leaves(tt.params),
+             _losses(jr["history"]),
+             [np.asarray(x) for x in jax.tree_util.tree_leaves(jt.params)],
+             DC.TRAIN_TOL, "family")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_trainer_matches_the_jax_trainer(arch):
+    jtc, ttc = _family_pair(arch)
+    jt = JaxTrainer(jtc)
+    init = jax.tree_util.tree_map(np.array, jt.params)
+    tt = Trainer(ttc, device="cpu", params=init)
+    _held_to_jax(jt, jt.train(), tt, tt.train())
+
+
+def test_moe_shuffle_dispatch_trains_as_the_jax_trainer(world1):
+    """In an expert group of one rank, at a capacity where nothing drops,
+    the shuffle dispatch trains as the JAX trainer (whose dispatch without
+    a mesh is the einsum one)."""
+    over = dict(moe_dispatch="shuffle", capacity_factor=8.0)
+    jtc, ttc = _family_pair("kimi-k2-1t-a32b", **over)
+    jt = JaxTrainer(jtc)
+    init = jax.tree_util.tree_map(np.array, jt.params)
+    tt = Trainer(ttc, device="cpu", params=init)
+    with use_expert_group(dist.group.WORLD):
+        tr = tt.train()
+    _held_to_jax(jt, jt.train(), tt, tr)
+
+
+@pytest.mark.parametrize("mode", ["auto", "compressed"])
+def test_one_rank_mesh_trainer(mode, world1, jax_runs):
+    """On a (1, 1, 1) mesh: "auto" is the one-device step bit for bit;
+    "compressed" quantizes the one pod's gradient as the JAX compressed
+    step with one pod does."""
+    arch = DC.TRAIN_ARCHS[0]
+    init = jax_runs[arch][0]
+    tc = DC.train_config(arch, pod_grad_mode=mode)
+    mesh = make_host_mesh((1, 1, 1), ("pod", "data", "model"))
+    got = Trainer(tc, device="cpu", params=init, mesh=mesh)
+    gr = got.train()
+    if mode == "auto":
+        plain = Trainer(DC.train_config(arch), device="cpu", params=init)
+        assert gr["history"] == plain.train()["history"]
+        for a, b in zip(tree_leaves(got.params), tree_leaves(plain.params)):
+            assert torch.equal(a, b)
+    else:
+        want, _ = _jax_compressed(arch, init, 1)
+        np.testing.assert_allclose(_losses(gr["history"]), want,
+                                   rtol=LOSS_TOL_COMPRESSED, atol=0)
+        assert got.ef_state is not None
+
+
+def test_moe_over_a_model_axis_is_left_for_item_5d():
+    cfg = get_config("kimi-k2-1t-a32b", reduced=True)
+    layout = sh.MeshLayout(("pod", "data", "model"), (1, 1, 2))
+    with pytest.raises(NotImplementedError, match="5d"):
+        Trainer(TrainConfig(arch=cfg), device="cpu", mesh=layout)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1), (2, 1, 1), (2, 2, 1)])
+def test_moe_over_pod_or_data_ranks_is_left_for_item_5d(shape):
+    """Each rank would route only its own rows, so the aux loss's router
+    statistics and the capacity groups would not be the global batch's
+    that the JAX Trainer(mesh) forms: refused, not trained differently."""
+    cfg = get_config("kimi-k2-1t-a32b", reduced=True)
+    layout = sh.MeshLayout(("pod", "data", "model"), shape)
+    with pytest.raises(NotImplementedError, match="5d"):
+        Trainer(TrainConfig(arch=cfg), device="cpu", mesh=layout)
+
+
+def test_batch_that_does_not_split_over_the_ranks_raises(world1):
+    from repro_torch.train.zero import MeshStep
+    t = Trainer(DC.train_config(DC.TRAIN_ARCHS[0]), device="cpu",
+                mesh=make_host_mesh())
+    step = t._mesh_step
+    assert isinstance(step, MeshStep)
+    step.n_data = 3                      # as if three data ranks
+    with pytest.raises(ValueError, match="does not split"):
+        step.local_rows({"tokens": np.zeros((8, 4), np.int32)})
+
+
+def test_launcher_trains_on_a_host_mesh_under_torchrun(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "-m", "repro_torch.launch.train", "--arch", "qwen1.5-0.5b",
+         "--reduced", "--device", "cpu", "--mesh", "host", "--steps", "3",
+         "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path),
+         "--ckpt-every", "3"],
+        capture_output=True, text=True, timeout=240, cwd=tmp_path,
+        env={**_env(), "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    assert len(lines) == 1                     # rank 0 only
+    line = json.loads(lines[0])
+    assert line["arch"] == "qwen1.5-0.5b" and line["steps"] == 3
+    assert np.isfinite(line["final_loss"])
+    assert (tmp_path / "step_00000003" / "manifest.json").exists()

@@ -416,12 +416,22 @@ def test_train_then_serve_roundtrip(tmp_path):
 
 
 def test_compressed_pod_grad_mode_belongs_to_the_distributed_slice():
+    """Without a mesh there is no pod hop to compress: "compressed" trains
+    as "auto" does, bit for bit, as the JAX package's step does without a
+    "pod" axis (the mesh trainer's compressed hop is held in
+    tests/test_torch_parallel_train.py)."""
     cfg = get_config("zamba2-1.2b", reduced=True)
-    tc = TrainConfig(arch=cfg, pod_grad_mode="compressed")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        Trainer(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        build_train_step(tc, None, None)
+    runs = []
+    for mode in ("auto", "compressed"):
+        tc = TrainConfig(arch=cfg, global_batch=2, seq_len=16, steps=2,
+                         warmup_steps=1, log_every=1, pod_grad_mode=mode)
+        t = Trainer(tc, device="cpu")
+        assert t.ef_state is None
+        runs.append((t.train()["history"], tree_leaves(t.params)))
+        assert callable(build_train_step(tc, t.model, t.opt))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 def test_train_cli_ends_in_its_json_line(capsys):
