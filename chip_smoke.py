@@ -267,9 +267,14 @@ exits non-zero:
               against 2 steps, a checkpoint, a fresh ``Trainer`` resumed
               from it and 2 more, final losses within 1e-5 (checkpoints in
               a temporary directory, deleted afterwards);
-31. train-mesh — the parallel-training slice's main path: phase train's
+31. train-mesh — the parallel-training slices' main path: phase train's
               zamba2-1.2b run through the mesh ``Trainer`` on a (1, 1, 1)
-              NCCL mesh, in "auto" (losses equal phase train's within 1e-5
+              NCCL mesh (at one rank no axis splits a leaf and "model"
+              has one rank, so the step is the one-device one with the
+              mesh step's bookkeeping: the funnel's copies, the pod hop,
+              the update in place; resident parameter and moment bytes
+              recorded; the sharded-parameter path is phase
+              mesh-paths'), in "auto" (losses equal phase train's within 1e-5
               relative) and "compressed" (the error-feedback int8 pod hop:
               its first 4 losses equal its plain version's within 1e-5
               relative, last loss below the first), launch counts reset
@@ -280,19 +285,42 @@ exits non-zero:
               cause: the share of each stacked layer's elements that
               quantize to 0 at step 2, under the leaf's one scale and
               under one scale a layer, and the plain compressed step with
-              one scale a layer run 8 steps, its last loss over auto's;
-32. families-train — internvl2-2b (8 x (256 patches + 1792 tokens)) and
-              whisper-base (8 x 1500 frames, 448 tokens) at full size
-              through the mesh ``Trainer``, 8 steps, losses finite and
-              falling; internvl2-2b's batch halved only if 8 rows do not
-              fit (recorded);
+              one scale a layer run 4 steps (cut from 8 for time), its
+              last loss over auto's at step 4;
+32. mesh-paths — the sharded-parameter code's collectives on the card, on
+              a one-rank NCCL mesh: reduced qwen1.5-0.5b and zamba2-1.2b
+              (float32, remat "full"), 3 steps, with every leaf that has
+              a data dimension forced through ``LeafRef``: gathered (an
+              NCCL all-gather) inside each layer's checkpointed function
+              and again in its recompute, the gradient reduce-scattered
+              into the region sink on autograd's device thread; losses
+              within 1e-5 relative and params within 1e-5 (whole tree)
+              of the same Trainer without a mesh; then the Megatron pair
+              and the vocab-parallel cross-entropy under a checkpoint,
+              gradients within 1e-5 of those without the collectives;
 33. moe-train — the reduced MoE on one NCCL rank: the ``shuffle``
               dispatch's gradients equal the ``einsum`` dispatch's within
               1e-4 (float32, no drops), a planted detached ``all_to_all``
               fails that check; reduced kimi-k2 (both dispatches, equal
-              losses) and llama4-scout train 4 steps;
-34. train-gloo — host work: ``dist_check --cases train,elastic-train,
-              pipeline,moe-grad --check`` at 4 gloo CPU ranks.
+              losses) and llama4-scout train 4 steps; then reduced kimi-k2
+              (einsum) and llama4-scout (the ``shuffle`` dispatch over the
+              mesh's "model" group) through the mesh ``Trainer`` on a
+              (1, 1, 1) mesh, losses within 1e-5 of the same model's run
+              without a mesh;
+34. train-gloo — host work, started at the lowest CPU priority before
+              phase train-kernels and run beside phases 27-33 (their
+              steps are bound by the card):
+              ``dist_check --cases train,elastic-train,pipeline,moe-grad
+              --check`` at 4 gloo CPU ranks (the mesh trainer on (1, 4,
+              1), (2, 2, 1), (1, 1, 4) and (1, 2, 2), and rwkv6-1.6b,
+              whisper-base and internvl2-2b on (1, 2, 2) and (1, 1, 4):
+              FSDP-3, Megatron tensor parallelism and MoE over the global
+              batch against one device, resident parameter bytes);
+35. families-train — internvl2-2b (8 x (256 patches + 1792 tokens)) and
+              whisper-base (8 x 1500 frames, 448 tokens) at full size
+              through the mesh ``Trainer``, 8 steps, losses finite and
+              falling; internvl2-2b's batch halved only if 8 rows do not
+              fit (recorded).
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Every row of the
@@ -338,6 +366,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()
 N_MAIN = 1 << 24          # keys sorted by a main-path query
 M_MAIN = 8192             # reducer I/O bound: V = 2048 reducers
 SEEDS = (101, 202, 303)
@@ -489,6 +518,9 @@ SSM_BWD_EDGE = ((2, 1, 16, "float32", "float32"),
 
 
 def emit(**rec) -> None:
+    """One phase's JSON line, with the script's seconds so far (host
+    clock; the time limit bounds the whole script)."""
+    rec.setdefault("script_s", round(time.perf_counter() - START, 3))
     print(json.dumps(rec), flush=True)
 
 
@@ -3817,8 +3849,13 @@ FAMILY_TRAIN = (("internvl2-2b", 8, 1792), ("whisper-base", 8, 448))
 FAMILY_TRAIN_STEPS = 8
 FAMILY_TRAIN_LR = (1e-4, 4)       # peak lr, warmup steps
 MOE_TRAIN_STEPS = 4
+#: (arch, dispatch) of phase moe-train's mesh Trainer runs
+MOE_MESH_TRAIN = (("kimi-k2-1t-a32b", "einsum"),
+                  ("llama4-scout-17b-a16e", "shuffle"))
 #: steps of phase train-mesh's plain compressed reference
 COMPRESSED_REF_STEPS = 4
+#: steps of phase train-mesh's plain step with one int8 scale a layer
+LAYER_SCALE_STEPS = 4
 #: the step whose gradient phase train-mesh reads for int8 zeros (the
 #: first update with a learning rate above 0)
 COMPRESSED_PROBE_STEP = 2
@@ -3864,9 +3901,14 @@ def mesh_train_run(torch, dev, tc, mesh, steps: int) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {k: v for k, v in ops.launches().items() if v}
+    step = trainer._mesh_step
     return {"trainer": trainer, "losses": [l for _, l in trainer.history],
             "step_ms": step_ms, "launches": launches, "build_s": build_s,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "param_bytes": dict(zip(("rank", "whole"),
+                                    step.param_bytes(trainer.params))),
+            "moment_bytes": dict(zip(("rank", "whole"),
+                                     step.moment_bytes(trainer.opt_state)))}
 
 
 def int8_zero_shares(torch, paths, grads, residuals, n_layers) -> dict:
@@ -3988,7 +4030,8 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
     of the gap's cause: the int8 zero shares of step
     COMPRESSED_PROBE_STEP's gradient (``int8_zero_shares``) and the plain
     compressed step with one scale a layer (``layer_scaled_mean``) run
-    TRAIN_STEPS steps, its last loss over auto's."""
+    LAYER_SCALE_STEPS steps, its last loss over auto's at that step (cut
+    from TRAIN_STEPS to fit the script's time limit)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.compress import compression_wire_bytes
@@ -4022,13 +4065,13 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
                      pod_grad_mode="compressed")
     plain, zero_shares = plain_compressed_run(
         torch, dev, tc, COMPRESSED_REF_STEPS, probe_step=COMPRESSED_PROBE_STEP)
-    per_layer, _ = plain_compressed_run(torch, dev, tc, TRAIN_STEPS,
+    per_layer, _ = plain_compressed_run(torch, dev, tc, LAYER_SCALE_STEPS,
                                         layer_scale=True)
     auto, comp = runs["auto"]["losses"], runs["compressed"]["losses"]
     rel = [abs(a - t) / abs(t) for a, t in zip(auto, train_losses)]
     rel_plain = [abs(c - p) / abs(p) for c, p in zip(comp, plain)]
     ratio = comp[-1] / auto[-1]
-    per_layer_ratio = per_layer[-1] / auto[-1]
+    per_layer_ratio = per_layer[-1] / auto[LAYER_SCALE_STEPS - 1]
     emit(phase="train-mesh", arch=cfg.name, mesh=[1, 1, 1],
          mesh_axes=["pod", "data", "model"], backend="nccl", batch=b, seq=s,
          steps=TRAIN_STEPS, runs=runs, auto_vs_train_max_rel=max(rel),
@@ -4037,8 +4080,9 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
          compressed_over_auto_loss_at_last_step=ratio,
          compressed_int8_zero_shares_at_step=COMPRESSED_PROBE_STEP,
          compressed_int8_zero_shares=zero_shares,
-         layer_scale_losses=per_layer,
-         layer_scale_over_auto_loss_at_last_step=per_layer_ratio,
+         layer_scale_losses=per_layer, layer_scale_steps=LAYER_SCALE_STEPS,
+         layer_scale_cut=f"steps {TRAIN_STEPS} -> {LAYER_SCALE_STEPS}",
+         layer_scale_over_auto_loss_at_step=per_layer_ratio,
          train_median_step_ms_3_to_8=train_timing["median_step_ms_3_to_8"],
          train_peak_mem_bytes=train_timing["peak_mem_bytes"],
          launches_per_step={k: v // TRAIN_STEPS for k, v in want.items()},
@@ -4058,10 +4102,152 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
     check(len(plain) == COMPRESSED_REF_STEPS and max(rel_plain) <= 1e-5,
           f"train-mesh: compressed losses {comp} against the plain "
           f"compressed step's {plain}")
-    check(zero_shares is not None and len(per_layer) == TRAIN_STEPS
+    check(zero_shares is not None and len(per_layer) == LAYER_SCALE_STEPS
           and all(map(math.isfinite, per_layer)),
           f"train-mesh: the one-scale-a-layer run's losses {per_layer}")
     return {"launches": runs["auto"]["launches"], "runs": runs}
+
+
+#: (arch, steps) of phase mesh-paths' reduced runs
+MESH_PATH_ARCHS = (("qwen1.5-0.5b", 3), ("zamba2-1.2b", 3))
+
+
+def forced_fsdp():
+    """A context in which every leaf with a data dimension counts as split
+    over the FSDP axes (``TensorLayout.fsdp_axes`` gives ``("data",)``),
+    so that a mesh step of one rank takes the sharded-parameter path, and
+    in which each ``fsdp_gather`` is counted (``counts["gathers"]``)."""
+    import contextlib
+    from repro_torch.models import sharding
+
+    @contextlib.contextmanager
+    def ctx():
+        counts = {"gathers": 0}
+        real_axes, real_gather = (sharding.TensorLayout.fsdp_axes,
+                                  sharding.D.fsdp_gather)
+
+        def gather(*a, **kw):
+            counts["gathers"] += 1
+            return real_gather(*a, **kw)
+        sharding.TensorLayout.fsdp_axes = lambda self: (
+            ("data",) if self.data_dim is not None else ())
+        sharding.D.fsdp_gather = gather
+        try:
+            yield counts
+        finally:
+            sharding.TensorLayout.fsdp_axes = real_axes
+            sharding.D.fsdp_gather = real_gather
+    return ctx()
+
+
+def tp_pair_check(torch, dev, group) -> dict:
+    """The Megatron pair and the vocab-parallel cross-entropy on a
+    one-rank NCCL group, under a checkpoint (its recompute runs the
+    forward collectives again, its backward the backward ones on
+    autograd's device thread): a column- and a row-parallel matmul, the
+    region left through a sum and through a gather, the logits' CE;
+    gradients against the same function without the collectives
+    (float32, TF32 off): max abs error over each gradient's max."""
+    import torch.distributed as dist
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.core import distributed as D
+    from repro_torch.models.layers import (cross_entropy,
+                                           vocab_parallel_cross_entropy)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, w1, w2, wv = (torch.randn(*sh, device=dev, generator=gen) * sc
+                     for sh, sc in (((4, 64, 128), 1.0), ((128, 256), 0.1),
+                                    ((256, 128), 0.1), ((128, 512), 0.1)))
+    labels = torch.randint(0, 512, (4, 64), device=dev, generator=gen)
+
+    def f(x, w1, w2, wv, tp: bool):
+        enter = (lambda t: D.copy_to_region(t, group)) if tp else (
+            lambda t: t)
+        h = torch.relu(enter(x) @ w1)
+        y = h @ w2
+        if tp:
+            y = D.gather_from_region(D.reduce_from_region(y, group), -1,
+                                     group)
+        logits = enter(y) @ wv
+        if not tp:
+            return cross_entropy(logits, labels)
+        return vocab_parallel_cross_entropy(
+            logits, labels, None, 1e-4, first=0,
+            psum=lambda t: D.reduce_from_region(t, group),
+            pmax=lambda t: D.all_reduce(t, dist.ReduceOp.MAX, group))
+
+    grads = {}
+    for tp in (True, False):
+        ins = [t.detach().clone().requires_grad_() for t in (x, w1, w2, wv)]
+        loss = checkpoint(f, *ins, tp, use_reentrant=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[tp] = [loss.detach()] + [t.grad for t in ins]
+    return {name: float((a - b).abs().max() / b.abs().max())
+            for name, a, b in zip(("loss", "x", "w1", "w2", "wv"),
+                                  grads[True], grads[False])}
+
+
+def mesh_paths_phase(torch, dev) -> dict:
+    """Phase mesh-paths: the sharded-parameter code's collectives on the
+    card, on a one-rank NCCL mesh, where the main path's mesh step is the
+    one-device one (no axis splits a leaf, ``"model"`` has one rank).
+    Under ``forced_fsdp`` every leaf with a data dimension is a
+    ``LeafRef``: each layer gathers it inside its checkpointed function
+    (an NCCL all-gather, again in the recompute) and its backward
+    reduce-scatters the gradient into the region sink, from which the
+    step updates the shard in place.  Reduced qwen1.5-0.5b and
+    zamba2-1.2b (float32, remat "full") train MESH_PATH_ARCHS' steps so,
+    and are held to the same Trainer without a mesh: losses within 1e-5
+    relative, final params within 1e-5 in the relative L2 norm of the
+    whole tree.  Then ``tp_pair_check``: each gradient within 1e-5 of
+    its largest element."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import MeshGroups
+    from repro_torch.train import Trainer, TrainConfig
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    with nccl_world("mesh_paths"):
+        mesh = make_host_mesh()
+        for arch, steps in MESH_PATH_ARCHS:
+            tc = TrainConfig(arch=get_config(arch, reduced=True),
+                             global_batch=8, seq_len=64, steps=steps,
+                             warmup_steps=1, log_every=1, seed=0)
+            plain = Trainer(tc, device=dev)
+            want = [l for _, l in plain.train()["history"]]
+            with forced_fsdp() as counts:
+                t = Trainer(tc, device=dev, mesh=mesh)
+                got = [l for _, l in t.train()["history"]]
+            n_refs = sum(1 for lay in t._mesh_step.layouts
+                         if lay.data_dim is not None)
+            sq = sq_ref = 0.0
+            for a, b in zip(tree_leaves(t.params), tree_leaves(plain.params)):
+                a, b = a.detach().double(), b.detach().double()
+                sq += float(torch.sum((a - b) ** 2))
+                sq_ref += float(torch.sum(b ** 2))
+            runs[arch] = {
+                "losses": got, "plain_losses": want,
+                "loss_max_rel": max(abs(a - b) / abs(b)
+                                    for a, b in zip(got, want)),
+                "params_rel": math.sqrt(sq / sq_ref),
+                "leafref_leaves": n_refs, "leaves": len(t._mesh_step.layouts),
+                "gathers": counts["gathers"], "steps": steps}
+            del t, plain
+        pair = tp_pair_check(torch, dev, MeshGroups(mesh).group("model"))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="mesh-paths", mesh=[1, 1, 1], backend="nccl", runs=runs,
+         tp_pair_max_rel_err=pair, tolerance=1e-5)
+    for arch, r in runs.items():
+        check(r["leafref_leaves"] > 0 and r["gathers"] > 0,
+              f"mesh-paths {arch}: the sharded path did not run {r}")
+        check(r["loss_max_rel"] <= 1e-5 and r["params_rel"] <= 1e-5,
+              f"mesh-paths {arch}: {r}")
+    check(max(pair.values()) <= 1e-5, f"mesh-paths: the TP pair {pair}")
+    return runs
 
 
 def families_train_phase(torch, dev) -> dict:
@@ -4128,13 +4314,18 @@ def moe_train_phase(torch, dev) -> dict:
     ``all_to_all`` (the parent commit's) the check must fail.  Then
     MOE_TRAIN_STEPS Trainer steps of reduced kimi-k2 with the shuffle
     dispatch in the expert group against the einsum dispatch (losses
-    within 1e-4 relative), and of reduced llama4-scout."""
+    within 1e-4 relative), and of reduced llama4-scout.  Then the mesh
+    Trainer on a (1, 1, 1) NCCL mesh (``make_host_mesh``): kimi-k2 with
+    the einsum dispatch and llama4-scout with the shuffle dispatch over
+    the mesh's "model" group, each within 1e-5 relative of its run
+    without a mesh (the einsum one: capacity 8, nothing drops)."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch import dist_check
     from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
     from repro_torch.interop import tree_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
     from repro_torch.models.sharding import use_expert_group
     from repro_torch.train import Trainer, TrainConfig
@@ -4187,6 +4378,18 @@ def moe_train_phase(torch, dev) -> dict:
                                   else None):
                 losses[f"{arch}/{dispatch}"] = [
                     l for _, l in t.train()["history"]]
+        mesh = make_host_mesh()
+        mesh_bytes = {}
+        for arch, dispatch in MOE_MESH_TRAIN:
+            c = get_config(arch, reduced=True, capacity_factor=8.0,
+                           moe_dispatch=dispatch)
+            tc = TrainConfig(arch=c, global_batch=8, seq_len=64,
+                             steps=MOE_TRAIN_STEPS, warmup_steps=1,
+                             log_every=1, seed=0)
+            t = Trainer(tc, device=dev, mesh=mesh)
+            losses[f"{arch}/{dispatch}/mesh"] = [
+                l for _, l in t.train()["history"]]
+            mesh_bytes[arch] = t._mesh_step.param_bytes(t.params)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     for k, v in losses.items():
         check(len(v) == MOE_TRAIN_STEPS and all(map(math.isfinite, v)),
@@ -4194,42 +4397,82 @@ def moe_train_phase(torch, dev) -> dict:
     a, b = losses["kimi-k2-1t-a32b/shuffle"], losses["kimi-k2-1t-a32b/einsum"]
     check(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(a, b)),
           f"moe-train: shuffle losses {a} against einsum {b}")
+    mesh_rel = {}
+    for arch, dispatch in MOE_MESH_TRAIN:
+        got, want = losses[f"{arch}/{dispatch}/mesh"], losses[
+            f"{arch}/einsum"]
+        mesh_rel[arch] = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        check(mesh_rel[arch] <= 1e-5, f"moe-train: {arch} {dispatch} on "
+              f"the mesh {got} against without one {want}")
     emit(phase="moe-train", grad_max_abs_err=err, tolerance=tol,
          planted_detached_all_to_all={"check_passed": planted_ok,
                                       "max_abs_err": planted_err},
-         losses=losses, world_size=1, backend="nccl")
+         losses=losses, world_size=1, backend="nccl",
+         mesh=[1, 1, 1], mesh_runs=[list(r) for r in MOE_MESH_TRAIN],
+         mesh_vs_no_mesh_max_rel=mesh_rel,
+         mesh_param_bytes={a: list(b) for a, b in mesh_bytes.items()})
     return {"err": err}
 
 
-def train_gloo_phase() -> dict:
-    """Phase train-gloo, host work: ``python -m repro_torch.dist_check
-    --cases train,elastic-train,pipeline,moe-grad --check`` on gloo CPU
-    ranks at each world size of TRAIN_GLOO_WORLDS (the mesh trainer on
-    every layout of ``TRAIN_MESHES`` against one device, elastic resume on half the ranks, the GPipe
-    schedule and the MoE shuffle's gradients, each checked on every
-    rank)."""
+def train_gloo_start() -> list:
+    """Start phase train-gloo's host work (``train_gloo_phase`` waits for
+    it, ``train_gloo_stop`` ends what is left): ``python -m
+    repro_torch.dist_check --cases train,elastic-train,pipeline,moe-grad
+    --check`` on gloo CPU ranks at each world size of TRAIN_GLOO_WORLDS,
+    each in a session of its own, at the lowest CPU priority (the card's
+    phases beside it keep the host's cores first)."""
     import os
-    import shutil
     import tempfile
-    recs = []
+    started = []
     for world in TRAIN_GLOO_WORLDS:
         tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_gloo_"))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.dist_check", "--world",
+             str(world), "--out", str(tmp), "--cases",
+             ",".join(TRAIN_GLOO_CASES), "--check", "--timeout", "300"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True, preexec_fn=lambda: os.nice(19),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                 "CUDA_VISIBLE_DEVICES": ""})
+        started.append((tmp, time.perf_counter(), proc))
+    return started
+
+
+def train_gloo_stop(started) -> None:
+    """Kill whatever ``train_gloo_start`` started and is still running
+    (the launcher and its ranks share its session) and remove its
+    directories."""
+    import os
+    import shutil
+    import signal
+    for tmp, _, proc in started:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_gloo_phase(started) -> dict:
+    """Phase train-gloo, host work started by ``train_gloo_start`` at
+    the lowest CPU priority before the training phases 27-33 ran on the
+    card: the mesh trainer on every layout of ``TRAIN_MESHES`` and
+    ``FAMILY_TRAIN`` against one device, elastic resume on half the
+    ranks, the GPipe schedule and the MoE shuffle's gradients, each
+    checked on every rank."""
+    recs = []
+    for _, t0, proc in started:
         try:
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.dist_check", "--world",
-                 str(world), "--out", str(tmp), "--cases",
-                 ",".join(TRAIN_GLOO_CASES), "--check", "--timeout", "240"],
-                capture_output=True, text=True, timeout=300,
-                env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
-                     "CUDA_VISIBLE_DEVICES": ""})
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        check(proc.returncode == 0,
-              f"train-gloo: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            out, err = proc.communicate(timeout=360)
+        except subprocess.TimeoutExpired:
+            check(False, "train-gloo: timed out after 360 s")
+        check(proc.returncode == 0, f"train-gloo: {out[-2000:]} "
+              f"{err[-4000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
         check(rec["ok"] and rec["entries_held"] > 0, f"train-gloo: {rec}")
+        rec["wall_s"] = time.perf_counter() - t0
         recs.append(rec)
-    emit(phase="train-gloo", kind="host work (CPU ranks, gloo)", runs=recs)
+    emit(phase="train-gloo", kind="host work (CPU ranks, gloo)", runs=recs,
+         beside="phases train-kernels to moe-train, at nice 19")
     return {"runs": recs}
 
 
@@ -4803,18 +5046,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    bwd = train_kernel_phase(torch, dev, mem_rate)
-    parity = train_parity_phase(torch, dev)
-    trained = train_phase(torch, dev)
-    resume = train_resume_phase(torch, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    # -- 31-34. the parallel-training half: the mesh Trainer ------------
-    meshed = train_mesh_phase(torch, dev, trained["losses"],
-                              trained["timing"])
+    gloo = train_gloo_start()             # host work, beside phases 27-33
+    try:
+        bwd = train_kernel_phase(torch, dev, mem_rate)
+        parity = train_parity_phase(torch, dev)
+        trained = train_phase(torch, dev)
+        resume = train_resume_phase(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- 31-35. the parallel-training half: the mesh Trainer --------
+        meshed = train_mesh_phase(torch, dev, trained["losses"],
+                                  trained["timing"])
+        mesh_paths_phase(torch, dev)
+        moe_train_phase(torch, dev)
+        train_gloo_phase(gloo)
+    finally:
+        train_gloo_stop(gloo)
     families_train_phase(torch, dev)
-    moe_train_phase(torch, dev)
-    train_gloo_phase()
     emit(phase="train-summary", seconds=time.perf_counter() - t0,
          parity=parity, launches=trained["launches"],
          mesh_launches=meshed["launches"],

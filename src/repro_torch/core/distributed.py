@@ -17,6 +17,11 @@ the collective counterpart of a :mod:`repro_torch.core` algorithm:
                            all-gather + bucket all-to-all + local merge.
   segment_scatter_add   -- funnel-write with f = + for many-to-one writes
                            (local; no collective).
+  copy_to_region, reduce_from_region, gather_from_region
+                        -- Megatron's tensor-parallel pair (and the gather
+                           that leaves a region through a concatenation).
+  fsdp_gather           -- FSDP-3's parameter gather, whose backward is the
+                           funnel's reduce-scatter over the data axis.
 
 Where the JAX functions run inside ``shard_map`` over an ``axis_name``,
 these run on every rank of a process group (``group=None`` is the default
@@ -66,7 +71,8 @@ def _all_gather_plain(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _all_reduce_plain(x: torch.Tensor, op, group) -> torch.Tensor:
-    out = x.clone()
+    # NCCL takes contiguous tensors only (a gradient may arrive strided)
+    out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -161,6 +167,143 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
                       + tuple(x.shape[1:]))
     _reduce_scatter(out, x, group=group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor and parameter parallelism: the Megatron pair and the FSDP gather
+# ---------------------------------------------------------------------------
+# A value inside a tensor-parallel region is the rank's own (its heads, its
+# d_ff columns, its experts); every rank's gradient of it is its part of
+# the objective's.  A value outside is replicated over the group, with the
+# whole gradient on every rank.  ``copy_to_region`` enters a region,
+# ``reduce_from_region`` leaves it through a sum, ``gather_from_region``
+# through a concatenation.
+
+class _CopyToRegion(torch.autograd.Function):
+    """Identity forward; the backward sums the ranks' parts (all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_plain(grad, dist.ReduceOp.SUM, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """All-reduce forward; the backward hands the replicated gradient to
+    every rank's part unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_plain(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    """All-gather of the ranks' blocks along ``dim``; the backward keeps
+    the rank's block of the replicated gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        out = _all_gather_plain(x.movedim(dim, 0), group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        r = dist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, r * n, n).contiguous(), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the backward scales the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def copy_to_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` (replicated) as the rank's own value."""
+    return _CopyToRegion.apply(x, group) if _tracked(x) else x
+
+
+def reduce_from_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: the group's SUM of the ranks' parts, replicated."""
+    if _tracked(x):
+        return _ReduceFromRegion.apply(x, group)
+    return _all_reduce_plain(x, dist.ReduceOp.SUM, group)
+
+
+def gather_from_region(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks along ``dim`` concatenated in rank order,
+    replicated."""
+    if _tracked(x):
+        return _GatherFromRegion.apply(x, dim % x.ndim, group)
+    return _all_gather_plain(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x``, whose gradient is multiplied by ``scale``."""
+    return _ScaleGrad.apply(x, scale) if _tracked(x) else x
+
+
+def gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather` along ``dim`` (its backward a reduce-scatter:
+    each rank's gradient of the whole, summed, the rank's block kept)."""
+    return all_gather(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A parameter shard made whole along ``dim``, split over ``groups``
+    (outermost first, row-major); the backward reduce-scatters the whole
+    gradient over ``groups[data]`` into the rank's *region* (its block
+    along the data axis, whole along the others) and hands it to
+    ``sink(region)``.  The parameter itself gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, groups, data, sink):
+        ctx.dim, ctx.groups, ctx.data, ctx.sink = dim, groups, data, sink
+        y = x.movedim(dim, 0)
+        for g in reversed(groups):
+            y = _all_gather_plain(y, g)
+        return y.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.movedim(ctx.dim, 0)
+        if ctx.data is not None:
+            sizes = [dist.get_world_size(x) for x in ctx.groups]
+            pre = 1
+            for s in sizes[:ctx.data]:
+                pre *= s
+            d = sizes[ctx.data]
+            y = g.unflatten(0, (pre, d, g.shape[0] // (pre * d)))
+            y = y.movedim(1, 0).flatten(0, 2)
+            g = reduce_scatter(y, ctx.groups[ctx.data])
+        ctx.sink(g.movedim(0, ctx.dim))
+        return None, None, None, None, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, groups, data, sink
+                ) -> torch.Tensor:
+    """FSDP-3's forward gather of a parameter shard (see
+    :class:`_FsdpGather`): ``groups`` split ``dim`` row-major, the axis at
+    index ``data`` (or None) is the one its backward reduce-scatters over;
+    the other axes' sums are left to the caller (the pod hop)."""
+    return _FsdpGather.apply(x, dim, tuple(groups), data, sink)
 
 
 # ---------------------------------------------------------------------------
@@ -372,4 +515,6 @@ __all__ = [
     "segment_scatter_add", "AttnPartial", "softmax_merge_pair",
     "softmax_merge_axis", "ShardedSortOut", "sharded_sample_sort",
     "all_to_all", "all_gather", "all_reduce", "reduce_scatter",
+    "copy_to_region", "reduce_from_region", "gather_from_region",
+    "gather_along", "scale_grad", "fsdp_gather",
 ]

@@ -20,18 +20,26 @@ layer's ``shuffle`` dispatch with the experts sharded over the ranks
 
 The training cases run the mesh ``Trainer`` (:mod:`repro_torch.train.zero`)
 on ``DeviceMesh``es over the ranks.  ``train``: every layout of
-``TRAIN_MESHES[world]`` for each of ``TRAIN_ARCHS``, five steps in
-``"auto"`` mode, the ``"compressed"`` pod hop where the layout has two
-pods, and AdamW / Adafactor ZeRO state where a layout shards it; rank 0
-also trains without a mesh (variant ``single``) and holds every mesh run
-to it within ``TRAIN_TOL``.  ``elastic-train``: three steps on every rank
-with a checkpoint, a resume on half the ranks through ``plan_mesh`` and
+``TRAIN_MESHES[world]`` for each of ``TRAIN_ARCHS``, the MoE configs'
+layouts of ``MOE_TRAIN`` and the other families' of ``FAMILY_TRAIN``,
+five steps in ``"auto"`` mode, the ``"compressed"`` pod hop where the
+layout has two pods, and AdamW / Adafactor ZeRO state where a layout
+shards it; rank 0 also trains without a mesh (variant ``single``) and
+holds every mesh run to it within ``TRAIN_TOL`` (``GRAD_HELD`` configs
+also on their first step's gradient).  Every rank holds its resident
+parameter and moment bytes to the whole tree's over each leaf's shard
+count, and records (``LayerHook``) the query heads and MLP widths its
+layers saw and each MoE layer's first-step aux loss and dropped
+fraction.  ``elastic-train``: three steps on every rank with a
+checkpoint, a resume on half the ranks through ``plan_mesh`` and
 three more steps, against an uninterrupted run on that half.
 ``pipeline``: ``run_pipeline`` with one stage a rank against the
 sequential chain, forward and gradients.  ``moe-grad``: the gradients of
 the ``shuffle`` dispatch (every rank on the same tokens, at a capacity
 where nothing drops) against the ``einsum`` dispatch's.  These cases
 check themselves on every rank (``check``), ``--check`` or not.
+``train-drift`` holds nothing: it writes where a mesh run's params end
+furthest from one device's, and that element's gradients.
 
 Nothing here imports JAX.  The plan families are written once for either
 package's ``core`` module (``m``) and array module (``xp``), so the tests
@@ -67,7 +75,8 @@ from .core.recovery import (Checkpointer, FaultConfig, ShardFailure,
 from .obs import Tracer
 
 CASES = ("shuffle", "rounds", "plans", "collectives", "elastic", "tracer",
-         "errors", "moe", "train", "elastic-train", "pipeline", "moe-grad")
+         "errors", "moe", "train", "elastic-train", "pipeline", "moe-grad",
+         "train-drift")
 #: the plan families run on the kernel scatter as well
 KERNEL_FAMILIES = ("sort", "hull2d")
 SEED = 5
@@ -482,11 +491,43 @@ def case_moe(res: Results, rank: int, keys) -> None:
 # The parallel-training cases
 # ---------------------------------------------------------------------------
 
-#: the configs the mesh trainer runs: a dense and a hybrid one
+#: the configs the mesh trainer runs on every layout: a dense and a hybrid
+#: one
 TRAIN_ARCHS = ("qwen1.5-0.5b", "zamba2-1.2b")
 #: (pod, data, model) layouts a world runs
 TRAIN_MESHES = {1: ((1, 1, 1),), 2: ((1, 2, 1), (2, 1, 1)),
-                4: ((1, 4, 1), (2, 2, 1), (1, 2, 2)), 8: ((2, 2, 2),)}
+                4: ((1, 4, 1), (2, 2, 1), (1, 1, 4), (1, 2, 2)),
+                8: ((2, 2, 2),)}
+#: the MoE configs: arch -> (config overrides, {world: layouts}).  kimi-k2
+#: (einsum dispatch, capacity 1.25: choices drop) on every layout;
+#: llama4-scout (shuffle dispatch over "model", a shared expert) where
+#: "model" has two ranks, at a capacity where nothing drops, as the
+#: one-device run it is held to takes the einsum dispatch
+MOE_TRAIN = {
+    "kimi-k2-1t-a32b": ({}, TRAIN_MESHES),
+    "llama4-scout-17b-a16e": (dict(moe_dispatch="shuffle",
+                                   capacity_factor=8.0),
+                              {4: ((1, 2, 2),), 8: ((2, 2, 2),)}),
+}
+#: the other families on a mesh: arch -> (config overrides, {world:
+#: layouts}).  rwkv6 at model = 2 runs time mixing on the rank's heads and
+#: at model = 4 (d / model not a multiple of the head size) on every head
+#: from its four matrices gathered; whisper's encoder, decoder and cross
+#: attention and internvl2's two KV heads (cut mid-head at model = 4),
+#: under FSDP over "data" at (1, 2, 2)
+FAMILY_TRAIN = {arch: ({}, {4: ((1, 2, 2), (1, 1, 4))})
+                for arch in ("rwkv6-1.6b", "whisper-base", "internvl2-2b")}
+#: configs whose training amplifies a reordered sum too much for
+#: ``_held`` after TRAIN_STEPS steps: rwkv6's bonus ``u`` (``--cases
+#: train-drift``: from the port's seeded init on (1, 2, 2) the largest
+#: gradient difference grows from 5.6e-5 of a leaf's largest element at
+#: step 1 to 7.0e-2 at step 4, and under pure data parallelism from 3.9e-7
+#: to 2.1e-3).  The train case holds their first step: its loss within
+#: ``TRAIN_TOL`` and its gradient, each leaf within ``GRAD_TOL`` of its
+#: largest element on one device; the tests (the JAX init) also hold
+#: every loss and the whole tree to the JAX trainer
+GRAD_HELD = ("rwkv6-1.6b",)
+GRAD_TOL = 2e-4
 TRAIN_STEPS = 5
 #: mesh against single-device runs: losses and params, relative to each
 #: leaf's largest magnitude (the sums are taken in another order)
@@ -494,12 +535,25 @@ TRAIN_TOL = 1e-5
 #: the compressed hop against the exact one after TRAIN_STEPS: the JAX
 #: package's own bound
 COMPRESSED_TOL = 0.05
+#: the layout whose per-layer shapes the train case records (model = 2)
+SHAPE_MESH = (1, 2, 2)
+
+
+def _listed(arch: str):
+    """(config overrides, {world: layouts}) of ``arch``."""
+    return {**MOE_TRAIN, **FAMILY_TRAIN}.get(arch, ({}, TRAIN_MESHES))
+
+
+def train_layouts(arch: str, world: int):
+    """The layouts ``arch`` trains on at ``world`` ranks."""
+    return _listed(arch)[1].get(world, ())
 
 
 def train_config(arch: str, steps: int = TRAIN_STEPS, **kw):
     from .configs import get_config
     from .train import TrainConfig
-    over = {k: kw.pop(k) for k in ("optimizer",) if k in kw}
+    over = dict(_listed(arch)[0])
+    over.update({k: kw.pop(k) for k in ("optimizer",) if k in kw})
     cfg = get_config(arch, reduced=True, **over)
     return TrainConfig(**{**dict(arch=cfg, global_batch=8, seq_len=16,
                                  steps=steps, warmup_steps=2, log_every=1,
@@ -520,18 +574,77 @@ def _init_params(arch: str, keys):
                                    for i in range(n)])
 
 
-def _train(tc, params, mesh):
-    from .train import Trainer
+def _train(tc, params, mesh, grads: bool = False):
+    """(trainer, losses, the final params as whole tensors), and with
+    ``grads`` each step's gradient as whole tensors (on a mesh the mean
+    over the batch ranks the update reads)."""
+    from .train import Trainer, build_train_step
     t = Trainer(tc, device="cpu", params=params, mesh=mesh)
+    seen = []
+    if grads:
+        step = t._mesh_step
+        opt = t.opt if step is None else step.opt
+
+        def update(g, *a, **kw):
+            leaves = tree_leaves(g)
+            if step is not None:
+                leaves = [step._gathered(x.contiguous(), lay)
+                          for x, lay in zip(leaves, step.layouts)]
+            seen.append([x.detach().clone() for x in leaves])
+            return opt.update(g, *a, **kw)
+        if step is None:
+            t._step_fn = build_train_step(tc, t.model,
+                                          opt._replace(update=update))
+        else:
+            step.opt = opt._replace(update=update)
     r = t.train()
-    return t, np.array([l for _, l in r["history"]], np.float64)
+    out = (t, np.array([l for _, l in r["history"]], np.float64),
+           t.state_tree()["params"])
+    return out + (seen,) if grads else out
 
 
-def _held(got_losses, got_params, want_losses, want_params, tol, what):
+class LayerHook:
+    """Records what a rank's layers compute with: the query heads each
+    attention call sees, the width of each ``silu`` input (an MLP's gate
+    activation), and each MoE layer's (aux loss, dropped fraction) in
+    call order (the first step's forward first)."""
+
+    def __init__(self):
+        self.heads, self.widths, self.moe = set(), set(), []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from .models import layers, moe
+        self._saved = layers.sdpa, F.silu, moe.apply_moe
+
+        def sdpa(cfg, q, *a, **kw):
+            self.heads.add(q.shape[2])
+            return self._saved[0](cfg, q, *a, **kw)
+
+        def silu(x, *a, **kw):
+            self.widths.add(x.shape[-1])
+            return self._saved[1](x, *a, **kw)
+
+        def apply_moe(*a, **kw):
+            out = self._saved[2](*a, **kw)
+            self.moe.append((float(out.aux_loss), float(out.dropped_frac)))
+            return out
+        layers.sdpa, F.silu, moe.apply_moe = sdpa, silu, apply_moe
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        from .models import layers, moe
+        layers.sdpa, F.silu, moe.apply_moe = self._saved
+
+
+def _held(got_losses, got_params, want_losses, want_params, tol, what,
+          per_leaf: bool = True):
     """Losses within ``tol`` relative; params within ``tol`` in the
-    relative L2 norm of the whole tree and ``10 tol`` of each leaf (AdamW
-    turns a gradient near its eps, or one that is rounding noise, such as
-    a key bias's, into a step that differs with the summation order)."""
+    relative L2 norm of the whole tree and (``per_leaf``) ``10 tol`` of
+    each leaf (AdamW turns a gradient near its eps, or one that is
+    rounding noise, such as a key bias's, into a step that differs with
+    the summation order)."""
     check(np.all(np.abs(got_losses - want_losses)
                  <= tol * np.abs(want_losses)), f"{what}: losses "
           f"{got_losses} against {want_losses}")
@@ -539,44 +652,84 @@ def _held(got_losses, got_params, want_losses, want_params, tol, what):
     for i, (g, w) in enumerate(zip(got_params, want_params)):
         g, w = _np(g).astype(np.float64), _np(w).astype(np.float64)
         e, n = float(np.sum((g - w) ** 2)), float(np.sum(w ** 2))
-        check(e <= (10 * tol) ** 2 * n, f"{what}: param leaf {i} off by "
-              f"{np.sqrt(e / max(n, 1e-300))} relative")
+        check(not per_leaf or e <= (10 * tol) ** 2 * n, f"{what}: param "
+              f"leaf {i} off by {np.sqrt(e / max(n, 1e-300))} relative")
         sq_err, sq_ref = sq_err + e, sq_ref + n
     check(sq_err <= tol ** 2 * sq_ref, f"{what}: params off by "
           f"{np.sqrt(sq_err / sq_ref)} relative")
 
 
+def grad_errors(got, want) -> np.ndarray:
+    """Each leaf's largest gradient difference over its largest element
+    in ``want``."""
+    out = []
+    for g, w in zip(got, want):
+        g, w = _np(g).astype(np.float64), _np(w).astype(np.float64)
+        out.append(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+    return np.array(out)
+
+
 def case_train(res: Results, rank: int, keys) -> None:
     from .launch.mesh import make_host_mesh
     world = dist.get_world_size()
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + tuple(MOE_TRAIN) + tuple(FAMILY_TRAIN):
+        layouts = train_layouts(arch, world)
+        if not layouts:
+            continue
         params = _init_params(arch, keys)
+        n_moe = train_config(arch).arch.n_layers if arch in MOE_TRAIN else 0
+        by_grad = arch in GRAD_HELD
         single = None
         if rank == 0:
-            t, losses = _train(train_config(arch), params, None)
+            with LayerHook() as hook:
+                _, losses, whole, *g1 = _train(train_config(arch), params,
+                                               None, grads=by_grad)
             single = (losses, [p.detach().clone()
-                               for p in tree_leaves(t.params)])
-            res.put(f"train-{arch}", "single", (losses, t.params))
-        for shape in TRAIN_MESHES[world]:
+                               for p in tree_leaves(whole)])
+            res.put(f"train-{arch}", "single", (losses, whole))
+            if n_moe:
+                res.put(f"train-{arch}", "moe", np.array(hook.moe[:n_moe]))
+        for shape in layouts:
             tag = f"train-{arch}-{'x'.join(map(str, shape))}"
             mesh = make_host_mesh(shape, ("pod", "data", "model"))
-            t, losses = _train(train_config(arch), params, mesh)
-            res.put(tag, "mesh", (losses, t.params))
-            local, whole = t._mesh_step.moment_bytes(t.opt_state)
-            # AdamW's two float32 moments, each leaf's whole bytes over
-            # the shard count its spec implies
+            with LayerHook() as hook:
+                t, losses, whole, *gm = _train(train_config(arch), params,
+                                               mesh, grads=by_grad)
+            res.put(tag, "mesh", (losses, whole))
+            if n_moe:
+                # the first step's (aux, dropped) of each MoE layer
+                res.put(tag, "moe", np.array(hook.moe[:n_moe]))
+            step = t._mesh_step
+            local, whole_b = step.moment_bytes(t.opt_state)
+            plocal, pwhole = step.param_bytes(t.params)
+            # AdamW's two float32 moments and the params, each leaf's whole
+            # bytes over the shard count its spec implies
             want = sum(2 * 4 * int(np.prod(lay.shape)) // lay.n_shards
-                       for lay in t._mesh_step.layouts)
+                       for lay in step.layouts)
+            pwant = sum(p.element_size() * int(np.prod(lay.shape))
+                        // lay.n_shards for p, lay in
+                        zip(tree_leaves(t.params), step.layouts))
             res.meta(tag, "per-rank", moment_bytes=local,
-                     whole_bytes=whole, implied_bytes=want)
+                     whole_bytes=whole_b, implied_bytes=want,
+                     param_bytes=plocal, param_whole_bytes=pwhole,
+                     param_implied_bytes=pwant,
+                     heads=sorted(hook.heads), widths=sorted(hook.widths))
             check(local == want, f"{tag}: moment bytes {local} != {want}")
-            if single is not None:
-                _held(losses, tree_leaves(t.params), *single, TRAIN_TOL,
-                      tag)
+            check(plocal == pwant, f"{tag}: param bytes {plocal} != {pwant}")
+            if single is not None and by_grad:
+                err = grad_errors(gm[0][0], g1[0][0])
+                res.meta(tag, "grad", errors=err)
+                check(abs(losses[0] - single[0][0]) <= TRAIN_TOL
+                      * abs(single[0][0]) and np.all(np.isfinite(losses)),
+                      f"{tag}: losses {losses} against {single[0]}")
+                check(err.max() <= GRAD_TOL, f"{tag}: first-step "
+                      f"gradient off by {err.max()} of a leaf's max")
+            elif single is not None:
+                _held(losses, tree_leaves(whole), *single, TRAIN_TOL, tag)
             if shape[0] == 2 and arch == TRAIN_ARCHS[0]:
                 tc = train_config(arch, pod_grad_mode="compressed")
-                tcomp, closs = _train(tc, params, mesh)
-                res.put(tag, "compressed", (closs, tcomp.params))
+                tcomp, closs, cwhole = _train(tc, params, mesh)
+                res.put(tag, "compressed", (closs, cwhole))
                 check(tcomp.ef_state is not None, f"{tag}: no EF state")
                 check(abs(closs[-1] - losses[-1]) <= COMPRESSED_TOL
                       * abs(losses[-1]), f"{tag}: compressed final loss "
@@ -587,14 +740,70 @@ def case_train(res: Results, rank: int, keys) -> None:
     tc = train_config(TRAIN_ARCHS[0], optimizer="adafactor")
     want = None
     if rank == 0:
-        t, losses = _train(tc, None, None)
-        want = (losses, [p.detach().clone() for p in tree_leaves(t.params)])
-    t, losses = _train(tc, None, make_host_mesh(shape,
-                                                ("pod", "data", "model")))
-    res.put("train-adafactor", "mesh", (losses, t.params))
+        _, losses, whole = _train(tc, None, None)
+        want = (losses, [p.detach().clone() for p in tree_leaves(whole)])
+    _, losses, whole = _train(tc, None, make_host_mesh(
+        shape, ("pod", "data", "model")))
+    res.put("train-adafactor", "mesh", (losses, whole))
     if want is not None:
-        _held(losses, tree_leaves(t.params), *want, TRAIN_TOL,
+        _held(losses, tree_leaves(whole), *want, TRAIN_TOL,
               "train-adafactor")
+
+
+def case_train_drift(res: Results, rank: int, keys, out_dir: Path) -> None:
+    """Where a mesh run leaves the one-device run: for each of
+    ``TRAIN_ARCHS`` and ``GRAD_HELD`` on the world's last layout, each
+    step's loss difference (relative) and largest gradient difference
+    (``grad_errors``, and its leaf); the leaf furthest off after
+    ``TRAIN_STEPS`` steps (relative to its norm), its element furthest
+    off, and at each step that element's gradient on the mesh and on one
+    device beside the leaf's largest gradient difference (the summation
+    order's noise) and largest gradient.  Rank 0 writes
+    ``train-drift.json`` to the output directory; nothing is held."""
+    from .launch.mesh import make_host_mesh
+    from .models import build_model
+    from .models.sharding import tree_paths
+    world = dist.get_world_size()
+    shape = TRAIN_MESHES[world][-1]
+    mesh = make_host_mesh(shape, ("pod", "data", "model"))
+    report = {"layout": list(shape), "steps": TRAIN_STEPS}
+    for arch in TRAIN_ARCHS + GRAD_HELD:
+        tc, params = train_config(arch), _init_params(arch, keys)
+        one = _train(tc, params, None, grads=True) if rank == 0 else None
+        _, losses, whole, gm = _train(tc, params, mesh, grads=True)
+        if one is None:
+            continue
+        _, losses1, whole1, g1 = one
+        paths = tree_leaves(tree_paths(build_model(
+            tc.arch, device="cpu").param_tree()))
+        got = [_np(x).astype(np.float64) for x in tree_leaves(whole)]
+        want = [_np(x).astype(np.float64) for x in tree_leaves(whole1)]
+        rel = [float(np.sqrt(np.sum((a - b) ** 2)
+                             / max(np.sum(b ** 2), 1e-300)))
+               for a, b in zip(got, want)]
+        i = int(np.argmax(rel))
+        at = np.unravel_index(np.argmax(np.abs(got[i] - want[i])),
+                              got[i].shape)
+        steps = []
+        for a, b in zip(gm, g1):
+            ga, gb = _np(a[i]).astype(np.float64), _np(b[i]).astype(
+                np.float64)
+            steps.append({"mesh": float(ga[at]), "one_device": float(gb[at]),
+                          "leaf_max_abs_diff": float(np.abs(ga - gb).max()),
+                          "leaf_max_abs": float(np.abs(gb).max())})
+        errs = [grad_errors(a, b) for a, b in zip(gm, g1)]
+        report[arch] = {
+            "loss_rel_by_step": (np.abs(losses - losses1)
+                                 / np.abs(losses1)).tolist(),
+            "grad_err_by_step": [float(e.max()) for e in errs],
+            "grad_err_leaf_by_step": [paths[int(e.argmax())] for e in errs],
+            "leaf": paths[i], "leaf_rel": rel[i], "element": list(map(
+                int, at)), "final": {"mesh": float(got[i][at]),
+                                     "one_device": float(want[i][at])},
+            "grads_by_step": steps}
+    if rank == 0:
+        (out_dir / "train-drift.json").write_text(json.dumps(report,
+                                                             indent=1))
 
 
 def case_elastic_train(res: Results, rank: int, keys, out_dir: Path) -> None:
@@ -627,11 +836,12 @@ def case_elastic_train(res: Results, rank: int, keys, out_dir: Path) -> None:
         r3 = t3.train()
         got = np.array([l for _, l in r2["history"]])
         want = np.array([l for _, l in r3["history"]])[-len(got):]
-        _held(got, tree_leaves(t2.params), want, tree_leaves(t3.params),
-              TRAIN_TOL, "elastic-train")
+        p2, p3 = t2.state_tree()["params"], t3.state_tree()["params"]
+        _held(got, tree_leaves(p2), want, tree_leaves(p3), TRAIN_TOL,
+              "elastic-train")
         if rank == 0:
-            res.put("elastic-train", "resumed", (got, t2.params))
-            res.put("elastic-train", "uninterrupted", (want, t3.params))
+            res.put("elastic-train", "resumed", (got, p2))
+            res.put("elastic-train", "uninterrupted", (want, p3))
     dist.barrier()
 
 
@@ -759,7 +969,7 @@ def run_rank(rank: int, world: int, out_dir: Path, cases, keys) -> None:
         res = Results()
         t0 = time.perf_counter()
         for case in cases:
-            if case in ("elastic", "elastic-train"):
+            if case in ("elastic", "elastic-train", "train-drift"):
                 globals()[f"case_{case.replace('-', '_')}"](res, rank, keys,
                                                              out_dir)
             else:

@@ -15,10 +15,12 @@ card (``--device cuda``, the default) unless asked for the CPU.
 
 ``--mesh host`` trains on every rank of a process group started from
 torchrun's environment (NCCL on the card, one rank a card; gloo with
-``--device cpu``) over the ``(1, world, 1)`` ``("pod", "data", "model")``
-mesh of ``make_host_mesh``; ``--mesh none`` (the default) trains on one
-device.  The loop is restart-safe: launching again with the same
-``--ckpt-dir`` resumes exactly, on any mesh.  Rank 0 prints the JAX
+``--device cpu``) over a ``("pod", "data", "model")`` mesh of
+``make_host_mesh``: ``(1, world, 1)``, or the ``--mesh-shape P,D,M``
+given (any family; ``"model"`` > 1 splits heads, d_ff, the vocabulary
+and the experts); ``--mesh none`` (the default) trains on one device.
+The loop is restart-safe: launching again with the same ``--ckpt-dir``
+resumes exactly, on any mesh.  Rank 0 prints the JAX
 launcher's JSON line.
 """
 import argparse
@@ -33,15 +35,18 @@ from ..train import Trainer, TrainConfig
 from .mesh import make_host_mesh
 
 
-def _host_mesh(device: str):
+def _host_mesh(device: str, shape=None):
     """Start the process group from torchrun's environment and build the
-    host mesh; on the card each rank takes the card of its local rank."""
+    host mesh (``shape`` (pod, data, model), or ``(1, world, 1)``); on the
+    card each rank takes the card of its local rank."""
     if device.startswith("cuda"):
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
         dist.init_process_group("nccl")
     else:
         dist.init_process_group("gloo")
-    return make_host_mesh()
+    if shape is None:
+        return make_host_mesh()
+    return make_host_mesh(shape, ("pod", "data", "model"))
 
 
 def main(argv=None):
@@ -57,13 +62,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["host", "none"], default="none")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="P,D,M: the (pod, data, model) sizes of --mesh "
+                         "host (default 1,world,1)")
     ap.add_argument("--pod-grad-mode", choices=["auto", "compressed"],
                     default="auto")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    mesh = _host_mesh(args.device) if args.mesh == "host" else None
+    shape = (tuple(int(n) for n in args.mesh_shape.split(","))
+             if args.mesh_shape else None)
+    mesh = _host_mesh(args.device, shape) if args.mesh == "host" else None
     device = args.device
     if mesh is not None and device == "cuda":
         device = f"cuda:{torch.cuda.current_device()}"

@@ -119,7 +119,8 @@ class EncDecLM(_LM):
         # cfg.remat applies where a gradient is built (loss_fn)
         remat = self._remat if torch.is_grad_enabled() else (lambda fn: fn)
         for lp in P["enc"]:
-            x = remat(lambda h, lp=lp: _enc_block(lp, cfg, positions, h))(x)
+            x = remat(lambda h, lp=lp: _enc_block(self._use(lp), cfg,
+                                                  positions, h))(x)
         return _ln(P["enc_norm"], cfg, x)
 
     @torch.no_grad()
@@ -144,6 +145,8 @@ class EncDecLM(_LM):
         ``cfg.remat``."""
         cfg = self.cfg
         P, _ = self.train_params()
+        P = dict(P, **self._use({k: v for k, v in P.items()
+                                 if k not in ("enc", "dec")}))
         enc_out = self._encode(P, self._batch_tensor(batch, "frames"))
         tokens = self._batch_tensor(batch, "tokens")
         b, s = tokens.shape
@@ -151,6 +154,7 @@ class EncDecLM(_LM):
         positions = torch.arange(s, device=self.device).expand(b, s)
 
         def dec_block(lp, h):
+            lp = self._use(lp)
             h = h + apply_attention(lp["attn"], cfg,
                                     _ln(lp["attn_norm"], cfg, h), positions,
                                     causal=True)

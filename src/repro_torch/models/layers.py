@@ -19,17 +19,32 @@ over the K/V :func:`init_cross_kv` computes once from the encoder output.
 The training loss is :func:`cross_entropy`.
 The JAX package's sharding constraints are identities on one device and
 are left out.
+
+In a mesh step with a ``"model"`` axis (:func:`.sharding.tp`) the
+training functions compute Megatron style on the rank's part of each
+weight (:mod:`repro_torch.train.zero`): the embedding is a masked lookup
+in the rank's vocabulary slice plus an all-reduce; ``lm_head`` gives the
+rank's slice of the logits and :func:`vocab_parallel_cross_entropy` takes
+the log-sum-exp, the z-loss and the gold logit across the slices; the
+MLP and attention run on the rank's d_ff columns and heads
+(column-parallel ``w_gate``/``w_up``/``wq``/``wk``/``wv``, row-parallel
+``w_down``/``wo``, then an all-reduce).  A ``wq``/``wk``/``wv`` split
+that cuts a head is gathered over ``"model"`` (kimi-k2's 2 KV heads at 4
+ranks), and each local query head reads its own KV head.  Replicated
+biases are entered into the region and sliced to the local columns.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core.distributed import all_reduce
 from ..kernels import ops as kops
+from . import sharding
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -133,7 +148,16 @@ def init_embed(gen, cfg: ArchConfig) -> Params:
 
 
 def apply_embed(p: Params, cfg: ArchConfig, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"].to(cdtype(cfg))[ids.long()]
+    table = p["table"].to(cdtype(cfg))
+    tp = sharding.tp_split(table, 0, cfg.padded_vocab)
+    if tp is None:
+        return table[ids.long()]
+    # vocab-parallel: the rows of the rank's slice, zero elsewhere, summed
+    n = table.shape[0]
+    local = ids.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)]
+    return tp.sum(torch.where(inside[..., None], x, 0))
 
 
 def init_lm_head(gen, cfg: ArchConfig) -> Params:
@@ -149,10 +173,14 @@ def apply_lm_head(p: Optional[Params], cfg: ArchConfig, x: torch.Tensor,
         w = embed["table"].to(cdtype(cfg)).T
     else:
         w = p["w"].to(cdtype(cfg))
+    tp, first = sharding.tp_split(w, -1, cfg.padded_vocab), 0
+    if tp is not None:
+        # vocab-parallel: the rank's slice of the logits
+        x, first = tp.copy(x), tp.rank * w.shape[-1]
     logits = x @ w
     if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(logits.shape[-1], device=logits.device) \
-            >= cfg.vocab_size
+        pad = torch.arange(first, first + logits.shape[-1],
+                           device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
     return logits
 
@@ -172,15 +200,27 @@ def init_mlp(gen, cfg: ArchConfig, d_ff: Optional[int] = None,
 
 
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; over a ``"model"`` axis on the rank's d_ff columns
+    (``w_gate``/``w_up`` column-parallel, ``w_down`` row-parallel, then an
+    all-reduce; ``b_up`` sliced to the columns, ``b_down`` after the
+    sum)."""
     dt = cdtype(cfg)
+    tp = sharding.tp_split(p["w_down"], 0, cfg.d_ff)
+    b_up = p.get("b_up")
+    if tp is not None:
+        x = tp.copy(x)
+        if b_up is not None:
+            b_up = tp.block(tp.copy(b_up), -1, p["w_down"].shape[0])
     up = x @ p["w_up"].to(dt)
-    if "b_up" in p:
-        up = up + p["b_up"].to(dt)
+    if b_up is not None:
+        up = up + b_up.to(dt)
     if cfg.act == "silu":
         h = F.silu(x @ p["w_gate"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")        # jax.nn.gelu's default
     out = h @ p["w_down"].to(dt)
+    if tp is not None:
+        out = tp.sum(out)
     if "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
@@ -297,11 +337,108 @@ def sdpa(cfg: ArchConfig, q, k, v, causal: bool, q_offset: int = 0):
     return _sdpa_einsum(q, k, v, causal, q_offset=q_offset)
 
 
+class _Heads(NamedTuple):
+    """A rank's part of an attention's tensor-parallel region: its query
+    heads [q0, q0 + hq) with their weights (the rank's columns of ``wq``,
+    or the whole gathered ``wq`` where the split cuts a head), the KV
+    weights likewise, and ``kv_pick``, the KV head each query head reads
+    where the rank computes every KV head (None: its own KV heads, in
+    GQA order)."""
+    wq: torch.Tensor
+    bq: Optional[torch.Tensor]
+    q0: int
+    hq: int
+    wk: torch.Tensor
+    wv: torch.Tensor
+    bk: Optional[torch.Tensor]
+    bv: Optional[torch.Tensor]
+    kv_pick: Optional[torch.Tensor]
+
+
+def _tp_heads(p: Params, cfg: ArchConfig, tp, kv: bool = True) -> _Heads:
+    """The rank's :class:`_Heads` (without the KV weights unless
+    ``kv``)."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev = p["wq"].device
+
+    def side(w, b, heads):
+        if sharding.unit_split(w.shape[-1], heads * hd, hd):
+            n = w.shape[-1]
+            bias = None if b is None else tp.block(tp.copy(b), -1, n)
+            return w, bias, tp.rank * (n // hd), n // hd
+        bias = None if b is None else tp.copy(b)
+        return tp.whole(w, -1, heads * hd), bias, 0, heads
+
+    wq, bq, q0, hq = side(p["wq"], p.get("bq"), h)
+    if not kv:
+        return _Heads(wq, bq, q0, hq, None, None, None, None, None)
+    wk, bk, _, hk = side(p["wk"], p.get("bk"), kvh)
+    wv, bv, _, _ = side(p["wv"], p.get("bv"), kvh)
+    pick = None
+    if hk == kvh and hq < h:
+        # every KV head here: each local query head picks its own
+        pick = (q0 + torch.arange(hq, device=dev)) // (h // kvh)
+    elif hk < kvh and hq == h:
+        raise ValueError("KV heads split where query heads are not")
+    return _Heads(wq, bq, q0, hq, wk, wv, bk, bv, pick)
+
+
+def _tp_kv(hs: _Heads, cfg: ArchConfig, src: torch.Tensor,
+           positions: Optional[torch.Tensor]):
+    """The rank's K/V (b, t, heads, hd) of ``src`` (already entered into
+    the region): its own KV heads, or for each local query head its KV
+    head."""
+    dt = cdtype(cfg)
+    b, t, _ = src.shape
+    k = src @ hs.wk.to(dt)
+    v = src @ hs.wv.to(dt)
+    if hs.bk is not None:
+        k, v = k + hs.bk.to(dt), v + hs.bv.to(dt)
+    k = k.reshape(b, t, -1, cfg.hd)
+    v = v.reshape(b, t, -1, cfg.hd)
+    if positions is not None and cfg.use_rope:
+        k = rope(k, positions, cfg.rope_theta)
+    if hs.kv_pick is not None:
+        k, v = k[:, :, hs.kv_pick], v[:, :, hs.kv_pick]
+    return k, v
+
+
+def _tp_out(hs: _Heads, cfg: ArchConfig, p: Params, out: torch.Tensor,
+            tp) -> torch.Tensor:
+    """The region's row-parallel ``wo`` on the computed heads' output
+    (b, s, heads * hd), summed over ``"model"``."""
+    rows = p["wo"].shape[0]
+    if out.shape[-1] != rows:              # every head computed here
+        out = tp.block(out, -1, rows)
+    return tp.sum(out @ p["wo"].to(cdtype(cfg)))
+
+
+def _tp_q(hs: _Heads, cfg: ArchConfig, x: torch.Tensor, positions):
+    dt = cdtype(cfg)
+    b, s, _ = x.shape
+    q = x @ hs.wq.to(dt)
+    if hs.bq is not None:
+        q = q + hs.bq.to(dt)
+    q = q.reshape(b, s, hs.hq, cfg.hd)
+    if positions is not None and cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
 def apply_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
                     positions: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Training self-attention over the full sequence: y (b, s, d)."""
+    """Training self-attention over the full sequence: y (b, s, d); over
+    a ``"model"`` axis on the rank's heads."""
     b, s, _ = x.shape
+    tp = sharding.tp_split(p["wo"], 0, cfg.n_heads * cfg.hd)
+    if tp is not None:
+        hs = _tp_heads(p, cfg, tp)
+        x = tp.copy(x)
+        q = _tp_q(hs, cfg, x, positions)
+        k, v = _tp_kv(hs, cfg, x, positions)
+        out = sdpa(cfg, q, k, v, causal)
+        return _tp_out(hs, cfg, p, out.reshape(b, s, -1), tp)
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = sdpa(cfg, q, k, v, causal)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
@@ -357,15 +494,26 @@ def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     the einsum path at decode."""
     dt = cdtype(cfg)
     b, s, _ = x.shape
+    tp = sharding.tp_split(p["wo"], 0, cfg.n_heads * cfg.hd)
+    if tp is not None:
+        # the rank's heads; kv_k, kv_v are init_cross_kv's for them
+        hs = _tp_heads(p, cfg, tp, kv=False)
+        q = _tp_q(hs, cfg, tp.copy(x), None)
+        out = sdpa(cfg, q, kv_k, kv_v, causal=False)
+        return _tp_out(hs, cfg, p, out.reshape(b, s, -1), tp)
     q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.hd)
     out = sdpa(cfg, q, kv_k, kv_v, causal=False)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
 
 
 def init_cross_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
-    """The cross-attention K/V (b, t, kvh, hd) of the encoder output."""
+    """The cross-attention K/V (b, t, kvh, hd) of the encoder output; over
+    a ``"model"`` axis those the rank's query heads read."""
     dt = cdtype(cfg)
     b, t, _ = enc_out.shape
+    tp = sharding.tp_split(p["wo"], 0, cfg.n_heads * cfg.hd)
+    if tp is not None:
+        return _tp_kv(_tp_heads(p, cfg, tp), cfg, tp.copy(enc_out), None)
     k = (enc_out @ p["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
     v = (enc_out @ p["wv"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
     return k, v
@@ -374,9 +522,19 @@ def init_cross_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
 # ------------------------------------------------------------------- loss
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  z_loss: float = 1e-4) -> torch.Tensor:
+                  z_loss: float = 1e-4,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Mean next-token CE with the z-loss regulariser, in float32; with
-    ``mask`` the mean over the positions where it is nonzero."""
+    ``mask`` the mean over the positions where it is nonzero.  Over a
+    ``"model"`` axis, logits narrower than ``vocab`` are the rank's
+    vocabulary slice (:func:`vocab_parallel_cross_entropy`)."""
+    tp = None if vocab is None else sharding.tp_split(logits, -1, vocab)
+    if tp is not None:
+        return vocab_parallel_cross_entropy(
+            logits, labels, mask, z_loss, first=tp.rank * logits.shape[-1],
+            psum=tp.sum,
+            pmax=lambda t: all_reduce(t, torch.distributed.ReduceOp.MAX,
+                                      tp.group))
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
@@ -387,3 +545,50 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     m = mask.float()
     return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None,
+                                 z_loss: float = 1e-4, first=0,
+                                 psum=None, pmax=None) -> torch.Tensor:
+    """:func:`cross_entropy` of logits split over the vocabulary: this
+    part's ``logits`` (..., n) are vocabulary entries [first, first + n),
+    ``psum`` sums over the parts (with a gradient) and ``pmax`` takes the
+    MAX (without one).  The log-sum-exp is the parts' summed exponentials
+    about the global max, the gold logit the one part's that holds the
+    label; the padded vocabulary is already masked in the logits.  The
+    parts may also lie on a leading axis of one tensor (``first`` then
+    broadcasts against ``labels``), for checking on one rank."""
+    lf = logits.float()
+    lse = _SplitLogSumExp.apply(lf, psum, pmax)
+    n = lf.shape[-1]
+    local = labels.long() - first
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = psum(torch.where(inside, gold, 0.0))
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.float().expand_as(nll)
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+class _SplitLogSumExp(torch.autograd.Function):
+    """The log-sum-exp over every part's last axis (the parts' summed
+    exponentials about the global max); its backward is
+    ``torch.logsumexp``'s, the gradient times exp(x - lse), which the
+    parts' replicated gradient of lse gives each part's own slice of."""
+
+    @staticmethod
+    def forward(ctx, lf, psum, pmax):
+        m = pmax(lf.amax(-1))
+        lse = torch.log(psum(torch.exp(lf - m[..., None]).sum(-1))) + m
+        ctx.save_for_backward(lf, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        lf, lse = ctx.saved_tensors
+        return grad[..., None] * (lf - lse[..., None]).exp(), None, None

@@ -13,6 +13,15 @@ full width the (b, q, q, heads, dk) ratio tensor is 268 MB a chunk at batch
 8); the inter-chunk state runs on :func:`repro_torch.kernels.ops.ssm_scan`
 over channels = heads * dk * dv.  Channel mixing is the squared-ReLU MLP
 with token shift.  Decode is the O(1) recurrent update.
+
+In a mesh step with a ``"model"`` axis both mixes are tensor-parallel
+regions.  Time mixing runs on the rank's heads where the column split of
+``receptance``/``key``/``value``/``gate`` falls on whole heads of 64
+(the decay, bonus and group norm are per channel or per head, sliced to
+them), else on every head with those four gathered; ``output`` is
+row-parallel, then an all-reduce.  Channel mixing: ``wk`` column- and
+``wv`` row-parallel with an all-reduce; ``wr`` column-parallel gates the
+rank's columns, which are then gathered.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from . import sharding
 from .layers import Params, _dense_init, _full, cdtype, pdtype, repeat_each
 
 RWKV_HEAD = 64          # dk = dv = 64
@@ -102,6 +112,13 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
     dt_c = cdtype(cfg)
     b, s, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
+    tp = sharding.tp_split(p["output"], -2, d)
+    rows = p["output"].shape[-2]
+    width = d                       # the channels computed here
+    if tp is not None:
+        p, width = _time_region(p, d, tp)
+        x = tp.copy(x)
+        n_heads = width // hd
     xx = _shift(x, x.new_zeros((b, d)))
     xr, xk, xv, xw, xg = _mixes(x, xx, p["mu"].to(dt_c))
     r = (xr @ p["receptance"].to(dt_c)).reshape(b, s, n_heads, hd)
@@ -159,24 +176,80 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
         y_inter = torch.einsum("bthk,bhkv->bthv", rc_ * torch.exp(lwq),
                                h_prev[:, c])
         ys.append(y_intra + y_bonus + y_inter)
-    y = torch.stack(ys, 1).reshape(b, s_pad, d)[:, :s].to(dt_c)
+    y = torch.stack(ys, 1).reshape(b, s_pad, width)[:, :s].to(dt_c)
     y = _group_norm(y, p["ln_x_scale"], n_heads) * g
-    out = y @ p["output"].to(dt_c)
+    if tp is not None:
+        if width == d:
+            y = tp.block(y, -1, rows)
+        out = tp.sum(y @ p["output"].to(dt_c))
+    else:
+        out = y @ p["output"].to(dt_c)
     if not return_state:
         return out
     S_last = h_all[:, -1].reshape(b, n_heads, hd, hd)
     return out, (S_last, x[:, -1].float())
 
 
+_TIME_MATS = ("receptance", "key", "value", "gate")
+
+
+def _time_region(p: Params, d: int, tp):
+    """Time mixing's params on this rank of a ``"model"`` axis, entered
+    into the region, and the channels it computes: the rank's heads where
+    the column split falls on whole heads, else every channel."""
+    w = p["receptance"].shape[-1]
+    if not sharding.unit_split(w, d, RWKV_HEAD):
+        return ({k: v if k == "output" else
+                 tp.whole(v, -1, d) if k in _TIME_MATS else tp.copy(v)
+                 for k, v in p.items()}, d)
+    cols = {"w0": -1, "w_lora_b": -1, "ln_x_scale": -1}
+    out = {}
+    for k, v in p.items():
+        if k in _TIME_MATS or k == "output":
+            out[k] = v
+        elif k == "u":                          # (heads, hd)
+            out[k] = tp.block(tp.copy(v), -2, w // RWKV_HEAD)
+        elif k in cols:
+            out[k] = tp.block(tp.copy(v), -1, w)
+        else:                                   # mu, w_lora_a
+            out[k] = tp.copy(v)
+    return out, w
+
+
 def apply_rwkv_channel(p: Params, cfg: ArchConfig, x: torch.Tensor,
                        prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     dt_c = cdtype(cfg)
     b, s, d = x.shape
+    tp = sharding.tp_split(p["wv"], -2, cfg.d_ff)
+    if tp is not None:
+        return _channel_region(p, cfg, x, prev, tp)
     xx = _shift(x, x.new_zeros((b, d)) if prev is None else prev)
     xk, xr = _mixes(x, xx, p["mu"].to(dt_c))
     k = torch.square(F.relu(xk @ p["wk"].to(dt_c)))
     kv = k @ p["wv"].to(dt_c)
     return torch.sigmoid(xr @ p["wr"].to(dt_c)) * kv
+
+
+def _channel_region(p: Params, cfg: ArchConfig, x, prev, tp):
+    """Channel mixing over a ``"model"`` axis: k on the rank's d_ff
+    columns, kv summed over the axis; the receptance gate on the rank's
+    columns of ``wr`` (then gathered), or whole where ``wr`` is not
+    split."""
+    dt_c = cdtype(cfg)
+    b, _, d = x.shape
+    shift = lambda t: _shift(t, t.new_zeros((b, d)) if prev is None
+                             else prev)
+    mu = p["mu"].to(dt_c)
+    xl = tp.copy(x)
+    xk, xr = _mixes(xl, shift(xl), tp.copy(mu))
+    k = torch.square(F.relu(xk @ p["wk"].to(dt_c)))
+    kv = tp.sum(k @ p["wv"].to(dt_c))
+    n = p["wr"].shape[-1]
+    if n == d:
+        _, xr = _mixes(x, shift(x), mu)
+        return torch.sigmoid(xr @ p["wr"].to(dt_c)) * kv
+    r = torch.sigmoid(xr @ p["wr"].to(dt_c))
+    return tp.gather_out(r * tp.block(tp.copy(kv), -1, n), -1)
 
 
 class RWKVState(NamedTuple):

@@ -23,20 +23,41 @@ for a compiler that partitions a global program; PyTorch runs one program
 a rank and places nothing, so the port computes specs and the trainer
 slices by them.
 
-The MoE layer's expert-parallel group is separate: where the JAX package
-shards experts over the active mesh's ``"model"`` axis, the port's
-``shuffle`` dispatch reads the process group set by
-:func:`use_expert_group`; without one it runs the ``einsum`` dispatch, as
-the JAX package's does without a ``"model"`` axis.
+The MoE layer's expert-parallel group: where the JAX package shards
+experts over the active mesh's ``"model"`` axis, the port's ``shuffle``
+dispatch reads the mesh's ``"model"`` group during a mesh step, and
+otherwise the process group set by :func:`use_expert_group`; without
+either it runs the ``einsum`` dispatch, as the JAX package's does without
+a ``"model"`` axis.
+
+Parameters on a mesh (the mesh ``Trainer``, :mod:`repro_torch.train.zero`):
+a rank stores only its shard of each parameter, laid out by its spec
+(:class:`TensorLayout`).  During a step a :class:`ShardRun` is active
+(:func:`use_shard_run`): the model's ``train_params`` hands out
+:class:`LeafRef` s, and :func:`materialize` gathers one over the FSDP
+axes (``"pod"``, ``"data"``) where its layer is computed, inside the
+layer's checkpointed function, so a recompute gathers again; the
+backward reduce-scatters the gradient over ``"data"`` into the rank's
+region and leaves the ``"pod"`` hop to the step.  A ``"model"`` split
+stays: the layers compute Megatron style on the rank's heads, d_ff
+columns, vocabulary slice or experts (:func:`tp` gives the axis), and
+gather over ``"model"`` only a weight whose split cuts a unit
+(:func:`unit_split`: a head of ``wq``/``wk``/``wv``, ``in_proj``'s packed
+[z, x, B, C, dt] block, an RWKV head).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import re
-from typing import Any, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
 
 from .._tree import tree_map
+from ..core import distributed as D
 
 _MESH: contextvars.ContextVar[Optional[Any]] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
@@ -45,6 +66,8 @@ _RULE_OVERRIDES: contextvars.ContextVar[Tuple[Tuple[str, Optional[Tuple]],
     contextvars.ContextVar("repro_torch_rule_overrides", default=())
 _EXPERT_GROUP: contextvars.ContextVar[Optional[Any]] = contextvars.ContextVar(
     "repro_torch_expert_group", default=None)
+_SHARD_RUN: contextvars.ContextVar[Optional["ShardRun"]] = \
+    contextvars.ContextVar("repro_torch_shard_run", default=None)
 
 
 class PartitionSpec(tuple):
@@ -246,8 +269,12 @@ def tree_param_specs(params: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 def expert_group():
-    """The ``torch.distributed`` group the experts are sharded over, or
-    None."""
+    """The ``torch.distributed`` group the experts are sharded over: the
+    ``"model"`` group of an active :class:`ShardRun` whose mesh has that
+    axis, else the one :func:`use_expert_group` set, or None."""
+    run = _SHARD_RUN.get()
+    if run is not None and run.expert_group is not None:
+        return run.expert_group
     return _EXPERT_GROUP.get()
 
 
@@ -261,3 +288,336 @@ def use_expert_group(group):
         yield group
     finally:
         _EXPERT_GROUP.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# Parameters on a mesh: layouts, the mesh's groups, the step's context
+# ---------------------------------------------------------------------------
+AXES = ("pod", "data", "model")
+
+
+class TensorLayout:
+    """Where a tensor of ``shape`` with spec ``spec`` lies on a mesh of
+    axis ``sizes``, seen from the rank at ``coord`` ({axis: index}).
+
+    The rank's *shard* splits each dimension over its spec entry's axes.
+    Its *region* is what the FSDP gather's backward leaves it: the shard,
+    but on the dimension that ``"data"`` splits only that axis's block (a
+    ``"pod"`` before it in the entry stays whole there).  The *gathered*
+    shape is the shard made whole on that dimension."""
+
+    def __init__(self, spec, shape, sizes: Dict[str, int],
+                 coord: Dict[str, int]):
+        self.spec, self.shape = tuple(spec), tuple(shape)
+        self.axes = [spec_axes(e) for e in spec]
+        self.sizes, self.coord = sizes, dict(coord)
+        self.parts = [math.prod(sizes[a] for a in ax) for ax in self.axes]
+        self.index = self.index_at(coord)
+        self.local_shape = tuple(n // k for n, k in zip(self.shape,
+                                                        self.parts))
+        self.n_shards = math.prod(self.parts)
+        self.data_dim = next((i for i, ax in enumerate(self.axes)
+                              if "data" in ax), None)
+        self.model_dim = next((i for i, ax in enumerate(self.axes)
+                               if "model" in ax), None)
+
+    def index_at(self, coord: Dict[str, int]) -> Tuple[int, ...]:
+        """The shard index, a dimension each, of the rank at ``coord``."""
+        out = []
+        for ax in self.axes:
+            i = 0
+            for a in ax:
+                i = i * self.sizes[a] + coord[a]
+            out.append(i)
+        return tuple(out)
+
+    def part(self, x: torch.Tensor, index) -> torch.Tensor:
+        """The shard at ``index`` of the whole tensor ``x`` (a view)."""
+        for dim, (k, i) in enumerate(zip(self.parts, index)):
+            if k > 1:
+                c = x.shape[dim] // k
+                x = x.narrow(dim, i * c, c)
+        return x
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        return self.part(x, self.index)
+
+    def inner(self) -> "TensorLayout":
+        """The layout of one entry of a leaf stacked on axis 0 (a layer of
+        ``layers``), whose spec leaves axis 0 whole."""
+        return TensorLayout(self.spec[1:], self.shape[1:], self.sizes,
+                            self.coord)
+
+    # -- FSDP: the gather, the regions and the pod hop's shard ------------
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        """The axes of more than one rank that the FSDP gather runs over
+        (of the data dimension's entry), outermost first; () when they
+        split nothing."""
+        if self.data_dim is None:
+            return ()
+        return tuple(a for a in self.axes[self.data_dim]
+                     if self.sizes[a] > 1)
+
+    def region_shape(self) -> Tuple[int, ...]:
+        shape = list(self.local_shape)
+        if self.data_dim is not None:
+            shape[self.data_dim] = (self.shape[self.data_dim]
+                                    // self.sizes["data"])
+        return tuple(shape)
+
+    def regions(self, g: torch.Tensor) -> torch.Tensor:
+        """(D, *region) of ``g`` in the gathered shape: data rank j's
+        region at [j]."""
+        i = self.data_dim
+        ax = self.axes[i]
+        k = ax.index("data")
+        pre = math.prod(self.sizes[a] for a in ax[:k])
+        d = self.sizes["data"]
+        y = g.unflatten(i, (pre, d, g.shape[i] // (pre * d))).movedim(i + 1,
+                                                                       0)
+        return y.reshape((d,) + self.region_shape())
+
+    def shard_of_region(self, r: torch.Tensor) -> torch.Tensor:
+        """The rank's shard of its own region ``r``: the data dimension's
+        other axes split it there."""
+        if self.data_dim is None:
+            return r
+        dim = self.data_dim
+        rest = tuple(a for a in self.axes[dim] if a != "data")
+        k = math.prod(self.sizes[a] for a in rest)
+        if k == 1:
+            return r
+        i = 0
+        for a in rest:
+            i = i * self.sizes[a] + self.coord[a]
+        c = r.shape[dim] // k
+        return r.narrow(dim, i * c, c)
+
+
+def unit_split(local: int, whole: int, unit: int) -> bool:
+    """Whether a ``"model"`` split that leaves a rank ``local`` of
+    ``whole`` falls on whole units of ``unit``: then the rank computes on
+    its own units, else it gathers the weight over ``"model"``."""
+    return local < whole and local % unit == 0
+
+
+class MeshGroups:
+    """A mesh's collectives over sets of its axes, each a sequence of
+    collectives over the ``DeviceMesh``'s own one-axis groups."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        self.sizes = axis_sizes(mesh)
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not part of the mesh")
+        self.coord = dict(zip(self.names, coord))
+        for a in self.names:
+            if dist.get_rank(self.group(a)) != self.coord[a]:
+                raise ValueError(f"axis {a!r}: group ranks do not follow "
+                                 f"the mesh coordinates")
+
+    def group(self, axis: str):
+        return self.mesh.get_group(axis)
+
+    def size(self, axes) -> int:
+        return math.prod(self.sizes[a] for a in self.names if a in axes)
+
+    def all_reduce(self, t: torch.Tensor, axes, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """``t`` reduced in place over the ranks that differ only along
+        ``axes``."""
+        for a in self.names:
+            if a in axes and self.sizes[a] > 1:
+                dist.all_reduce(t, op=op, group=self.group(a))
+        return t
+
+    def barrier(self, device) -> None:
+        """Wait for every rank of the mesh."""
+        self.all_reduce(torch.zeros((), device=device), self.names)
+
+    def gather(self, x: torch.Tensor, axes=None) -> torch.Tensor:
+        """The ``x`` of every rank that differs from this one only along
+        ``axes`` (default: all), stacked as (*their sizes, *x.shape), the
+        rank at coordinates c at [c]."""
+        axes = self.names if axes is None else tuple(
+            a for a in self.names if a in axes)
+        for a in reversed(axes):
+            x = (x.unsqueeze(0) if self.sizes[a] == 1 else
+                 D.all_gather(x.contiguous().unsqueeze(0), self.group(a)))
+        return x
+
+
+class TensorParallel:
+    """The ``"model"`` axis of a mesh step, seen from this rank: the
+    Megatron pair and the gathers a layer's tensor-parallel region uses
+    (:mod:`repro_torch.core.distributed`)."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+
+    def copy(self, x):
+        """Enter the region: ``x`` (replicated) as the rank's own."""
+        return D.copy_to_region(x, self.group)
+
+    def sum(self, x):
+        """Leave the region: the ranks' parts summed, replicated."""
+        return D.reduce_from_region(x, self.group)
+
+    def gather_out(self, x, dim: int):
+        """Leave the region: the ranks' blocks along ``dim``, replicated."""
+        return D.gather_from_region(x, dim, self.group)
+
+    def whole(self, w, dim: int, full: int):
+        """Weight ``w`` whole along ``dim`` inside the region: gathered if
+        it is the rank's block, else (replicated) entered as the rank's
+        own; either way the ranks' gradients are summed."""
+        if w.shape[dim] < full:
+            return D.gather_along(w, dim, self.group)
+        return self.copy(w)
+
+    def block(self, x, dim: int, n: int):
+        """The rank's block of ``n`` along ``dim``."""
+        return x.narrow(dim, self.rank * n, n)
+
+
+class BatchAxes:
+    """The ``("pod", "data")`` ranks of a mesh step: rank ``index`` of
+    ``size`` in the global batch's row order."""
+
+    def __init__(self, groups: MeshGroups):
+        self.groups = groups
+        self.axes = tuple(a for a in ("pod", "data") if a in groups.names)
+        self.size = groups.size(self.axes)
+        self.index = 0
+        for a in self.axes:
+            self.index = self.index * groups.sizes[a] + groups.coord[a]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """SUM over the batch ranks (carries a gradient)."""
+        for a in self.axes:
+            if self.groups.sizes[a] > 1:
+                x = D.all_reduce(x, group=self.groups.group(a))
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(size, *x.shape): every batch rank's ``x`` in row order."""
+        return self.groups.gather(x.detach(), self.axes).reshape(
+            (self.size,) + tuple(x.shape))
+
+
+class LeafRef:
+    """A parameter (or one layer's view of a stacked one) as a rank holds
+    it on a mesh: its shard, layout, leaf index (and layer) and the dtype
+    its compute casts it to.  :func:`materialize` turns it into the tensor
+    a layer computes with."""
+
+    _tree_leaf = True
+    __slots__ = ("tensor", "layout", "leaf", "layer", "dtype")
+
+    def __init__(self, tensor, layout, leaf, layer=None, dtype=None):
+        self.tensor, self.layout, self.leaf = tensor, layout, leaf
+        self.layer, self.dtype = layer, dtype
+
+
+class ShardRun:
+    """What a mesh step's model reads while it runs (:func:`use_shard_run`):
+    the leaves' layouts, the mesh's groups, the ``"model"`` axis (``tp``,
+    None at one rank), the batch ranks, and the sink of the FSDP gathers'
+    regions (``regions``: leaf index -> the rank's region of its
+    gradient, summed over the step's gathers)."""
+
+    def __init__(self, groups: MeshGroups, layouts):
+        self.groups = groups
+        self.layouts = list(layouts)
+        m = groups.sizes.get("model", 1)
+        self.tp = (TensorParallel(groups.group("model"), m,
+                                  groups.coord["model"]) if m > 1 else None)
+        self.expert_group = (groups.group("model")
+                             if "model" in groups.names else None)
+        self.batch = BatchAxes(groups)
+        self.regions: Dict[int, torch.Tensor] = {}
+
+    def refs(self, leaves, dtypes):
+        """The flat trainable ``leaves`` as a layer takes them, each to be
+        cast to its ``dtypes`` entry (None: kept): a :class:`LeafRef` where
+        an FSDP axis splits the leaf (cast once gathered), else the leaf
+        cast here, as on one device."""
+        out = []
+        for i, (p, lay, dt) in enumerate(zip(leaves, self.layouts, dtypes)):
+            if lay.fsdp_axes():
+                out.append(LeafRef(p, lay, i, None, dt))
+            else:
+                out.append(p if dt is None else p.to(dt))
+        return out
+
+    def layer_refs(self, ref: LeafRef):
+        """Per-layer refs of a leaf stacked on axis 0 (one unbind)."""
+        lay = ref.layout.inner()
+        return [LeafRef(t, lay, ref.leaf, j, ref.dtype)
+                for j, t in enumerate(ref.tensor.unbind(0))]
+
+    def _sink(self, ref: LeafRef) -> Callable:
+        def add(region: torch.Tensor) -> None:
+            acc = self.regions.get(ref.leaf)
+            if acc is None:
+                lay = self.layouts[ref.leaf]
+                acc = self.regions[ref.leaf] = region.new_zeros(
+                    lay.region_shape())
+            (acc if ref.layer is None else acc[ref.layer]).add_(region)
+        return add
+
+    def materialize(self, ref: LeafRef) -> torch.Tensor:
+        x = ref.tensor
+        axes = ref.layout.fsdp_axes()
+        if axes:
+            groups = [self.groups.group(a) for a in axes]
+            x = D.fsdp_gather(x, ref.layout.data_dim, groups,
+                              axes.index("data") if "data" in axes else None,
+                              self._sink(ref))
+        return x if ref.dtype is None else x.to(ref.dtype)
+
+
+def shard_run() -> Optional[ShardRun]:
+    """The active :class:`ShardRun`, or None off a mesh step."""
+    return _SHARD_RUN.get()
+
+
+def tp() -> Optional[TensorParallel]:
+    """The ``"model"`` axis of the active mesh step when it has more than
+    one rank, else None (the layers then compute as on one device)."""
+    run = _SHARD_RUN.get()
+    return None if run is None else run.tp
+
+
+def tp_split(w: torch.Tensor, dim: int, whole: int
+             ) -> Optional[TensorParallel]:
+    """The ``"model"`` axis (:func:`tp`) where the active mesh step gave
+    this rank a block of ``w`` along ``dim`` (of ``whole``), else None:
+    the one test by which a layer enters its tensor-parallel region.  A
+    dimension that ``validate_spec`` leaves whole keeps its ``whole``
+    size, so the block's size is the spec's split as the rank holds
+    it."""
+    axis = tp()
+    return axis if axis is not None and w.shape[dim] < whole else None
+
+
+@contextlib.contextmanager
+def use_shard_run(run: Optional[ShardRun]):
+    token = _SHARD_RUN.set(run)
+    try:
+        yield run
+    finally:
+        _SHARD_RUN.reset(token)
+
+
+def materialize(tree):
+    """``tree`` with each :class:`LeafRef` made the tensor its layer
+    computes with (gathered over the FSDP axes, cast); other leaves as
+    they are."""
+    run = _SHARD_RUN.get()
+    if run is None:
+        return tree
+    return tree_map(lambda x: run.materialize(x) if isinstance(x, LeafRef)
+                    else x, tree)

@@ -10,6 +10,12 @@ head dim (the hand-written CUDA kernel on the card).  Chunks are evaluated
 one at a time, as the JAX package's ``lax.map`` does, so one chunk's
 (b, q, q, heads) decay tensor is alive at a time.
 
+In a mesh step with a ``"model"`` axis: ``in_proj`` packs [z, x, B, C,
+dt] into one column block, which a ``"model"`` split always cuts, so it
+is gathered over the axis, and every rank runs the whole block (and
+``ssm_scan``) on all of its channels; ``out_proj``'s rows are gathered
+too, so the block is one device's, with no all-reduce of its output.
+
 Decode is the single-step recurrent update, O(1) in context length.
 Initialisers draw from an explicit ``torch.Generator``, as
 :mod:`repro_torch.models.layers` does; ``lead`` prepends stacked-layer axes.
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from . import sharding
 from .layers import Params, _dense_init, _full, cdtype, pdtype, repeat_each
 
 D_CONV = 4
@@ -102,6 +109,13 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     b, s, _ = x.shape
     d_in, n_heads, d_state = ssm_dims(cfg)
     q = cfg.ssm_chunk
+    for k, dim, n in (("in_proj", -1, 2 * d_in + 2 * d_state + n_heads),
+                      ("out_proj", -2, d_in)):
+        # over "model": the whole block on every rank, from the weights
+        # gathered
+        tp = sharding.tp_split(p[k], dim, n)
+        if tp is not None:
+            p = dict(p, **{k: tp.gather_out(p[k], dim)})
     proj = x @ p["in_proj"].to(dt_c)
     z, xs, b_mat, c_mat, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xs, b_mat, c_mat], -1)

@@ -77,11 +77,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import as_device
-from .._tree import tree_flatten, tree_map, tree_unflatten
+from .._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..configs.base import ArchConfig
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
+from .sharding import LeafRef, materialize, shard_run
 from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      apply_mlp, apply_norm, attention_decode,
                      attention_prefill, cdtype, cross_entropy,
@@ -132,22 +133,25 @@ class ParamNest(nn.Module):
         return self._nest(out)
 
 
-def _cast_tree(tree, dt: torch.dtype, cast: frozenset, prefix: str = ""):
+def _cast_tree(tree, dt, cast: frozenset, prefix: str = "",
+               fn: Optional[Callable] = None):
     """``tree`` with every leaf whose dotted name is, or lies under, one of
     the names in ``cast`` cast to ``dt``; everything else kept as it is.  A
     list's items take the list's own name (``enc.attn`` names the
-    ``attn`` of every layer in ``enc``)."""
+    ``attn`` of every layer in ``enc``).  ``fn(leaf, dtype or None)``,
+    when given, replaces the cast."""
+    fn = fn or (lambda a, d: a if d is None else a.to(d))
     if isinstance(tree, (list, tuple)):
-        return [_cast_tree(v, dt, cast, prefix) for v in tree]
+        return [_cast_tree(v, dt, cast, prefix, fn) for v in tree]
     out = {}
     for k, v in tree.items():
         name = prefix + k
         if any(name == c or name.startswith(c + ".") for c in cast):
-            out[k] = tree_map(lambda a: a.to(dt), v)
+            out[k] = tree_map(lambda a: fn(a, dt), v)
         elif isinstance(v, (dict, list, tuple)):
-            out[k] = _cast_tree(v, dt, cast, name + ".")
+            out[k] = _cast_tree(v, dt, cast, name + ".", fn)
         else:
-            out[k] = v
+            out[k] = fn(v, None)
     return out
 
 
@@ -206,15 +210,40 @@ class _LM(ParamNest):
         """(whole nest, per-layer nests) of the trainable parameters with
         ``CAST``'s leaves cast to the compute dtype inside the graph, so the
         gradient reaches the stored parameters.  The layers are unbound from
-        their stack once: the backward stacks their gradients once."""
-        tree = _cast_tree(self.trainable_tree(), cdtype(self.cfg), self.CAST)
+        their stack once: the backward stacks their gradients once.
+
+        In a mesh step (an active :class:`~repro_torch.models.sharding.
+        ShardRun`) the leaves that an FSDP axis splits are
+        :class:`~repro_torch.models.sharding.LeafRef` s of the rank's
+        shards instead, gathered and cast where :meth:`_use` takes them, at
+        their layer; the others are cast here, as on one device."""
+        leaves, struct = tree_flatten(self.trainable_tree())
+        dtypes = [d or None for d in tree_leaves(_cast_tree(
+            tree_unflatten(struct, list(range(len(leaves)))),
+            cdtype(self.cfg), self.CAST, fn=lambda a, d: d or ""))]
+        run = shard_run()
+        if run is None:
+            tree = tree_unflatten(struct, [p if d is None else p.to(d)
+                                           for p, d in zip(leaves, dtypes)])
+        else:
+            tree = tree_unflatten(struct, run.refs(leaves, dtypes))
+        unbind = lambda leaf: (run.layer_refs(leaf)
+                               if isinstance(leaf, LeafRef)
+                               else leaf.unbind(0))
         if not self.STACKED:
             return tree, []
         leaves, structure = tree_flatten(tree["layers"])
-        cols = [leaf.unbind(0) for leaf in leaves]
+        cols = [unbind(leaf) for leaf in leaves]
         layers = [tree_unflatten(structure, [c[i] for c in cols])
                   for i in range(self.cfg.n_layers)]
         return tree, layers
+
+    @staticmethod
+    def _use(tree):
+        """``tree`` as its layer computes with it: in a mesh step, each
+        leaf gathered over the FSDP axes and cast (call it where the layer
+        runs, inside its checkpointed function); else ``tree`` itself."""
+        return materialize(tree)
 
     def _remat(self, fn: Callable) -> Callable:
         """``fn`` under ``cfg.remat``, as the JAX package's ``_remat``:
@@ -239,8 +268,12 @@ class _LM(ParamNest):
         return None if v is None else torch.as_tensor(v, device=self.device)
 
     def _ce(self, logits: torch.Tensor, batch) -> torch.Tensor:
+        """The training CE; over a ``"model"`` axis the logits are the
+        rank's vocabulary slice
+        (:func:`.layers.vocab_parallel_cross_entropy`)."""
         return cross_entropy(logits, self._batch_tensor(batch, "labels"),
-                             self._batch_tensor(batch, "loss_mask"))
+                             self._batch_tensor(batch, "loss_mask"),
+                             vocab=self.cfg.padded_vocab)
 
     def _prompt(self, tokens, max_len: Optional[int], prefix: int = 0):
         """The prompt on the model's device and the cache length: at least
@@ -379,6 +412,7 @@ class DecoderLM(_LM):
         experts."""
         cfg = self.cfg
         P, layers = self.train_params()
+        P = self._use({k: v for k, v in P.items() if k != "layers"})
         tokens = self._batch_tensor(batch, "tokens")
         s = tokens.shape[1]
         x = self._embed_inputs(P, tokens, batch.get("patch_embeds"))
@@ -387,7 +421,7 @@ class DecoderLM(_LM):
         aux = torch.zeros((), device=self.device)
         for lp in layers:
             x, a = self._remat(lambda h, lp=lp: _block_train(
-                lp, cfg, positions, h))(x)
+                self._use(lp), cfg, positions, h))(x)
             aux = aux + a
         loss = self._ce(self._head(P, x[:, -s:]), batch)
         return loss + 0.01 * aux, {"ce": loss, "aux": aux}
@@ -508,14 +542,18 @@ class HybridLM(_LM):
         Mamba2 block."""
         cfg = self.cfg
         P, layers = self.train_params()
+        shared_refs, shared_at = P["shared"], _shared_positions(cfg)
+        P = self._use({k: v for k, v in P.items()
+                       if k not in ("layers", "shared")})
         tokens = self._batch_tensor(batch, "tokens")
         b, s = tokens.shape
         x = apply_embed(P["embed"], cfg, tokens)
         positions = torch.arange(s, device=self.device).expand(b, s)
-        sp, shared_at = P["shared"], _shared_positions(cfg)
 
         def body(lp, shared, h):
+            lp = self._use(lp)
             if shared:
+                sp = self._use(shared_refs)
                 a = apply_attention(sp["attn"], cfg,
                                     apply_norm(sp["attn_norm"], cfg, h),
                                     positions, causal=True)
@@ -648,10 +686,12 @@ class RWKVLM(_LM):
         applies ``_remat`` to its ``lax.scan`` body only)."""
         cfg = self.cfg
         P, layers = self.train_params()
+        P = self._use({k: v for k, v in P.items() if k != "layers"})
         x = apply_embed(P["embed"], cfg, self._batch_tensor(batch, "tokens"))
         chunk = min(cfg.ssm_chunk, 64)
 
         def layer(lp, h):
+            lp = self._use(lp)
             h = h + rwkv_mod.apply_rwkv_time(
                 lp["time"], cfg, apply_norm(lp["ln1"], cfg, h,
                                             kind="layernorm"), chunk=chunk)

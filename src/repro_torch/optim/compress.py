@@ -71,15 +71,19 @@ def compressed_allreduce(g: torch.Tensor, residual: torch.Tensor,
                          group=None, scale_group=None):
     """Error-feedback int8 mean of ``g`` over ``group``.
 
-    ``scale_group``, when given, is a group over which ``g`` is one shard
-    of a larger tensor: the scale is then taken from the MAX over it of
-    the shards' maxima, so each shard quantizes as the whole tensor would.
-    Returns (the mean of the dequantized parts, summed in rank order, and
-    the updated residual)."""
+    ``scale_group``, when given, is a group (or a list of groups) over
+    which ``g`` is one shard of a larger tensor: the scale is then taken
+    from the MAX over it of the shards' maxima, so each shard quantizes as
+    the whole tensor would.  Returns (the mean of the dequantized parts,
+    summed in rank order, and the updated residual)."""
     corrected = g.to(torch.float32) + residual
     amax = torch.max(torch.abs(corrected))
-    if scale_group is not None and dist.get_world_size(scale_group) > 1:
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=scale_group)
+    if scale_group is not None and not isinstance(scale_group,
+                                                  (list, tuple)):
+        scale_group = [scale_group]
+    for sg in scale_group or ():
+        if dist.get_world_size(sg) > 1:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=sg)
     scale = _scale(amax)
     q = _quantize(corrected, scale)
     new_res = corrected - dequantize_int8(q, scale)

@@ -19,7 +19,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .._tree import tree_map
 from ..models import sharding as shmod
-from .zero import AXES, TensorLayout
+from ..models.sharding import AXES, TensorLayout
 
 
 def plan_mesh(n_devices: Optional[int] = None,

@@ -6,10 +6,14 @@ half alone: the loss and its gradients (``model.loss_fn`` and autograd,
 with ``ssm_scan``'s backward kernel on the card), then the optimizer's
 in-place update.  With a mesh (a ``DeviceMesh`` over ``("pod", "data",
 "model")``, e.g. :func:`repro_torch.launch.mesh.make_host_mesh`) the step
-is :class:`repro_torch.train.zero.MeshStep`: each rank's rows of the
-batch, the two-level gradient funnel (reduce-scatter over ``"data"``, then
-the ``"pod"`` hop), a ZeRO update of the rank's shards and an all-gather
-of the parameters.  The pod hop follows ``pod_grad_mode``:
+is :class:`repro_torch.train.zero.MeshStep`: every rank stores only its
+shards of the parameters and the optimizer state (FSDP-3 and ZeRO over
+``("pod", "data")``, Megatron tensor parallelism over ``"model"``, every
+family, MoE with the global batch's router statistics and capacity
+groups); each rank's rows of the batch, each layer's parameters gathered
+where it runs, the two-level gradient funnel (reduce-scatter over
+``"data"``, then the ``"pod"`` hop) and the update of the rank's shards
+in place.  The pod hop follows ``pod_grad_mode``:
 
   'auto'        an exact SUM;
   'compressed'  the error-feedback int8 funnel (``optim.compress``),
@@ -46,7 +50,6 @@ from .._tree import tree_leaves, tree_map
 from ..configs.base import ArchConfig
 from ..data import make_pipeline
 from ..models import build_model, model_class
-from ..models.sharding import axis_sizes
 from ..optim import make_optimizer
 from ..optim.schedule import warmup_cosine
 from . import checkpoint as ckpt
@@ -74,21 +77,6 @@ def _lr_schedule(tc: TrainConfig):
                              warmup_steps=tc.warmup_steps,
                              total_steps=max(tc.steps, 2 * tc.warmup_steps))
     return lr_at
-
-
-def _check_mesh(tc: TrainConfig, mesh) -> None:
-    if mesh is None:
-        return
-    sizes = axis_sizes(mesh)
-    if tc.arch.family == "moe" and any(n > 1 for n in sizes.values()):
-        # Over 'pod' x 'data' each rank would route its own rows: the aux
-        # loss's router statistics and the capacity groups would form per
-        # rank, not over the global batch as in the JAX Trainer(mesh).
-        raise NotImplementedError(
-            f"a MoE config trains only on a mesh of one rank (got "
-            f"{sizes}): global router statistics and capacity groups "
-            f"over 'pod' x 'data', and expert- and tensor-parallel "
-            f"training over 'model', are not ported yet (ROADMAP item 5d)")
 
 
 def build_train_step(tc: TrainConfig, model, opt):
@@ -127,7 +115,6 @@ class Trainer:
 
     def __init__(self, tc: TrainConfig, device="cuda", params=None,
                  mesh=None):
-        _check_mesh(tc, mesh)
         self.tc = tc
         self.mesh = mesh
         self.device = as_device(device, "trainer")
@@ -155,7 +142,7 @@ class Trainer:
             self._mesh_step = MeshStep(
                 self.model, self.opt, mesh, _lr_schedule(tc),
                 compressed=tc.pod_grad_mode == "compressed")
-            self.opt_state = self._mesh_step.init_state(self.params)
+            self.opt_state = self.opt.init(self.params)
             self.ef_state = self._mesh_step.init_ef(self.params)
 
     @property
@@ -167,10 +154,10 @@ class Trainer:
     def state_tree(self) -> Dict[str, Any]:
         """What a checkpoint holds: {"params", "opt_state"}, as whole
         logical tensors (with a mesh, gathered: every rank must call)."""
-        opt_state = self.opt_state
-        if self._mesh_step is not None:
-            opt_state = self._mesh_step.gather_state(opt_state)
-        return {"params": self.params, "opt_state": opt_state}
+        if self._mesh_step is None:
+            return {"params": self.params, "opt_state": self.opt_state}
+        return {"params": self._mesh_step.gather_params(self.params),
+                "opt_state": self._mesh_step.gather_state(self.opt_state)}
 
     def maybe_resume(self) -> bool:
         tc = self.tc
@@ -179,14 +166,22 @@ class Trainer:
         last = ckpt.latest_step(tc.ckpt_dir)
         if last is None:
             return False
-        restored, meta = ckpt.restore(tc.ckpt_dir, last, self.state_tree())
-        with torch.no_grad():
-            for p, r in zip(tree_leaves(self.params),
-                            tree_leaves(restored["params"])):
-                p.copy_(r)
-        self.opt_state = restored["opt_state"]
-        if self._mesh_step is not None:
-            self.opt_state = self._mesh_step.shard_state(self.opt_state)
+        step = self._mesh_step
+        if step is None:
+            target = self.state_tree()
+        else:
+            target = {"params": step.whole_like(self.params),
+                      "opt_state": step.gather_state(self.opt_state)}
+        restored, meta = ckpt.restore(tc.ckpt_dir, last, target)
+        if step is None:
+            with torch.no_grad():
+                for p, r in zip(tree_leaves(self.params),
+                                tree_leaves(restored["params"])):
+                    p.copy_(r)
+            self.opt_state = restored["opt_state"]
+        else:
+            step.load_params(self.params, restored["params"])
+            self.opt_state = step.shard_state(restored["opt_state"])
         self.step = int(meta["step"])
         return True
 

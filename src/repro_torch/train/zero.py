@@ -1,38 +1,47 @@
-"""The mesh training step: a funnel-reduced, ZeRO-sharded BSP superstep.
+"""The mesh training step: a funnel-reduced, FSDP-3 and ZeRO-sharded BSP
+superstep with Megatron tensor parallelism over ``"model"``.
 
 The port of what GSPMD does for the JAX package's ``Trainer(mesh=...)``,
 written out over a ``DeviceMesh`` with dims from ``("pod", "data",
-"model")``.  One step on every rank of the mesh:
+"model")``.  A rank stores only its shard of each parameter, laid out by
+the parameter's spec (:func:`repro_torch.models.sharding.param_spec`,
+:class:`~repro_torch.models.sharding.TensorLayout`): ``"fsdp"`` =
+(``"pod"``, ``"data"``) splits one dimension, ``"model"`` another.  One
+step on every rank of the mesh:
 
   (a) batch     rank (p, d) takes rows [(p D + d) b / (P D), ...) of the
                 global batch, the split of JAX's pod-stacked reshape; the
                 ``"model"`` ranks of one (p, d) share them;
-  (b) gradient  the local loss (the mean over the rank's rows) and its
-                gradients;
-  (c) funnel    reduce-scatter over ``"data"``: data rank j keeps the sum
-                of its *region* of each gradient, the part whose index
-                along the ``"data"`` axis of the parameter's spec is j (the
-                whole tensor where the spec has no ``"data"``); then the
-                ``"pod"`` hop on the region, an exact SUM (``"auto"``) or
-                the error-feedback int8 mean of
-                :func:`repro_torch.optim.compress.compressed_allreduce`
-                (``"compressed"``, per-pod residuals on the region, the
-                scale the MAX over ``"data"`` of the regions' maxima, so
-                each region quantizes as JAX's whole tensor does);
-  (d) update    the optimizer updates only the rank's shard of each
-                parameter (a view into it), with moments laid out by
-                :func:`repro_torch.optim.state_shardings`; AdamW clips by
-                the norm of the whole gradient, Adafactor sums its
-                factored means over the ranks that split a dimension;
-  (e) gather    an all-gather of the updated shards makes every
-                parameter whole again on every rank;
-  (f) loss      the mean of the ranks' losses.
+  (b) forward   under a :class:`~repro_torch.models.sharding.ShardRun`,
+                each layer gathers its parameters over the FSDP axes where
+                it runs (inside its checkpointed function: a recompute
+                gathers again) and computes Megatron style on the rank's
+                heads, d_ff columns, vocabulary slice and experts, with
+                the all-reduces over ``"model"``; a weight whose
+                ``"model"`` split cuts a unit is gathered over ``"model"``
+                for its matmul; a MoE layer takes its router statistics
+                and capacity groups over the global batch;
+  (c) funnel    the backward of each FSDP gather reduce-scatters the
+                gradient over ``"data"``: data rank j keeps its *region*
+                of the leaf (the part whose index along the ``"data"``
+                axis of its spec is j); a leaf no FSDP axis splits is
+                all-reduced over ``"data"``.  Then the ``"pod"`` hop on the
+                region, an exact SUM (``"auto"``) or the error-feedback
+                int8 mean of :func:`repro_torch.optim.compress.
+                compressed_allreduce` (``"compressed"``, per-pod residuals
+                on the region, the scale the MAX over ``"data"`` and
+                ``"model"`` of the regions' maxima, so each region
+                quantizes as JAX's whole tensor does), and the rank's
+                shard of the region;
+  (d) update    the optimizer updates the rank's shards in place, with
+                moments laid out by :func:`repro_torch.optim.
+                state_shardings`; AdamW clips by the norm of the whole
+                gradient, Adafactor sums its factored means over the
+                ranks that split a dimension;
+  (e) loss      the mean of the ranks' losses.
 
 Collectives over a group of one rank are the identity and are skipped.
-Parameters stay whole on every rank (FSDP-3, gathering them layer by
-layer, is not ported) and the ``"model"`` axis replicates the dense
-compute (Megatron TP is not ported).  A spec shards a dimension over its
-axes' product, row-major, as a ``PartitionSpec`` does.
+Megatron sequence parallelism (``seq_shard_activations``) is not ported.
 """
 from __future__ import annotations
 
@@ -41,146 +50,19 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from .._tree import tree_flatten, tree_leaves, tree_unflatten
-from ..core.distributed import all_gather, reduce_scatter
 from ..models import sharding as shmod
+from ..models.sharding import AXES, MeshGroups, TensorLayout
 from ..optim import compress
 from ..optim.api import Optimizer, state_shardings
-
-AXES = ("pod", "data", "model")
-
-
-def _prod(xs) -> int:
-    return math.prod(xs)
-
-
-class TensorLayout:
-    """Where a tensor of ``shape`` with spec ``spec`` lies on a mesh of
-    axis ``sizes``, seen from the rank at ``coord`` ({axis: index})."""
-
-    def __init__(self, spec, shape, sizes: Dict[str, int],
-                 coord: Dict[str, int]):
-        self.shape = tuple(shape)
-        self.axes = [shmod.spec_axes(e) for e in spec]
-        self.sizes = sizes
-        self.parts = [_prod(sizes[a] for a in ax) for ax in self.axes]
-        self.index = self.index_at(coord)
-        self.local_shape = tuple(n // k for n, k in zip(self.shape,
-                                                        self.parts))
-        self.n_shards = _prod(self.parts)
-        self.data_dim = next((i for i, ax in enumerate(self.axes)
-                              if "data" in ax), None)
-
-    def index_at(self, coord: Dict[str, int]) -> Tuple[int, ...]:
-        """The shard index, a dimension each, of the rank at ``coord``."""
-        out = []
-        for ax in self.axes:
-            i = 0
-            for a in ax:
-                i = i * self.sizes[a] + coord[a]
-            out.append(i)
-        return tuple(out)
-
-    def part(self, x: torch.Tensor, index) -> torch.Tensor:
-        """The shard at ``index`` of the whole tensor ``x`` (a view)."""
-        for dim, (k, i) in enumerate(zip(self.parts, index)):
-            if k > 1:
-                c = x.shape[dim] // k
-                x = x.narrow(dim, i * c, c)
-        return x
-
-    def shard(self, x: torch.Tensor) -> torch.Tensor:
-        return self.part(x, self.index)
-
-    # -- regions: the funnel's reduce-scatter over "data" ----------------
-    def _split(self) -> Tuple[int, int, int]:
-        """(sizes before, size of, sizes after) "data" on the data dim."""
-        ax = self.axes[self.data_dim]
-        k = ax.index("data")
-        return (_prod(self.sizes[a] for a in ax[:k]), self.sizes["data"],
-                _prod(self.sizes[a] for a in ax[k + 1:]))
-
-    def regions(self, g: torch.Tensor) -> torch.Tensor:
-        """(D, *region) — data rank j's region of ``g`` at [j]."""
-        i = self.data_dim
-        pre, d, _ = self._split()
-        y = g.unflatten(i, (pre, d, g.shape[i] // (pre * d))).movedim(i + 1,
-                                                                       0)
-        return y.reshape((d,) + self.region_shape())
-
-    def region_shape(self) -> Tuple[int, ...]:
-        if self.data_dim is None:
-            return self.shape
-        shape = list(self.shape)
-        shape[self.data_dim] //= self.sizes["data"]
-        return tuple(shape)
-
-    def shard_of_region(self, r: torch.Tensor,
-                        coord: Dict[str, int]) -> torch.Tensor:
-        """The rank's shard of its own region ``r``: the data dim is split
-        over the spec's other axes there."""
-        for dim, ax in enumerate(self.axes):
-            rest = tuple(a for a in ax if a != "data")
-            k = _prod(self.sizes[a] for a in rest)
-            if k > 1:
-                i = 0
-                for a in rest:
-                    i = i * self.sizes[a] + coord[a]
-                c = r.shape[dim] // k
-                r = r.narrow(dim, i * c, c)
-        return r
-
-
-class MeshGroups:
-    """A mesh's collectives over sets of its axes, each a sequence of
-    collectives over the ``DeviceMesh``'s own one-axis groups."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-        self.names = tuple(mesh.mesh_dim_names)
-        self.sizes = shmod.axis_sizes(mesh)
-        coord = mesh.get_coordinate()
-        if coord is None:
-            raise ValueError("this rank is not part of the mesh")
-        self.coord = dict(zip(self.names, coord))
-        for a in self.names:
-            if dist.get_rank(self.group(a)) != self.coord[a]:
-                raise ValueError(f"axis {a!r}: group ranks do not follow "
-                                 f"the mesh coordinates")
-
-    def group(self, axis: str):
-        return self.mesh.get_group(axis)
-
-    def size(self, axes) -> int:
-        return _prod(self.sizes[a] for a in self.names if a in axes)
-
-    def all_reduce(self, t: torch.Tensor, axes, op=dist.ReduceOp.SUM
-                   ) -> torch.Tensor:
-        """``t`` reduced in place over the ranks that differ only along
-        ``axes``."""
-        for a in self.names:
-            if a in axes and self.sizes[a] > 1:
-                dist.all_reduce(t, op=op, group=self.group(a))
-        return t
-
-    def barrier(self, device) -> None:
-        """Wait for every rank of the mesh."""
-        self.all_reduce(torch.zeros((), device=device), self.names)
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every mesh rank's ``x``, stacked as (*mesh shape, *x.shape):
-        the rank at coordinates c at [c]."""
-        for a in reversed(self.names):
-            x = (x.unsqueeze(0) if self.sizes[a] == 1 else
-                 all_gather(x.contiguous().unsqueeze(0), self.group(a)))
-        return x
 
 
 class MeshStep:
     """The superstep of the module docstring for ``model`` and ``opt`` on
-    ``mesh``.  ``compressed`` runs the pod hop through the int8 funnel."""
+    ``mesh``.  ``compressed`` runs the pod hop through the int8 funnel.
+    Building it keeps only this rank's shard of each of ``model``'s
+    parameters (the caller's whole ones are cut in place)."""
 
     def __init__(self, model, opt: Optimizer, mesh, lr_at,
                  compressed: bool = False):
@@ -189,6 +71,7 @@ class MeshStep:
         sizes = {a: self.g.sizes.get(a, 1) for a in AXES}
         self.coord = {a: self.g.coord.get(a, 0) for a in AXES}
         self.n_pod, self.n_data = sizes["pod"], sizes["data"]
+        self.n_model = sizes["model"]
         self.compressed = compressed and "pod" in self.g.names
         params = model.trainable_tree()
         with shmod.use_mesh(mesh):
@@ -200,6 +83,11 @@ class MeshStep:
                                         tree_leaves(params))]
         self.state_layouts = self._state_layouts(params)
         self.n_ranks = self.g.size(self.g.names)
+        self.run = shmod.ShardRun(self.g, self.layouts)
+        with torch.no_grad():
+            for p, lay in zip(tree_leaves(params), self.layouts):
+                if lay.n_shards > 1:
+                    p.data = lay.shard(p.data).clone()
 
     # -- state ---------------------------------------------------------
     def _layouts_of(self, specs, shapes) -> list:
@@ -218,17 +106,6 @@ class MeshStep:
         return {"vr": self._layouts_of(self.state_specs.vr, vr_shapes),
                 "vc": self._layouts_of(self.state_specs.vc, vc_shapes)}
 
-    def init_state(self, params):
-        """The optimizer state of this rank's shards: the optimizer's own
-        init, on the shards."""
-        return self.opt.init(self.param_shards(params))
-
-    def param_shards(self, params):
-        """Views of this rank's shard of every parameter."""
-        leaves, struct = tree_flatten(params)
-        return tree_unflatten(struct, [lay.shard(p.detach()) for lay, p in
-                                       zip(self.layouts, leaves)])
-
     def init_ef(self, params) -> Optional[compress.EFState]:
         """Per-pod residuals on this rank's regions (compressed mode)."""
         if not self.compressed:
@@ -238,6 +115,28 @@ class MeshStep:
             torch.zeros(lay.region_shape(), dtype=torch.float32,
                         device=p.device)
             for lay, p in zip(self.layouts, leaves)]))
+
+    def gather_params(self, params):
+        """The parameters as whole logical tensors (collective)."""
+        leaves, struct = tree_flatten(params)
+        return tree_unflatten(struct, [
+            self._gathered(p.detach(), lay)
+            for p, lay in zip(leaves, self.layouts)])
+
+    def whole_like(self, params):
+        """Uninitialised whole tensors of the parameters' shapes and
+        dtypes (a restore's target; no collective)."""
+        leaves, struct = tree_flatten(params)
+        return tree_unflatten(struct, [
+            p.new_empty(lay.shape) for p, lay in zip(leaves, self.layouts)])
+
+    @torch.no_grad()
+    def load_params(self, params, whole) -> None:
+        """Copy this rank's shard of each whole tensor of ``whole`` into
+        ``params``."""
+        for p, w, lay in zip(tree_leaves(params), tree_leaves(whole),
+                             self.layouts):
+            p.copy_(lay.shard(w))
 
     def gather_state(self, state):
         """The optimizer state as whole logical tensors (collective)."""
@@ -257,17 +156,14 @@ class MeshStep:
                 lay.shard(x).contiguous() for x, lay in zip(leaves, lays)])
         return type(whole)(step=whole.step, **out)
 
-    def _gathered(self, shard: torch.Tensor, lay: TensorLayout,
-                  into: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Every rank's shard placed into one whole tensor (``into``, whose
-        own shard already holds ``shard``, or a new one)."""
+    def _gathered(self, shard: torch.Tensor,
+                  lay: TensorLayout) -> torch.Tensor:
+        """Every rank's shard placed into one whole tensor."""
         if lay.n_shards == 1:
-            return shard if into is None else into
-        if into is None:
-            into = shard.new_empty(lay.shape)
-            lay.part(into, lay.index).copy_(shard)
+            return shard
+        into = shard.new_empty(lay.shape)
         parts = self.g.gather(shard)
-        done = {lay.index}
+        done = set()
         for at in itertools.product(*(range(n) for n in parts.shape[
                 :len(self.g.names)])):
             coord = dict(zip(self.g.names, at))
@@ -289,24 +185,27 @@ class MeshStep:
         rows = b // n
         return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
 
-    def _funnel(self, g: torch.Tensor, lay: TensorLayout, residual):
-        """(c): the rank's region of the mean gradient, and the new
-        residual (compressed)."""
-        if self.n_data == 1:
-            r = g
-        elif lay.data_dim is None:
-            r = self.g.all_reduce(g, ("data",))
-        else:
-            r = reduce_scatter(lay.regions(g).flatten(0, 1),
-                               self.g.group("data")).reshape(
-                                   lay.region_shape())
+    def _region(self, i: int, p: torch.Tensor, lay: TensorLayout):
+        """(c)'s first half: leaf ``i``'s region of the gradient, summed
+        over ``"data"``."""
+        if lay.fsdp_axes():
+            r = self.run.regions.pop(i, None)
+            return (torch.zeros(lay.region_shape(), dtype=p.dtype,
+                                device=p.device) if r is None else r)
+        r = torch.zeros_like(p) if p.grad is None else p.grad
+        return self.g.all_reduce(r, ("data",))
+
+    def _pod_hop(self, r: torch.Tensor, lay: TensorLayout, residual):
+        """(c)'s second half: the mean of the region over every batch
+        rank, and the new residual (compressed)."""
         if self.compressed:
-            pod = self.g.group("pod")
-            data = self.g.group("data") if "data" in self.g.names else None
-            r, residual = compress.compressed_allreduce(
-                r.float() / self.n_data, residual, pod,
-                scale_group=data if lay.data_dim is not None else None)
-            return r.to(g.dtype), residual
+            scale = [self.g.group(a) for a, dim in (
+                ("data", lay.data_dim), ("model", lay.model_dim))
+                if dim is not None and self.sizes[a] > 1]
+            m, residual = compress.compressed_allreduce(
+                r.float() / self.n_data, residual, self.g.group("pod"),
+                scale_group=scale)
+            return m.to(r.dtype), residual
         self.g.all_reduce(r, ("pod",))
         return r / (self.n_pod * self.n_data), residual
 
@@ -321,26 +220,27 @@ class MeshStep:
 
     def step_local(self, params, opt_state, ef_state, rows):
         """One superstep on this rank's ``rows`` of the batch
-        (:meth:`local_rows`); returns (params, opt_state, ef_state,
-        loss)."""
+        (:meth:`local_rows`); ``params`` are the rank's shards, updated in
+        place; returns (params, opt_state, ef_state, loss)."""
         leaves = tree_leaves(params)
         for p in leaves:
             p.grad = None
-        loss, _ = self.model.loss_fn(rows)
-        loss.backward()
+        self.run.regions = {}
+        with shmod.use_shard_run(self.run):
+            loss, _ = self.model.loss_fn(rows)
+            loss.backward()
         residuals = (tree_leaves(ef_state.residual) if ef_state is not None
                      else [None] * len(leaves))
         g_shards, new_res = [], []
         with torch.no_grad():
-            for p, lay, res in zip(leaves, self.layouts, residuals):
-                g = torch.zeros_like(p) if p.grad is None else p.grad
-                r, res = self._funnel(g, lay, res)
-                g_shards.append(lay.shard_of_region(r, self.coord))
+            for i, (p, lay, res) in enumerate(zip(leaves, self.layouts,
+                                                  residuals)):
+                r, res = self._pod_hop(self._region(i, p, lay), lay, res)
+                g_shards.append(lay.shard_of_region(r))
                 new_res.append(res)
                 p.grad = None
             struct = tree_flatten(params)[1]
             grads = tree_unflatten(struct, g_shards)
-            shards = self.param_shards(params)
             kw = {}
             if self.opt.name == "adamw":
                 sq = sum(torch.sum(torch.square(g.float())) * (
@@ -350,10 +250,8 @@ class MeshStep:
             else:
                 kw["reduce"] = self._reduce([lay.shape
                                              for lay in self.layouts])
-            _, opt_state = self.opt.update(grads, opt_state, shards,
+            _, opt_state = self.opt.update(grads, opt_state, params,
                                            self.lr_at(opt_state.step), **kw)
-            for p, s, lay in zip(leaves, tree_leaves(shards), self.layouts):
-                self._gathered(s, lay, into=p.detach())
             loss = self.g.all_reduce(loss.detach().clone(),
                                      self.g.names) / self.n_ranks
         if ef_state is not None:
@@ -367,5 +265,13 @@ class MeshStep:
         for name, lays in self.state_layouts.items():
             for x, lay in zip(tree_leaves(getattr(opt_state, name)), lays):
                 local += x.numel() * x.element_size()
-                whole += _prod(lay.shape) * x.element_size()
+                whole += math.prod(lay.shape) * x.element_size()
+        return local, whole
+
+    def param_bytes(self, params) -> Tuple[int, int]:
+        """(this rank's bytes of parameters, the whole tree's)."""
+        local = whole = 0
+        for p, lay in zip(tree_leaves(params), self.layouts):
+            local += p.numel() * p.element_size()
+            whole += math.prod(lay.shape) * p.element_size()
         return local, whole
