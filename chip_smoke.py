@@ -48,8 +48,9 @@ exits non-zero:
               single query's (the batch is one program: one
               ``bincount_tiles`` and one ``bitonic_sort`` a round, the 2-D
               hull's ``monotone_chain`` once a chaining round), every
-              shuffle on the kernels; host-clock medians of 5 of the batch
-              against B single calls in a row; the sort's and the 2-D
+              shuffle on the kernels; host-clock medians of 5 (3 for the
+              funnel, 3-D hull and LP) of the batch against B single
+              calls in a row; the sort's and the 2-D
               hull's batch and single calls once each under torch.profiler;
 6. timings  — CUDA-event medians of each kernel, its plain version and its
               library yardstick at the main path's inputs, beside the
@@ -176,7 +177,7 @@ exits non-zero:
               the query beside its bound, one call per event pair and back
               to back; then against its plain version (run on host copies),
               bit for bit, on 16 of merge-0's 2048 runs, the finalize's run,
-              a run of 65,536 points that are all extreme, a chain deeper
+              a run of 32,768 points that are all extreme, a chain deeper
               than the kernel's shared-memory window that one point pops to
               the bottom, and near-collinear runs (y = x / 3 in float32,
               some moved by an ulp); each call's serial floor (the turn
@@ -320,7 +321,27 @@ exits non-zero:
               whisper-base (8 x 1500 frames, 448 tokens) at full size
               through the mesh ``Trainer``, 8 steps, losses finite and
               falling; internvl2-2b's batch halved only if 8 rows do not
-              fit (recorded).
+              fit (recorded);
+36. roofline — host work started after phase build at the lowest CPU
+              priority: the dry run of all 40 (arch x shape) cells on the
+              meta device (``repro_torch.launch.dryrun --all``; 8
+              ``long_500k`` skips with JAX's reason) and of the two steps
+              below; one line a cell of ``launch.roofline``'s terms
+              (computed from shapes, not measured).  On the card: one
+              ``bincount_tiles`` call on one tile (``HardwareModel``'s
+              ``latency_s``); TinyLlama's prefill (8 x 2048) and
+              zamba2-1.2b's training step (8 x 2048, the config's two
+              microbatches) once under the dry run's counter, FLOPs, bytes
+              and kernel calls equal to the dry run's, its peak within 10
+              % of ``max_memory_allocated``, the bound beside phases
+              lm-timings' and train's ms; the flash kernel at (1, 2, 1,
+              32768, 32768, 64, causal) against its plain version; every
+              assigned cell that the dry run fits in 80 GB run once at
+              full width (seeded random params, inputs and cache, decode
+              at the cache's last position), timed beside its bound, its
+              peak within 10 % of the dry run's; a cell of
+              ``ASSIGNED_CELLS`` over 80 GB is not run and its GB
+              printed.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Every row of the
@@ -371,13 +392,6 @@ N_MAIN = 1 << 24          # keys sorted by a main-path query
 M_MAIN = 8192             # reducer I/O bound: V = 2048 reducers
 SEEDS = (101, 202, 303)
 REPS = 7
-#: H100 memory rates (bytes/s), NVIDIA's data sheets; the name picks one
-MEM_RATES = (("PCIe", 2.0e12), ("NVL", 3.9e12), ("H100", 3.35e12))
-#: float32 rate outside the tensor cores (FLOP/s), the H100 SXM data sheet;
-#: used for the comparisons of the sort network (int32 or float32 keys)
-ALU_RATE = 67e12
-#: dense bf16 tensor-core rate (FLOP/s), the H100 SXM data sheet
-BF16_RATE = 989e12
 LM_ARCH = "tinyllama-1.1b"
 LM_B, LM_S, LM_DECODE = 8, 2048, 32       # prefill batch and length, steps
 DECODE_WINDOW = 5                          # decode steps in a profiled window
@@ -475,8 +489,10 @@ LP_C = (1.0, -0.5, 0.25)
 #: merge-0 runs the monotone_chain check holds against the plain version,
 #: and the points of a run whose every point is extreme: x = sinh(t),
 #: y = x^2 for t evenly spaced in [-20, 20], strictly convex in float32
+#: (cut from 65,536 to keep the script within its time limit: the plain
+#: version's slot loop on the host takes 0.4 ms a point)
 CHAIN_CHECKED = 16
-CHAIN_EXTREME = 65_536
+CHAIN_EXTREME = 32_768
 #: the worst case of a chain call, timed and checked without the plain
 #: version: 2^20 points that are all extreme in float32
 #: (repro_torch.testing.extreme_run: x = sinh t stops being convex in
@@ -515,6 +531,32 @@ SSM_BWD_EDGE = ((2, 1, 16, "float32", "float32"),
                 (3, 64, 32, "bfloat16", "float32"),
                 (1, 16, 4, "float32", "bfloat16"),
                 (2, 33, 300, "bfloat16", "bfloat16"))
+
+
+def bytes_ms(nbytes) -> float:
+    """Milliseconds to move ``nbytes`` at the card's HBM rate
+    (``repro_torch.core.costmodel.HBM_BW``, the H100 SXM data sheet)."""
+    from repro_torch.core.costmodel import HBM_BW
+    return nbytes / HBM_BW * 1e3
+
+
+def ops_ms(nops, rate=None) -> float:
+    """Milliseconds for ``nops`` operations at ``rate`` FLOP/s, by default
+    the float32 rate outside the tensor cores
+    (``repro_torch.core.costmodel.PEAK_FLOPS_F32``)."""
+    from repro_torch.core.costmodel import PEAK_FLOPS_F32
+    return nops / (rate or PEAK_FLOPS_F32) * 1e3
+
+
+def bound_ms(nops, nbytes, rate=None) -> float:
+    """The least time the card could take: the larger of bytes over the
+    HBM rate and operations over ``rate`` (:func:`ops_ms`)."""
+    return max(bytes_ms(nbytes), ops_ms(nops, rate))
+
+
+def bound_by(nops, nbytes, rate=None) -> str:
+    return "bytes" if bytes_ms(nbytes) >= ops_ms(nops, rate) \
+        else "operations"
 
 
 def emit(**rec) -> None:
@@ -806,7 +848,7 @@ def flash_check(torch, dev, shape, seed: int) -> list:
     return rows
 
 
-def flash_timing(torch, dev, shape, mem_rate) -> dict:
+def flash_timing(torch, dev, shape) -> dict:
     """CUDA-event medians of flash_attention (bf16 and f32), its plain
     version and torch's SDPA at a causal ``shape``, beside the bound."""
     import torch.nn.functional as F
@@ -834,21 +876,22 @@ def flash_timing(torch, dev, shape, mem_rate) -> dict:
                   - sdpa32()).abs().max().item()
     sdpa32_ms = event_ms(sdpa32, torch)
     del q32, k32, v32
+    from repro_torch.core.costmodel import PEAK_FLOPS_BF16
     b, hq, hkv, s, _, d, _ = shape
-    flops = 4 * b * hq * d * s * (s + 1) // 2     # unmasked pairs only
-    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    flops, nbytes = flash.flash_attention_work(b, hq, hkv, s, s, d, True,
+                                               torch.bfloat16)
     return {"shape": list(shape), "flash_ms": kern_ms,
             "flash_b2b_ms": kern_b2b,
             "flash_f32_ms": kern32_ms, "plain_ms": plain_ms,
             "sdpa_ms": sdpa_ms, "sdpa_f32_ms": sdpa32_ms,
             "sdpa_f32_max_abs_err": sdpa32_err,
             "flops": flops, "bytes": nbytes,
-            "bytes_ms": nbytes / mem_rate * 1e3,
-            "flops_ms_bf16": flops / BF16_RATE * 1e3,
-            "flops_ms_f32": flops / ALU_RATE * 1e3}
+            "bytes_ms": bytes_ms(nbytes),
+            "flops_ms_bf16": ops_ms(flops, PEAK_FLOPS_BF16),
+            "flops_ms_f32": ops_ms(flops)}
 
 
-def lm_phases(torch, dev, mem_rate) -> dict:
+def lm_phases(torch, dev) -> dict:
     """Phases 7-9: the dense serving path of TinyLlama-1.1B.  Returns the
     flash_attention launches, max error and timing at TinyLlama's shape."""
     import dataclasses
@@ -967,7 +1010,7 @@ def lm_phases(torch, dev, mem_rate) -> dict:
     timings, prefill, decode = lm_host_timings(torch, model, prompt,
                                                requests)
     prefill_ms, decode_ms = timings["prefill_ms"], timings["decode_step_ms"]
-    flash_t = flash_timing(torch, dev, FLASH_MAIN, mem_rate)
+    flash_t = flash_timing(torch, dev, FLASH_MAIN)
     prof_prefill = profiled(prefill, torch)
     prof_decode = profiled(lambda: [decode() for _ in range(DECODE_WINDOW)],
                            torch)
@@ -987,7 +1030,8 @@ def lm_phases(torch, dev, mem_rate) -> dict:
                           f"busy_share = device ms over the unprofiled "
                           f"median wall ms"})
     return {"launches": launches["flash_attention"], "routes": routes,
-            "max_abs_err": max_abs, "timing": flash_t}
+            "max_abs_err": max_abs, "timing": flash_t,
+            "prefill_ms": prefill_ms}
 
 
 def scan_input(torch, dev, gen, rows, n, dtype):
@@ -1167,7 +1211,7 @@ def block_prefill_vs_decode(torch, dev, cfg, lp, chunk: int) -> dict:
     return err
 
 
-def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
+def ssm_lm_phase(torch, dev, arch: str, tag: str) -> dict:
     """Phases <tag>-serve and <tag>-prefill: the serving path of a
     sub-quadratic LM at full width and depth (prefill of 8 x 2048 tokens,
     32 greedy decode steps, a serve drain, launch counts); a float32
@@ -1198,7 +1242,7 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
         shape = (LM_B, cfg.n_heads, cfg.n_kv_heads, LM_S, LM_S, cfg.hd, True)
         checked = flash_check(torch, dev, shape, 200)
         flash = {"max_abs_err": max(row[-1] for row in checked),
-                 "timing": flash_timing(torch, dev, shape, mem_rate)}
+                 "timing": flash_timing(torch, dev, shape)}
         emit(phase=f"{tag}-flash", arch=arch, checked=checked, **flash,
              columns="b hq hkv s_q s_k d causal dtype max_abs_err")
     # the scan's chunk (RWKV6's is at most 64), as the model sets it
@@ -1357,7 +1401,7 @@ def ssm_lm_phase(torch, dev, mem_rate, arch: str, tag: str) -> dict:
                         "profiled_decode_step": prof_decode}}
 
 
-def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
+def ssm_timings_phase(torch, dev, lm_timings) -> list:
     """Phase ssm-timings: CUDA-event medians of ssm_scan, prefix_scan and
     bincount, their plain versions and yardsticks at the main shapes,
     beside the bound, with the models' host-clock timings.  Returns the
@@ -1372,10 +1416,9 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
                          "b2b_ms": b2b_ms(run, torch),
                          "plain_ms": plain, "library_ms": library,
                          "bytes": nbytes, "ops": nops,
-                         "bytes_ms": nbytes / mem_rate * 1e3,
-                         "ops_ms": nops / ALU_RATE * 1e3,
-                         "bound_ms": max(nbytes / mem_rate,
-                                         nops / ALU_RATE) * 1e3})
+                         "bytes_ms": bytes_ms(nbytes),
+                         "ops_ms": ops_ms(nops),
+                         "bound_ms": bound_ms(nops, nbytes)})
 
     for shape in SSM_MAIN:
         a = torch.rand(shape, device=dev, generator=gen)
@@ -1383,7 +1426,7 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
         row("ssm_scan", list(shape),
             event_ms(lambda: ssm_scan.ssm_scan_cuda(a, x), torch),
             event_ms(lambda: ssm_scan.ssm_scan_plain(a, x), torch), None,
-            3 * a.numel() * 4, 2 * a.numel(),
+            *ssm_scan.ssm_scan_work(*shape, a.dtype, x.dtype)[::-1],
             lambda: ssm_scan.ssm_scan_cuda(a, x))
         del a, x
     for rows, n, dt, ex in SCAN_MAIN:
@@ -1392,7 +1435,7 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
             event_ms(lambda: prefix_scan.prefix_scan_cuda(x, ex), torch),
             event_ms(lambda: prefix_scan.prefix_scan_plain(x, ex), torch),
             event_ms(lambda: torch.cumsum(x, -1, dtype=x.dtype), torch),
-            2 * x.numel() * 4, x.numel(),
+            *prefix_scan.prefix_scan_work(rows, n, x.dtype)[::-1],
             lambda: prefix_scan.prefix_scan_cuda(x, ex))
     n, V = BINCOUNT_MAIN
     ids = torch.randint(0, V, (n,), dtype=torch.int32, device=dev,
@@ -1404,7 +1447,8 @@ def ssm_timings_phase(torch, dev, mem_rate, lm_timings) -> list:
                                      torch),
         event_ms(lambda: bincount.bincount_plain(ids, V), torch),
         event_ms(lambda: torch.bincount(ids, minlength=V), torch),
-        n * 4 + V * 4, n, lambda: bincount.bincount_cuda(ids, V))
+        *bincount.bincount_work(n, V)[::-1],
+        lambda: bincount.bincount_cuda(ids, V))
     emit(phase="ssm-timings", per_call=per_call, models=lm_timings,
          note=f"kernel rows: CUDA-event medians of {REPS} after a warm-up; "
               "models: host-clock medians ending in a synchronize, one "
@@ -2490,14 +2534,15 @@ def search_timings(torch, queries) -> list:
 
 
 def chain_work(pts, counts, h):
-    """Bytes and operations ``monotone_chain`` needs on these inputs: the
-    live points and the counts read once, the (V, L, 2) hulls and the
-    counts h written once; 8 flops a turn test, and about 4 c - h tests
-    for a run of c points whose hull has h (each chain tests once a push
-    and once a pop)."""
+    """Bytes and operations ``monotone_chain`` needs on these inputs
+    (``kernels.chain.monotone_chain_work``): about 4 c - h turn tests for a
+    run of c points whose hull has h (each chain tests once a push and
+    once a pop)."""
+    from repro_torch.kernels.chain import monotone_chain_work
     V, L, _ = pts.shape
-    nbytes = int(counts.sum()) * 8 + V * 4 + V * L * 8 + V * 4
-    nops = 8 * int((4 * counts.long() - h.long()).clamp_min(0).sum())
+    nops, nbytes = monotone_chain_work(
+        V, L, int(counts.sum()),
+        int((4 * counts.long() - h.long()).clamp_min(0).sum()))
     return nbytes, nops
 
 
@@ -2538,7 +2583,7 @@ def chain_longest(pts, counts) -> int:
     return longest
 
 
-def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
+def geometry_phases(torch, dev, ops, engine, dense):
     """Phases hull2d, geometry-chain, hull3d and lp: the paper's geometry
     at full size on the kernel engine and the dense one, with the same
     draw, each answer held against scipy in float64 on the host; and
@@ -2679,7 +2724,7 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
                "live_points": int(cc.sum()), "hull_points": int(h.sum()),
                "ms": event_ms(run, torch), "b2b_ms": b2b_ms(run, torch),
                "bytes": nbytes, "ops": nops,
-               "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3}
+               "bound_ms": bound_ms(nops, nbytes)}
         if longest is not None:
             rec.update(longest_chain_tests=longest,
                        serial_floor_ms=longest * step_ns / 1e6)
@@ -2751,7 +2796,7 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
              "ms": event_ms(lambda: chain_kernel.monotone_chain_cuda(wp, wc),
                             torch, reps=3),
              "bytes": nbytes, "ops": nops,
-             "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3,
+             "bound_ms": bound_ms(nops, nbytes),
              "longest_chain_tests": CHAIN_WORST - 2,
              "serial_floor_ms": (CHAIN_WORST - 2) * step_ns / 1e6}
     del wp, hull
@@ -2784,18 +2829,16 @@ def geometry_phases(torch, dev, ops, engine, dense, mem_rate):
         "ms": sum(r["ms"] for r in rows),
         "b2b_ms": sum(r["b2b_ms"] for r in rows),
         "plain_ms": sum(r["plain_host_ms"] for r in rows),
-        "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3,
-        "bound_by": ("bytes" if nbytes / mem_rate >= nops / ALU_RATE
-                     else "operations"),
+        "bound_ms": bound_ms(nops, nbytes),
+        "bound_by": bound_by(nops, nbytes),
         "serial_floor_ms": sum(r["serial_floor_ms"] for r in rows),
         "library_ms": None,
         "inputs": [r["call"] for r in rows],
         "plain_note": "plain version on host copies, host clock, one call",
         "main_path_ms": sum(r["ms"] for r in main_calls),
         "main_path_b2b_ms": sum(r["b2b_ms"] for r in main_calls),
-        "main_path_bound_ms": max(
-            sum(r["bytes"] for r in main_calls) / mem_rate,
-            sum(r["ops"] for r in main_calls) / ALU_RATE) * 1e3,
+        "main_path_bound_ms": bound_ms(sum(r["ops"] for r in main_calls),
+                                       sum(r["bytes"] for r in main_calls)),
         "worst_case_ms": worst["ms"],
         "per_call": [{k: r.get(k) for k in ("call", "shape", "ms", "b2b_ms",
                                              "plain_host_ms", "bound_ms",
@@ -2901,13 +2944,17 @@ def geometry_timings(torch, queries, chain_row) -> list:
 #: batch sizes of the batch phases: four queries of the device-bound
 #: families, two of the host-bound funnel, 3-D hull and LP
 BATCH_DEVICE, BATCH_HOST = 4, 2
+#: host-clock repetitions of the batch timings of the families that run a
+#: host loop a round (funnel, 3-D hull, LP: seconds a batch), cut from 5 to
+#: keep the script within its time limit
+BATCH_HOST_REPS = 3
 #: the sort's batch: SEEDS and one more seed
 BATCH_SEEDS = SEEDS + (404,)
 
 
 def batch_query(torch, ops, engine, name, plan, inputs, keys, shuffles: int,
                 others=None, whp: bool = False, answer=None,
-                profile: bool = False, **rec):
+                profile: bool = False, reps: int = 5, **rec):
     """Phase batch-<name>: ``exe.batch(B)`` of B stacked queries on the
     kernel engine against B single calls.  The launch counts and the route
     log are set to 0 just before one single call and read just after, then
@@ -2916,8 +2963,8 @@ def batch_query(torch, ops, engine, name, plan, inputs, keys, shuffles: int,
     besides the shuffle's, with their launches a query), every shuffle on
     the kernel route, every ``bincount_tiles`` launch single-pass.  Every
     row of every output leaf and every stats field equals its single call,
-    with no drops.  Then host-clock medians of 5 of the batch and of B
-    single calls in a row, and with ``profile`` one run of each under
+    with no drops.  Then host-clock medians of ``reps`` of the batch and
+    of B single calls in a row, and with ``profile`` one run of each under
     torch.profiler (device ms by kernel, launches).
 
     The sort's and the 2-D hull's entry capacity holds with high
@@ -2970,9 +3017,9 @@ def batch_query(torch, ops, engine, name, plan, inputs, keys, shuffles: int,
                   f"batch-{name}: row {i} differs from its library answer")
         del single
     del out, leaves, single0
-    batch_ms = host_ms(lambda: exe.batch(B)(*inputs, keys=keys), torch)
+    batch_ms = host_ms(lambda: exe.batch(B)(*inputs, keys=keys), torch, reps)
     seq_ms = host_ms(lambda: [exe(*row(i), key=keys[i]) for i in range(B)],
-                     torch)
+                     torch, reps)
     if profile:
         rec["profile"] = {
             "batch": profiled(lambda: exe.batch(B)(*inputs, keys=keys),
@@ -2986,8 +3033,9 @@ def batch_query(torch, ops, engine, name, plan, inputs, keys, shuffles: int,
          sequential_ms=seq_ms, sequential_over_batch=seq_ms / batch_ms,
          queries_per_s=B / (batch_ms / 1e3),
          sequential_queries_per_s=B / (seq_ms / 1e3),
-         timing=f"host-clock medians of 5 after a warm-up, each ending in "
-                f"a synchronize: batch({B}) against {B} single calls",
+         timing=f"host-clock medians of {reps} after a warm-up, each "
+                f"ending in a synchronize: batch({B}) against {B} single "
+                f"calls",
          **rec)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3084,7 +3132,7 @@ def batch_phases(torch, dev, ops, engine) -> dict:
     levels = sum(s.name.startswith("funnel-level") for s in plan.stages)
     paths["batch-funnel"] = batch_query(
         torch, ops, engine, "funnel", plan, (addrs, vals, mem0), [None] * Bh,
-        levels, P=P, N=N, M=M)
+        levels, reps=BATCH_HOST_REPS, P=P, N=N, M=M)
     del addrs, vals, mem0
 
     n3, M3 = HULL3D
@@ -3092,7 +3140,7 @@ def batch_phases(torch, dev, ops, engine) -> dict:
     paths["batch-hull3d"] = batch_query(
         torch, ops, engine, "hull3d", hull3d_plan(n3, M3), (p3,),
         [None] * Bh, 3 * tree_height(math.comb(n3, 3), max(2, M3 // 2)),
-        n=n3, M=M3, processors=math.comb(n3, 3))
+        reps=BATCH_HOST_REPS, n=n3, M=M3, processors=math.comb(n3, 3))
     del p3
 
     nl, dl, Ml = LP
@@ -3102,7 +3150,7 @@ def batch_phases(torch, dev, ops, engine) -> dict:
     paths["batch-lp"] = batch_query(
         torch, ops, engine, "lp", lp_plan(nl, dl, Ml), (c, A, b),
         [None] * Bh, tree_height(math.comb(nl, dl), max(2, Ml // 2)),
-        n=nl, d=dl, M=Ml, bases=math.comb(nl, dl))
+        reps=BATCH_HOST_REPS, n=nl, d=dl, M=Ml, bases=math.comb(nl, dl))
     return paths
 
 
@@ -3592,7 +3640,7 @@ def ssm_bwd_inputs(torch, dev, gen, shape):
     return a, x, dh
 
 
-def train_kernel_phase(torch, dev, mem_rate) -> dict:
+def train_kernel_phase(torch, dev) -> dict:
     """Phase train-kernels: ssm_scan's backward kernel (through the
     autograd Function, forward kernel first) against autograd through the
     plain version, da and dx for a seeded dh, at the two training shapes and
@@ -3637,8 +3685,8 @@ def train_kernel_phase(torch, dev, mem_rate) -> dict:
         h = ssm_scan.ssm_scan_cuda(a, x)
         pa, px = a.clone().requires_grad_(), x.clone().requires_grad_()
         hp = ssm_scan.ssm_scan_plain(pa, px)
-        nbytes = 5 * a.numel() * 4         # dh, a, h read; da, dx written
-        nops = 3 * a.numel()               # an FMA and a product a step
+        nops, nbytes = ssm_scan.ssm_scan_bwd_work(*shape[:3], a.dtype,
+                                                  x.dtype)
         per_call.append({
             "shape": list(shape[:3]),
             "ms": event_ms(lambda: ssm_scan.ssm_scan_bwd_cuda(a, h, dh),
@@ -3648,7 +3696,7 @@ def train_kernel_phase(torch, dev, mem_rate) -> dict:
             "plain_ms": event_ms(lambda: torch.autograd.grad(
                 hp, (pa, px), dh, retain_graph=True), torch),
             "library_ms": None, "bytes": nbytes, "ops": nops,
-            "bound_ms": max(nbytes / mem_rate, nops / ALU_RATE) * 1e3})
+            "bound_ms": bound_ms(nops, nbytes)})
         del a, x, dh, h, pa, px, hp
     emit(phase="train-kernels", checked=checked, max_abs_err_f32=max_err,
          per_call=per_call,
@@ -4476,6 +4524,265 @@ def train_gloo_phase(started) -> dict:
     return {"runs": recs}
 
 
+# ---------------------------------------------------------------------------
+# The assigned shape cells and the roofline
+# ---------------------------------------------------------------------------
+
+#: steps counted on the card beside the same step's dry run on meta:
+#: (arch, kind, batch, seq), the serving and training paths' own shapes
+ROOFLINE_CHECKS = (("tinyllama-1.1b", "prefill", LM_B, LM_S),
+                   ("zamba2-1.2b", "train", *TRAIN_SHAPE))
+#: every assigned cell that the dry run fits in the card's 80 GB runs on
+#: the card; these are reported whether they run or not (the prefill that
+#: puts the flash kernel at s = 32768, and the sub-quadratic decodes)
+ASSIGNED_CELLS = (("tinyllama-1.1b", "prefill_32k"),
+                  ("zamba2-1.2b", "long_500k"),
+                  ("rwkv6-1.6b", "long_500k"),
+                  ("rwkv6-1.6b", "decode_32k"))
+#: the flash kernel at the assigned prefill length (b, hq, hkv, s_q, s_k,
+#: d, causal): about 8.6 GB of float32 scores in the plain version
+FLASH_32K = (1, 2, 1, 32768, 32768, 64, True)
+#: the dry run's peak against max_memory_allocated, relative
+PEAK_TOL = 0.10
+#: one small launch, for HardwareModel's latency_s: bincount_tiles on one
+#: (1, 4096) tile into 2048 buckets
+LATENCY_TILE = (1, 4096, 2048)
+
+
+def roofline_start():
+    """Start the dry runs on the host, without the card, at the lowest CPU
+    priority, one after another in a session of their own: the 40 cells
+    (``python -m repro_torch.launch.dryrun --all``) and each step of
+    ROOFLINE_CHECKS (``--arch --kind --batch --seq``), into one directory.
+    ``roofline_phase`` joins them and ``roofline_stop`` (also at exit)
+    ends what is left."""
+    import atexit
+    import os
+    import tempfile
+    import shlex
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    jobs = [["--all"]] + [["--arch", arch, "--kind", kind, "--batch", str(b),
+                           "--seq", str(s)]
+                          for arch, kind, b, s in ROOFLINE_CHECKS]
+    script = " && ".join(shlex.join(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *job, "--out",
+         str(tmp)]) for job in jobs)
+    procs = [subprocess.Popen(
+        ["sh", "-c", script], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        preexec_fn=lambda: os.nice(19),
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})]
+    started = (tmp, time.perf_counter(), procs)
+    atexit.register(roofline_stop, started)
+    return started
+
+
+def roofline_stop(started) -> None:
+    import os
+    import shutil
+    import signal
+    tmp, _, procs = started
+    for proc in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def count_on(torch, dev, cfg, shape):
+    """One run of ``shape``'s step for ``cfg`` under the dry run's counter
+    on ``dev`` (the model drawn from seed 0): (the counter's summary, the
+    card's peak bytes above what was allocated before the model was
+    built)."""
+    from repro_torch.launch.dryrun import cell_inputs, count
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    model, step, args = cell_inputs(cfg, shape, dev, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counted = count(model, step, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del model, step, args
+    return counted, peak
+
+
+def roofline_phase(torch, dev, started, measured_ms) -> dict:
+    """Phase roofline: the 40-cell dry run (started by ``roofline_start``)
+    and its roofline, one line a cell; ``HardwareModel``'s latency beside
+    one small launch on the card; the counter over TinyLlama's prefill and
+    zamba2's training step on the card equal to the same dry run on meta
+    (FLOPs, bytes, kernel calls), the dry run's peak within PEAK_TOL of
+    ``max_memory_allocated``, the bound beside the earlier phases' ms
+    (``measured_ms``); the flash kernel at s = 32768 against its plain
+    version; and every assigned cell that the dry run fits in 80 GB run
+    once at full width (seeded random parameters,
+    inputs and cache; decode at the cache's last position), timed beside
+    its bound, its peak within PEAK_TOL of the dry run's; the cells of
+    ASSIGNED_CELLS that do not fit reported with the dry run's GB."""
+    from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeConfig,
+                                     get_config, get_shape, shape_applicable)
+    from repro_torch.core.costmodel import HBM_BYTES, LAUNCH_LATENCY_S
+    from repro_torch.kernels import bincount
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import DEVICE, cell_inputs, record
+    smi = nvidia_smi_line()
+    # -- the 40 cells, computed from shapes on the host ---------------------
+    tmp, t0, procs = started
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            check(False, "roofline: a dry run timed out after 600 s")
+        check(proc.returncode == 0, f"roofline: dry run failed: "
+              f"{out[-2000:]} {err[-4000:]}")
+    dry_s = time.perf_counter() - t0
+    cells = {}
+    for arch in ARCH_IDS:
+        for sh in SHAPES:
+            rec = roofline._load(f"{arch}_{sh.name}_{DEVICE}", tmp)
+            check(rec is not None, f"roofline: no record of {arch} x "
+                                   f"{sh.name}")
+            ok, reason = shape_applicable(get_config(arch), sh)
+            check(ok != bool(rec.get("skipped")) and
+                  rec.get("skipped", "") == reason,
+                  f"roofline: {arch} x {sh.name} skipped {rec.get('skipped')}")
+            row = roofline.analyze_cell(rec)
+            cells[arch, sh.name] = row
+            emit(phase="roofline-cell", **({"arch": arch, "shape": sh.name,
+                                            "skipped": reason} if not ok else
+                                           {k: row[k] for k in (
+                                               "arch", "shape", "compute_s",
+                                               "memory_s", "collective_s",
+                                               "dominant", "useful_ratio",
+                                               "per_device_gb", "fits_80gb",
+                                               "kernels")}),
+                 source="computed from shapes (meta device), not measured")
+    n_run = sum(not r.get("skipped") for r in cells.values())
+    check(n_run == 32 and len(cells) == 40, f"roofline: {n_run} of "
+                                            f"{len(cells)} cells ran")
+    meta = {(arch, kind): roofline._load(
+        f"{arch}_{kind}_{b}x{s}_{DEVICE}", tmp)
+        for arch, kind, b, s in ROOFLINE_CHECKS}
+    roofline_stop(started)
+    # -- one small launch against HardwareModel's latency_s ----------------
+    T, tile_n, V = LATENCY_TILE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    tiles = torch.randint(0, V, (T, tile_n), dtype=torch.int32, device=dev,
+                          generator=gen)
+    launch_ms = event_ms(lambda: bincount.bincount_tiles_cuda(tiles, V),
+                         torch)
+    del tiles
+    # -- counts held against the card ----------------------------------------
+    held = []
+    for arch, kind, b, s in ROOFLINE_CHECKS:
+        cfg = get_config(arch)
+        shape = ShapeConfig(f"{kind}_{b}x{s}", s, b, kind)
+        dry = meta[arch, kind]
+        check(dry is not None, f"roofline: no dry run of {arch} {kind}")
+        counted, peak = count_on(torch, dev, cfg, shape)
+        card = record(cfg, shape, counted)
+        for key in ("cost", "kernels"):
+            check(card[key] == dry[key], f"roofline {arch} {kind}: {key} "
+                  f"on the card {card[key]} against the dry run "
+                  f"{dry[key]}")
+        dry_peak = dry["memory"]["peak_bytes"]
+        check(abs(dry_peak - peak) <= PEAK_TOL * peak,
+              f"roofline {arch} {kind}: dry-run peak {dry_peak} against "
+              f"max_memory_allocated {peak}")
+        row = roofline.analyze_cell(dry)
+        ms = measured_ms[arch]
+        held.append({"arch": arch, "kind": kind, "batch": b, "seq": s,
+                     "flops": dry["cost"]["flops"],
+                     "bytes": dry["cost"]["bytes accessed"],
+                     "kernels": dry["kernels"],
+                     "dry_run_peak_bytes": dry_peak,
+                     "max_memory_allocated": peak,
+                     "peak_err": (dry_peak - peak) / peak,
+                     "card_peak_from_storages":
+                         card["memory"]["peak_bytes"],
+                     "bound_ms": row["bound_s"] * 1e3,
+                     "dominant": row["dominant"], "measured_ms": ms,
+                     "measured_over_bound": ms / (row["bound_s"] * 1e3)})
+    emit(phase="roofline-held", checks=held, nvidia_smi=smi,
+         measured="TinyLlama: phase lm-timings' prefill (host-clock median); "
+                  "zamba2: phase train's Trainer step (steps 3-8, one "
+                  "batch of 8 x 2048, no microbatches)")
+    # -- the flash kernel at the assigned prefill length ---------------------
+    flash32k = flash_check(torch, dev, FLASH_32K, 32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- the assigned cells that fit -----------------------------------------
+    fit = [key for key, row in cells.items()
+           if not row.get("skipped") and row["fits_80gb"]]
+    assigned = []
+    for arch, shape_name in [k for k in ASSIGNED_CELLS if k not in fit] + fit:
+        row = cells[arch, shape_name]
+        gb = row["per_device_gb"]
+        rec = {"arch": arch, "shape": shape_name, "dry_run_gb": gb,
+               "bound_ms": row["bound_s"] * 1e3, "dominant": row["dominant"]}
+        if not row["fits_80gb"]:
+            rec["ran"] = (f"no: the dry run places it over "
+                          f"{HBM_BYTES / 1e9:.0f} GB")
+            assigned.append(rec)
+            emit(phase="roofline-assigned", **rec)
+            continue
+        cfg, shape = get_config(arch), get_shape(shape_name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        model, step, args = cell_inputs(cfg, shape, dev, seed=0)
+        if shape.kind == "decode":
+            args[1].pos.fill_(shape.seq_len - 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        tok = out[0] if isinstance(out, tuple) else out
+        check(tok.shape == (shape.global_batch,) and
+              bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+              f"roofline {arch} x {shape_name}: next tokens {tok}")
+        if shape.kind == "decode":
+            # a block at a time: the cache may hold most of the card
+            check(all(bool(torch.isfinite(blk).all())
+                      for t in out[1] if t.is_floating_point()
+                      for blk in t.view(-1).split(1 << 28)),
+                  f"roofline {arch} x {shape_name}: non-finite state")
+        check(abs(gb * 1e9 - peak) <= PEAK_TOL * peak,
+              f"roofline {arch} x {shape_name}: dry-run peak {gb} GB "
+              f"against max_memory_allocated {peak / 1e9} GB")
+        rec.update(ran="yes", ms=ms, measured_over_bound=ms / rec["bound_ms"],
+                   max_memory_allocated=peak,
+                   peak_over_dry_run=peak / (gb * 1e9))
+        del model, step, args, out, tok
+        assigned.append(rec)
+        emit(phase="roofline-assigned", **rec,
+             timed="host clock around one step ending in a synchronize, "
+                   "the first (the compute-dtype copy of the weights made "
+                   "inside, as in the dry run)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"dry_run_s": dry_s, "launch_ms": launch_ms,
+               "launch_latency_s_in_costmodel": LAUNCH_LATENCY_S,
+               "held": held, "flash_32k": flash32k, "assigned": assigned}
+    emit(phase="roofline", nvidia_smi=smi, dry_run_s=dry_s,
+         launch_ms=launch_ms, latency_s=LAUNCH_LATENCY_S,
+         flash_32k=flash32k,
+         ran=[f"{r['arch']} x {r['shape']}" for r in assigned
+              if r["ran"] == "yes"],
+         not_run=[f"{r['arch']} x {r['shape']} ({r['dry_run_gb']:.2f} GB)"
+                  for r in assigned if r["ran"] != "yes"])
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4493,12 +4800,12 @@ def main() -> int:
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    mem_rate = next((rate for tag, rate in MEM_RATES if tag in kind), 3.35e12)
+    from repro_torch.core.costmodel import HBM_BW
 
     # -- 1. device ----------------------------------------------------------
     emit(phase="device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         mem_rate_bytes_s=mem_rate)
+         mem_rate_bytes_s=HBM_BW)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4531,6 +4838,7 @@ def main() -> int:
           f"ptxas report of the redesigned kernels: {hopper}")
     emit(phase="build-kernels", kernels=hopper,
          source="build.log of the library (nvcc -Xptxas -v)")
+    dryrun = roofline_start()       # host work, joined by phase roofline
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev)
@@ -4816,8 +5124,7 @@ def main() -> int:
             library = None
             held(name, bincount.bincount_tiles_cuda(a, b),
                  bincount.bincount_tiles_plain(a, b), "main-path inputs")
-            nbytes = T * tile_n * 4 + 3 * T * b * 4
-            nops = T * tile_n
+            nops, nbytes = bincount.bincount_tiles_work(T, tile_n, b)
         else:
             rows, n = a.shape
             kern = event_ms(lambda: bitonic_sort.bitonic_sort_cuda(a, b),
@@ -4832,10 +5139,8 @@ def main() -> int:
             library = event_ms(library_sort, torch)
             held(name, bitonic_sort.bitonic_sort_cuda(a, b),
                  bitonic_sort.bitonic_sort_plain(a, b), "main-path inputs")
-            n_pad = 1 << max(0, (n - 1).bit_length())
-            L = int(math.log2(n_pad))
-            nbytes = 4 * rows * n * 4
-            nops = rows * (n_pad // 2) * L * (L + 1) // 2
+            nops, nbytes = bitonic_sort.bitonic_sort_work(rows, n, a.dtype,
+                                                          b.dtype)
         t = totals[name]
         t["ms"] += kern
         t["b2b_ms"] += b2b
@@ -4847,8 +5152,7 @@ def main() -> int:
                          "b2b_ms": b2b, "plain_ms": plain,
                          "library_ms": library,
                          "bytes": nbytes, "ops": nops,
-                         "bound_ms": max(nbytes / mem_rate,
-                                         nops / ALU_RATE) * 1e3})
+                         "bound_ms": bound_ms(nops, nbytes)})
     # bincount_tiles at the main path's shapes on tiles whose ids all name
     # one bucket: every shared-memory atomic of a warp hits one word
     gen_u = torch.Generator(device=dev)
@@ -4871,14 +5175,16 @@ def main() -> int:
                           device=dev, generator=gen_u)
     held("bincount_tiles", bincount.bincount_tiles_cuda(tiles, V),
          bincount.bincount_tiles_plain(tiles, V), "a batch of four")
-    batch_bytes = tiles.numel() * 4 + 3 * math.prod(tiles.shape[:-1]) * V * 4
+    batch_ops, batch_bytes = bincount.bincount_tiles_work(
+        math.prod(tiles.shape[:-1]), tiles.shape[-1], V)
     batched = {"shape": list(tiles.shape), "ms": event_ms(
         lambda: bincount.bincount_tiles_cuda(tiles, V), torch),
         "b2b_ms": b2b_ms(lambda: bincount.bincount_tiles_cuda(tiles, V),
                          torch),
         "plain_ms": event_ms(lambda: bincount.bincount_tiles_plain(tiles, V),
                              torch),
-        "bound_ms": batch_bytes / mem_rate * 1e3, "bound_by": "bytes"}
+        "bound_ms": bound_ms(batch_ops, batch_bytes),
+        "bound_by": bound_by(batch_ops, batch_bytes)}
     del tiles
     emit(phase="kernel-timings", per_call=per_call,
          bincount_tiles_one_bucket=one_bucket,
@@ -4906,22 +5212,21 @@ def main() -> int:
                                 "src/repro/kernels/bitonic_sort.py:103")}
     summary = []
     for name, t in totals.items():
-        bytes_ms = t["bytes"] / mem_rate * 1e3
-        ops_ms = t["ops"] / ALU_RATE * 1e3
         summary.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
             "b2b_ms": t["b2b_ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms(t["ops"], t["bytes"]),
+            "bound_by": bound_by(t["ops"], t["bytes"]),
             "library_ms": t["library_ms"],
             "per_call": [{k: r[k] for k in ("shape", "ms", "b2b_ms",
                                             "plain_ms", "bound_ms",
                                             "library_ms")}
                          for r in per_call if r["kernel"] == name]})
 
-    tinyllama = lm_phases(torch, dev, mem_rate)
+    tinyllama = lm_phases(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4929,20 +5234,19 @@ def main() -> int:
     entry = ssm_kernel_phase(torch, dev)
     lms = []
     for arch, tag in SSM_ARCHS:
-        lms.append(ssm_lm_phase(torch, dev, mem_rate, arch, tag))
+        lms.append(ssm_lm_phase(torch, dev, arch, tag))
         gc.collect()                 # free each model before the next one
         torch.cuda.empty_cache()
     # -- 13b. the MoE, VLM and enc-dec serving paths ------------------------
     families = family_phases(torch, dev)
-    totals = ssm_timings_phase(torch, dev, mem_rate,
-                               [r["timings"] for r in lms])
+    totals = ssm_timings_phase(torch, dev, [r["timings"] for r in lms])
     # flash_attention: the sums over one call at each main-path shape
     # (TinyLlama's prefill, the hybrid's shared block), as the sort rows sum
     # over the calls of one query
     parts = [tinyllama["timing"]] + [r["flash"]["timing"] for r in lms
                                  if r["flash"]]
-    bytes_ms = sum(t["bytes_ms"] for t in parts)
-    ops_ms = sum(t["flops_ms_bf16"] for t in parts)
+    flash_bytes_ms = sum(t["bytes_ms"] for t in parts)
+    flash_ops_ms = sum(t["flops_ms_bf16"] for t in parts)
     summary.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4956,8 +5260,9 @@ def main() -> int:
         "ms": sum(t["flash_ms"] for t in parts),
         "b2b_ms": sum(t["flash_b2b_ms"] for t in parts),
         "plain_ms": sum(t["plain_ms"] for t in parts),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": max(flash_bytes_ms, flash_ops_ms),
+        "bound_by": ("bytes" if flash_bytes_ms >= flash_ops_ms
+                     else "operations"),
         "library_ms": sum(t["sdpa_ms"] for t in parts),
         # launches by route on the main paths (bf16 prefill: wgmma), and
         # the float32 route's time at the same shapes beside its bound at
@@ -4975,7 +5280,7 @@ def main() -> int:
                for p in families}},
         "f32_ms": sum(t["flash_f32_ms"] for t in parts),
         "f32_library_ms": sum(t["sdpa_f32_ms"] for t in parts),
-        "f32_bound_ms": max(bytes_ms * 2, sum(t["flops_ms_f32"]
+        "f32_bound_ms": max(flash_bytes_ms * 2, sum(t["flops_ms_f32"]
                                               for t in parts))})
     launches = {"ssm_scan": sum(r["launches"]["ssm_scan"] for r in lms),
                 "prefix_scan": entry["launches"]["prefix_scan"],
@@ -5011,7 +5316,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     queries, chain_row, geo_paths = geometry_phases(torch, dev, ops, engine,
-                                                    dense, mem_rate)
+                                                    dense)
     geometry_timings(torch, queries, chain_row)
     del queries
     emit(phase="geometry-summary", seconds=time.perf_counter() - t0,
@@ -5048,7 +5353,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gloo = train_gloo_start()             # host work, beside phases 27-33
     try:
-        bwd = train_kernel_phase(torch, dev, mem_rate)
+        bwd = train_kernel_phase(torch, dev)
         parity = train_parity_phase(torch, dev)
         trained = train_phase(torch, dev)
         resume = train_resume_phase(torch, dev)
@@ -5063,12 +5368,15 @@ def main() -> int:
     finally:
         train_gloo_stop(gloo)
     families_train_phase(torch, dev)
+    # -- 36. the assigned shape cells and the roofline --------------------
+    roofline_phase(torch, dev, dryrun, {
+        "tinyllama-1.1b": tinyllama["prefill_ms"],
+        "zamba2-1.2b": trained["timing"]["median_step_ms_3_to_8"]})
     emit(phase="train-summary", seconds=time.perf_counter() - t0,
          parity=parity, launches=trained["launches"],
          mesh_launches=meshed["launches"],
          resume_final_loss_diff=resume["final_loss_diff"])
     t = bwd["totals"]
-    bytes_ms, ops_ms = t["bytes"] / mem_rate * 1e3, t["ops"] / ALU_RATE * 1e3
     summary.append({
         "name": "ssm_scan.bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -5081,8 +5389,8 @@ def main() -> int:
                                  "ssm_scan.bwd"]},
         "max_abs_err": bwd["max_abs_err"], "ms": t["ms"],
         "b2b_ms": t["b2b_ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "plain_ms": t["plain_ms"], "bound_ms": bound_ms(t["ops"], t["bytes"]),
+        "bound_by": bound_by(t["ops"], t["bytes"]),
         "library_ms": None,
         "per_call": [{k: r[k] for k in ("shape", "ms", "b2b_ms",
                                         "plain_ms", "bound_ms",

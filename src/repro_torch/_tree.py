@@ -16,46 +16,48 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def tree_flatten(tree) -> Tuple[List[Any], Any]:
-    """Leaves in order, and a structure for :func:`tree_unflatten`."""
-    leaves: List[Any] = []
-
-    def walk(node):
-        if node is None:
-            return None
-        if getattr(node, "_tree_leaf", False):
-            leaves.append(node)
-            return "*"
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return (dict, keys, [walk(node[k]) for k in keys])
-        if _is_namedtuple(node):
-            return (type(node), None, [walk(c) for c in node])
-        if isinstance(node, (list, tuple)):
-            return (type(node), None, [walk(c) for c in node])
+def _walk(node, leaves: List[Any]):
+    if node is None:
+        return None
+    if getattr(node, "_tree_leaf", False):
         leaves.append(node)
         return "*"
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return (dict, keys, [_walk(node[k], leaves) for k in keys])
+    if _is_namedtuple(node):
+        return (type(node), None, [_walk(c, leaves) for c in node])
+    if isinstance(node, (list, tuple)):
+        return (type(node), None, [_walk(c, leaves) for c in node])
+    leaves.append(node)
+    return "*"
 
-    return leaves, walk(tree)
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """Leaves in order, and a structure for :func:`tree_unflatten`.  The
+    walk is a module-level function, not a recursive closure: a closure
+    that refers to itself is a reference cycle, which would keep the
+    leaves (tensors) alive until the garbage collector runs."""
+    leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
+
+
+def _build(s, it):
+    if s is None:
+        return None
+    if s == "*":
+        return next(it)
+    kind, keys, children = s
+    built = [_build(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(keys, built))
+    if kind in (list, tuple):
+        return kind(built)
+    return kind(*built)                          # NamedTuple
 
 
 def tree_unflatten(structure, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return None
-        if s == "*":
-            return next(it)
-        kind, keys, children = s
-        built = [build(c) for c in children]
-        if kind is dict:
-            return dict(zip(keys, built))
-        if kind in (list, tuple):
-            return kind(built)
-        return kind(*built)                      # NamedTuple
-
-    return build(structure)
+    return _build(structure, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:

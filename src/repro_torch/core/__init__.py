@@ -12,10 +12,11 @@ hand-written CUDA kernels of :mod:`repro_torch.kernels`.
 ``torch.distributed`` group the caller has started, with the collectives
 of :mod:`repro_torch.core.distributed`.
 
-The names match the JAX package's ``repro.core`` except the TPU
-``HardwareModel``, which is not ported."""
+The names match the JAX package's ``repro.core``; ``HardwareModel`` holds
+one H100's figures (:mod:`.costmodel`)."""
 
-from .costmodel import CostAccum, MRCost, RoundStats, log_M, tree_height
+from .costmodel import (CostAccum, HardwareModel, MRCost, RoundStats, log_M,
+                        tree_height)
 from .mrmodel import (Mailbox, ShuffleStats, empty_like, make_mailbox,
                       run_round, run_rounds, shuffle)
 from .engine import (LocalEngine, MREngine, ReferenceEngine, RoundProgram,
@@ -48,7 +49,8 @@ from .geometry import (EngineHullResult, Hull3DResult, LPResult,
                        lp_round_bound)
 
 __all__ = [
-    "CostAccum", "MRCost", "RoundStats", "log_M", "tree_height",
+    "CostAccum", "HardwareModel", "MRCost", "RoundStats", "log_M",
+    "tree_height",
     "Mailbox", "ShuffleStats", "empty_like", "make_mailbox", "run_round",
     "run_rounds", "shuffle",
     "LocalEngine", "MREngine", "ReferenceEngine", "RoundProgram",

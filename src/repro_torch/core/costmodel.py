@@ -181,3 +181,45 @@ def tree_height(n_leaves: int, d: int) -> int:
     if d < 2:
         raise ValueError("branching factor must be >= 2")
     return max(1, math.ceil(math.log(n_leaves) / math.log(d)))
+
+
+# One NVIDIA H100 SXM 80 GB (NVIDIA's data sheet: dense rates, no sparsity,
+# at the full 700 W power limit), the constants the abstract cost model and
+# the roofline (repro_torch.launch.roofline) map onto the card.
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, bf16 on the tensor cores
+PEAK_FLOPS_F32 = 67e12            # FLOP/s, float32 outside the tensor cores
+HBM_BW = 3.35e12                  # bytes/s
+HBM_BYTES = 80e9                  # device memory
+NVLINK_BW_PER_LINK = 25e9         # bytes/s, one NVLink 4 link, one direction
+#: one shuffle hop's fixed cost on the card (the paper's L): the median
+#: CUDA-event time of one ``bincount_tiles`` call on one (1, 4096) tile
+#: into 2048 buckets, one call between an event pair, so that the
+#: wrapper's host work (its allocations and the ctypes call) is inside;
+#: measured by ``chip_smoke.py`` (phase ``roofline``) on an NVIDIA H100
+#: 80GB HBM3 at a 700.00 W power limit: 0.0574 ms in a whole run of the
+#: script (0.1056 ms in a run of the phase alone)
+LAUNCH_LATENCY_S = 5.74e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareModel:
+    """Maps the paper's (L, B) shuffle network onto the card: the
+    counterpart of the JAX package's TPU ``HardwareModel``, with the same
+    fields and formula and the H100's figures.  ``ici_bw_per_link`` holds
+    NVLink's rate a link on this card (the TPU's inter-chip link there),
+    ``latency_s`` one launch's time on the card."""
+
+    chips: int
+    peak_flops: float = PEAK_FLOPS_BF16
+    hbm_bw: float = HBM_BW
+    ici_bw_per_link: float = NVLINK_BW_PER_LINK
+    latency_s: float = LAUNCH_LATENCY_S
+
+    def shuffle_time(self, cost: MRCost, bytes_per_item: int = 4) -> float:
+        """Paper lower bound T = Omega(t + R*L + C/B) with B = the chips'
+        aggregate link bandwidth and t charged at the HBM streaming rate."""
+        agg_bw_items = self.chips * self.ici_bw_per_link / bytes_per_item
+        t_seconds = cost.internal_time * bytes_per_item / self.hbm_bw
+        return (t_seconds
+                + cost.rounds * self.latency_s
+                + cost.communication / agg_bw_items)

@@ -19,7 +19,9 @@ int32 histogram, reached through :func:`repro_torch.kernels.ops.bincount`.
 Ids < 0 or >= V are ignored by both.  Each function has two implementations
 here: ``*_cuda``, which launches the hand-written kernel of
 ``csrc/bincount_tiles.cu`` or ``csrc/bincount.cu``, and ``*_plain``, plain
-PyTorch for the CPU and as the kernel's yardstick on the card.
+PyTorch for the CPU and as the kernel's yardstick on the card; ``*_meta``
+allocates the outputs on the meta device, for a dry run, and ``*_work``
+gives a call's operations and bytes.
 :mod:`repro_torch.kernels.ops` picks one by device.
 
 ``bincount_tiles`` has two routes on the card: ``single_pass`` for V up to
@@ -74,12 +76,32 @@ def bincount_tiles_plain(tiles: torch.Tensor, n_buckets: int) -> Tables:
     return C.contiguous(), P, F
 
 
+def bincount_tiles_work(rows: int, tile_n: int, n_buckets: int
+                        ) -> Tuple[int, int]:
+    """(operations, bytes) of one call over ``rows`` tiles in all (T, or
+    B T for a batch) of tile_n ids into n_buckets: the ids read once, C, P
+    and F written once; one count an id."""
+    return rows * tile_n, rows * tile_n * 4 + 3 * rows * n_buckets * 4
+
+
 def bincount_tiles_cuda(tiles: torch.Tensor, n_buckets: int) -> Tables:
     """Launch ``csrc/bincount_tiles.cu`` on a CUDA tensor, once for the
     whole batch; raises on any failure to build or launch."""
+    return _tiles(tiles, n_buckets, "cuda")
+
+
+def bincount_tiles_meta(tiles: torch.Tensor, n_buckets: int) -> Tables:
+    """The meta route: checks the ids and allocates C, P, F as
+    :func:`bincount_tiles_cuda` does on a meta tensor; the scratch, which
+    the built library sizes, is left out."""
+    return _tiles(tiles, n_buckets, "meta")
+
+
+def _tiles(tiles, n_buckets: int, device_type: str) -> Tables:
     _check(tiles, n_buckets)
-    if tiles.device.type != "cuda" or tiles.dtype != torch.int32:
-        raise ValueError("bincount_tiles_cuda takes a CUDA int32 tensor, got "
+    if tiles.device.type != device_type or tiles.dtype != torch.int32:
+        raise ValueError(f"bincount_tiles_{device_type} takes a "
+                         f"{device_type.upper()} int32 tensor, got "
                          f"{tiles.dtype} on {tiles.device}")
     tiles = tiles.contiguous()
     *lead, T, tile_n = tiles.shape
@@ -91,6 +113,8 @@ def bincount_tiles_cuda(tiles: torch.Tensor, n_buckets: int) -> Tables:
                      for _ in range(3))
     C, P, F = (torch.empty(shape, dtype=torch.int32, device=tiles.device)
                for _ in range(3))
+    if device_type == "meta":
+        return C, P, F
     lib = _build.library()
     scratch = torch.empty(
         lib.repro_bincount_tiles_scratch_bytes(B, T, tile_n, V),
@@ -132,18 +156,37 @@ def bincount_plain(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
     return counts[:V].to(torch.int32)
 
 
+def bincount_work(n: int, n_buckets: int) -> Tuple[int, int]:
+    """(operations, bytes) of one call: the ids read once, the histogram
+    written once; one count an id."""
+    return n, n * 4 + n_buckets * 4
+
+
 def bincount_cuda(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """Launch ``csrc/bincount.cu`` on a CUDA tensor; raises on any failure
     to build or launch."""
+    return _bincount(ids, n_buckets, "cuda")
+
+
+def bincount_meta(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """The meta route: checks the ids and allocates the histogram as
+    :func:`bincount_cuda` does on a meta tensor."""
+    return _bincount(ids, n_buckets, "meta")
+
+
+def _bincount(ids, n_buckets: int, device_type: str) -> torch.Tensor:
     _check_ids(ids, n_buckets)
-    if ids.device.type != "cuda" or ids.dtype != torch.int32:
-        raise ValueError("bincount_cuda takes a CUDA int32 tensor, got "
+    if ids.device.type != device_type or ids.dtype != torch.int32:
+        raise ValueError(f"bincount_{device_type} takes a "
+                         f"{device_type.upper()} int32 tensor, got "
                          f"{ids.dtype} on {ids.device}")
     V = int(n_buckets)
     if ids.numel() == 0 or V == 0:
         return torch.zeros((V,), dtype=torch.int32, device=ids.device)
     ids = ids.contiguous()
     out = torch.empty((V,), dtype=torch.int32, device=ids.device)
+    if device_type == "meta":
+        return out
     stream = torch.cuda.current_stream(ids.device).cuda_stream
     err = _build.library().repro_bincount(ids.data_ptr(), ids.numel(), V,
                                           out.data_ptr(), stream)

@@ -9,7 +9,9 @@ a row with n_pad above 2^18 raises, as the JAX package's kernel does.
 :func:`bitonic_sort_cuda` launches the hand-written bitonic network of
 ``csrc/bitonic_sort.cu``, run in registers; :func:`bitonic_sort_plain` is
 the plain PyTorch version (stable argsort plus gather) for the CPU and as
-the kernel's yardstick on the card.  The network is not stable, so the two
+the kernel's yardstick on the card; :func:`bitonic_sort_meta` allocates
+the outputs on the meta device, for a dry run; :func:`bitonic_sort_work`
+gives a call's operations and bytes.  The network is not stable, so the two
 agree exactly on rows of unique keys, which is what the shuffle sorts
 (segmented keys ``dest * tile + local_src``).
 :func:`repro_torch.kernels.ops.bitonic_sort` picks one by device.
@@ -75,17 +77,42 @@ def bitonic_sort_plain(keys: torch.Tensor, values: torch.Tensor
     return keys.gather(-1, order), values.gather(-1, order)
 
 
+def bitonic_sort_work(rows: int, n: int, key_dtype, value_dtype
+                      ) -> Tuple[int, int]:
+    """(operations, bytes) of one call: keys and values read once and
+    written once; the network's compare-exchanges, n_pad / 2 for each of
+    its L (L + 1) / 2 stages (n_pad = 2^L the padded width)."""
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    L = n_pad.bit_length() - 1
+    return (rows * (n_pad // 2) * L * (L + 1) // 2,
+            2 * rows * n * (key_dtype.itemsize + value_dtype.itemsize))
+
+
 def bitonic_sort_cuda(keys: torch.Tensor, values: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bitonic_sort.cu`` on CUDA tensors; raises on any
     failure to build or launch."""
+    return _sort(keys, values, "cuda")
+
+
+def bitonic_sort_meta(keys: torch.Tensor, values: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta route: checks the rows and allocates the outputs as
+    :func:`bitonic_sort_cuda` does on meta tensors; the work rows of rows
+    wider than the built library's shared-memory width are left out."""
+    return _sort(keys, values, "meta")
+
+
+def _sort(keys, values, device_type: str):
     global launches
     _check_pair(keys, values)
-    if keys.device.type != "cuda" or values.device != keys.device:
-        raise ValueError("bitonic_sort_cuda takes CUDA tensors on one device")
+    if keys.device.type != device_type or values.device != keys.device:
+        raise ValueError(f"bitonic_sort_{device_type} takes "
+                         f"{device_type.upper()} tensors on one device")
     if keys.dtype not in _KEY_DTYPES or values.element_size() != 4:
-        raise ValueError(f"bitonic_sort_cuda takes int32 or float32 keys and "
-                         f"4-byte values, got {keys.dtype} and {values.dtype}")
+        raise ValueError(f"bitonic_sort_{device_type} takes int32 or "
+                         f"float32 keys and 4-byte values, got {keys.dtype} "
+                         f"and {values.dtype}")
     rows, n = keys.shape
     if rows == 0 or n == 0:
         return keys, values
@@ -95,6 +122,8 @@ def bitonic_sort_cuda(keys: torch.Tensor, values: torch.Tensor
     keys, values = (t if t.data_ptr() % 16 == 0 else t.clone()
                     for t in (keys, values))
     out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
+    if device_type == "meta":
+        return out_k, out_v
     lib = _build.library()
     work_k = work_v = None
     if n_pad > lib.repro_bitonic_smem_width():

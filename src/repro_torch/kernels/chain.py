@@ -21,7 +21,9 @@ pops (``src/repro/core/geometry/chain.py:31-61``); the port runs it on the
 card as the hand-written kernel of ``csrc/monotone_chain.cu``
 (:func:`monotone_chain_cuda`), and :func:`monotone_chain_plain` is plain
 PyTorch, for the CPU and as the kernel's yardstick on the card.  The two
-are equal bit for bit.
+are equal bit for bit.  :func:`monotone_chain_meta` allocates what the
+kernel's wrapper allocates on the meta device, for a dry run, and
+:func:`monotone_chain_work` gives a call's flops and bytes.
 
 On the card each chain's input arrives in stages of shared memory and its
 stack keeps a window of entries there; :func:`kernel_shape` names the stage
@@ -144,31 +146,57 @@ def monotone_chain_plain(pts: torch.Tensor, counts: torch.Tensor
     return hull, h.to(torch.int32)
 
 
+def monotone_chain_work(V: int, L: int, live: int, tests: int
+                        ) -> Tuple[int, int]:
+    """(flops, bytes) of one call over V runs of L slots holding ``live``
+    points in all, whose chains make ``tests`` turn tests: the live points
+    and the counts read once, the (V, L, 2) hulls and the counts h written
+    once; 8 flops a turn test.  The tests depend on the data: about 4 c - h
+    for a run of c points whose hull has h (each chain tests once a push
+    and once a pop)."""
+    return 8 * tests, live * 8 + V * 4 + V * L * 8 + V * 4
+
+
 def monotone_chain_cuda(pts: torch.Tensor, counts: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/monotone_chain.cu`` on CUDA tensors (one block a run);
     raises on any failure to build or launch.  A batch with no run or no
     slot launches nothing."""
+    return _chain(pts, counts, "cuda")
+
+
+def monotone_chain_meta(pts: torch.Tensor, counts: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta route: checks and allocates what
+    :func:`monotone_chain_cuda` does on meta tensors and computes
+    nothing."""
+    return _chain(pts, counts, "meta")
+
+
+def _chain(pts, counts, device_type: str):
     global launches
     _check(pts, counts)
-    if pts.device.type != "cuda" or counts.device != pts.device \
+    if pts.device.type != device_type or counts.device != pts.device \
             or counts.dtype != torch.int32:
-        raise ValueError("monotone_chain_cuda takes CUDA float32 points and "
-                         f"int32 counts on one device, got {pts.dtype} on "
+        raise ValueError(f"monotone_chain_{device_type} takes "
+                         f"{device_type.upper()} float32 points and int32 "
+                         f"counts on one device, got {pts.dtype} on "
                          f"{pts.device} and {counts.dtype} on "
                          f"{counts.device}")
     V, L, _ = pts.shape
     if V == 0 or L == 0:
         return torch.zeros_like(pts), torch.zeros_like(counts)
     if V >= 1 << 31 or L >= 1 << 31:
-        raise ValueError(f"monotone_chain_cuda: {V} runs of {L} slots: both "
-                         f"must stay below 2^31")
+        raise ValueError(f"monotone_chain_{device_type}: {V} runs of {L} "
+                         f"slots: both must stay below 2^31")
     pts, counts = pts.contiguous(), counts.contiguous()
     if pts.data_ptr() % 8:           # the kernel copies points as float2
         pts = pts.clone()
     hull = torch.empty_like(pts)
     h = torch.empty_like(counts)
     upper = torch.empty_like(pts)
+    if device_type == "meta":
+        return hull, h
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     err = _build.library().repro_monotone_chain(
         pts.data_ptr(), counts.data_ptr(), V, L, hull.data_ptr(),

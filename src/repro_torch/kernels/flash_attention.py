@@ -16,12 +16,15 @@ them, as the JAX wrapper pads d): bfloat16 at head dims 64 and 128 runs on
 the tensor cores (wgmma), everything else on the CUDA cores, as
 ``repro_flash_attention_route`` says;
 :func:`flash_attention_plain` is plain PyTorch, for the CPU and as the
-kernel's yardstick on the card.
+kernel's yardstick on the card; :func:`flash_attention_meta` allocates
+what the kernel's wrapper allocates on the meta device, for a dry run, and
+:func:`flash_attention_work` gives a call's flops and bytes.
 :func:`repro_torch.kernels.ops.flash_attention` picks one by device.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -78,6 +81,20 @@ def padded_head_dim(d: int) -> int:
                      f"compiled one, {HEAD_DIMS[-1]}")
 
 
+def flash_attention_work(b: int, hq: int, hkv: int, s_q: int, s_k: int,
+                         d: int, causal: bool, dtype) -> Tuple[int, int]:
+    """(flops, bytes) of one call from shapes and dtype alone: 4 d flops
+    (two products of two) for each unmasked (query, key) pair of each query
+    head; q and k, v read once and the output written once."""
+    if causal:                  # query i reads keys 0..i
+        m = min(s_q, s_k)
+        pairs = m * (m + 1) // 2 + (s_q - m) * s_k
+    else:
+        pairs = s_q * s_k
+    return (4 * b * hq * d * pairs,
+            dtype.itemsize * (2 * b * hq * s_q * d + 2 * b * hkv * s_k * d))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors; raises on an
@@ -89,15 +106,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     true d's scale 1/sqrt(d).  The JAX wrapper multiplies the padded q by
     sqrt(d_pad / d) for that; the kernel takes the scale as an argument,
     so here q is not rescaled (and not rounded again in bfloat16)."""
+    return _flash(q, k, v, causal, "cuda")
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """The meta route: checks and allocates what
+    :func:`flash_attention_cuda` does on meta tensors (the padded and
+    contiguous copies of q, k, v, the output, its cut) and computes
+    nothing, for a dry run."""
+    return _flash(q, k, v, causal, "meta")
+
+
+def _flash(q, k, v, causal: bool, device_type: str) -> torch.Tensor:
     global launches
     _check(q, k, v)
-    if not (q.device.type == k.device.type == v.device.type == "cuda"):
-        raise ValueError("flash_attention_cuda takes CUDA tensors, got "
-                         f"{q.device}, {k.device}, {v.device}")
+    if not (q.device.type == k.device.type == v.device.type == device_type):
+        raise ValueError(f"flash_attention_{device_type} takes "
+                         f"{device_type.upper()} tensors, got {q.device}, "
+                         f"{k.device}, {v.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError("flash_attention_cuda takes float32 or bfloat16 "
-                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+        raise ValueError(f"flash_attention_{device_type} takes float32 or "
+                         f"bfloat16 q, k, v of one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     d_pad = padded_head_dim(d)
@@ -108,14 +139,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the kernels copy rows in 16-byte chunks
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, sk, d_pad, int(bool(causal)), _DTYPES[q.dtype],
-        1.0 / math.sqrt(d), stream)
-    _build.check(err, "flash_attention")
-    launches += 1
-    route = lib.repro_flash_attention_route(d_pad, _DTYPES[q.dtype])
-    route_launches["wgmma" if route else "cuda_core"] += 1
+    if device_type == "cuda":
+        lib = _build.library()
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, sk, d_pad, int(bool(causal)), _DTYPES[q.dtype],
+            1.0 / math.sqrt(d), stream)
+        _build.check(err, "flash_attention")
+        launches += 1
+        route = lib.repro_flash_attention_route(d_pad, _DTYPES[q.dtype])
+        route_launches["wgmma" if route else "cuda_core"] += 1
     return out if d_pad == d else out[..., :d].contiguous()

@@ -13,9 +13,13 @@ the row sum across blocks by decoupled look-back.  Its int32 results are
 exact; its float32 results (float64 carry) are summed in an order that
 depends on timing, so they are not bitwise identical from run to run.
 :func:`prefix_scan_plain` is plain PyTorch, for the CPU and as the kernel's
-yardstick on the card.
+yardstick on the card; :func:`prefix_scan_meta` allocates the output on
+the meta device, for a dry run; :func:`prefix_scan_work` gives a call's
+flops and bytes.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -45,15 +49,34 @@ def prefix_scan_plain(x: torch.Tensor, exclusive: bool = False
     return c - x if exclusive else c
 
 
+def prefix_scan_work(rows: int, n: int, dtype) -> Tuple[int, int]:
+    """(flops, bytes) of one call: x read once, the sums written once; an
+    add an element."""
+    return rows * n, 2 * rows * n * dtype.itemsize
+
+
 def prefix_scan_cuda(x: torch.Tensor, exclusive: bool = False
                      ) -> torch.Tensor:
     """Launch ``csrc/prefix_scan.cu`` on a CUDA tensor; raises on an
     unsupported dtype and on any failure to build or launch."""
+    return _scan(x, exclusive, "cuda")
+
+
+def prefix_scan_meta(x: torch.Tensor, exclusive: bool = False
+                     ) -> torch.Tensor:
+    """The meta route: checks x and allocates the output as
+    :func:`prefix_scan_cuda` does on a meta tensor; the look-back's
+    scratch, which the built library sizes, is left out."""
+    return _scan(x, exclusive, "meta")
+
+
+def _scan(x, exclusive: bool, device_type: str) -> torch.Tensor:
     global launches
     _check(x)
-    if x.device.type != "cuda" or x.dtype not in _DTYPES:
-        raise ValueError("prefix_scan_cuda takes a CUDA int32 or float32 "
-                         f"tensor, got {x.dtype} on {x.device}")
+    if x.device.type != device_type or x.dtype not in _DTYPES:
+        raise ValueError(f"prefix_scan_{device_type} takes a "
+                         f"{device_type.upper()} int32 or float32 tensor, "
+                         f"got {x.dtype} on {x.device}")
     rows, n = x.shape
     if n == 0:
         return x
@@ -62,8 +85,10 @@ def prefix_scan_cuda(x: torch.Tensor, exclusive: bool = False
     if rows == 0:
         return out
     if rows * -(-n // TILE) >= 1 << 31:
-        raise ValueError(f"prefix_scan_cuda: {rows} rows of {n} make "
-                         f"2^31 or more tiles of {TILE}")
+        raise ValueError(f"prefix_scan_{device_type}: {rows} rows of {n} "
+                         f"make 2^31 or more tiles of {TILE}")
+    if device_type == "meta":
+        return out
     lib = _build.library()
     code = _DTYPES[x.dtype]
     scratch = torch.empty(lib.repro_prefix_scan_scratch_bytes(rows, n, code),

@@ -64,12 +64,32 @@ def pdtype(cfg: ArchConfig) -> torch.dtype:
     return _dtype(cfg.param_dtype)
 
 
+class MetaSource:
+    """Stands in for the ``torch.Generator`` of the ``init_*`` functions
+    when a model is built on the meta device: they read its ``device``
+    and draw nothing (:func:`randn`), so the stand-in model has the drawn
+    model's names, shapes and dtypes and holds no memory."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape: Sequence[int]) -> torch.Tensor:
+    """float32 N(0, 1) of ``shape`` drawn from ``gen``; an empty meta
+    tensor for a :class:`MetaSource`."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), device=gen.device)
+    return torch.randn(*shape, generator=gen, device=gen.device)
+
+
 def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                 scale: Optional[float] = None, lead: Tuple[int, ...] = ()):
     """Normal(0, 1) * scale (default 1/sqrt(fan_in)), cast to ``dtype``;
-    ``lead`` prepends stacked-layer axes."""
+    ``lead`` prepends stacked-layer axes.  Allocated, not drawn, on the
+    meta device."""
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = (*lead, *shape)
+    if gen.device.type == "meta":
+        return torch.empty(full, dtype=dtype, device=gen.device)
     if math.prod(full) <= _INIT_CHUNK:
         x = torch.randn(*full, generator=gen, device=gen.device) * s
         return x.to(dtype)

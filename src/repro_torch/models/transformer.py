@@ -87,7 +87,7 @@ from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      apply_mlp, apply_norm, attention_decode,
                      attention_prefill, cdtype, cross_entropy,
                      init_attention, init_embed, init_lm_head, init_mlp,
-                     init_norm, pdtype)
+                     init_norm, MetaSource, pdtype, randn)
 
 class ParamNest(nn.Module):
     """A nest of parameters that indexes like the JAX params nest:
@@ -366,8 +366,7 @@ class DecoderLM(_LM):
             params["layers"]["mlp"] = init_mlp(gen, cfg, lead=L)
         if cfg.family == "vlm":
             # N(0, 1) * 0.02, cast to the param dtype before the scale
-            w = torch.randn(cfg.d_model, cfg.d_model, generator=gen,
-                            device=gen.device).to(pdtype(cfg))
+            w = randn(gen, (cfg.d_model, cfg.d_model)).to(pdtype(cfg))
             params["vision_proj"] = {"w": w * 0.02}
         return params
 
@@ -771,9 +770,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
 
 def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> _LM:
     """The family's model for ``cfg``, with params drawn from a generator
-    seeded with ``seed``, on ``device``."""
+    seeded with ``seed``, on ``device``.  On ``"meta"`` nothing is drawn:
+    the model has the drawn one's parameter names, shapes and dtypes and
+    holds no memory (the counterpart of ``jax.eval_shape(model.init)``),
+    for a dry run."""
     cls = model_class(cfg)
     dev = as_device(device, "model")
+    if dev.type == "meta":
+        return cls(cfg, cls.init(cfg, MetaSource()))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return cls(cfg, cls.init(cfg, gen))

@@ -535,10 +535,10 @@ def test_geometry_entry_points_default_to_the_card():
             linear_program_nd(c, A, b, 8)
 
 
-def test_core_exports_every_name_of_the_jax_core_but_two():
+def test_core_exports_every_name_of_the_jax_core():
     """``repro_torch.core`` exports every name ``repro.core`` exports,
-    geometry and ``ShardedEngine`` included, but the TPU
-    ``HardwareModel``."""
+    geometry, ``ShardedEngine`` and ``HardwareModel`` (the H100's figures)
+    included."""
     import repro_torch.core as T
-    assert set(J.__all__) - set(T.__all__) == {"HardwareModel"}
+    assert set(J.__all__) - set(T.__all__) == set()
     assert all(hasattr(T, name) for name in T.__all__)
