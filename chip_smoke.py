@@ -69,10 +69,18 @@ exits non-zero:
 8. lm-prefill — the dense serving path at TinyLlama-1.1B's full width and
               depth, params from a seeded generator: prefill of 8 prompts of
               2048 tokens (22 kernel launches), 32 greedy decode steps, then
-              the ServeEngine draining 16 requests (phase lm-serve); with the
+              the ServeEngine draining 16 requests of 16 new tokens (cut
+              from 32 for time; phase lm-serve); with the
               launch counts reset just before and read just after.  Then
               float32 prefill against token-by-token decode, and the bf16
               flash path against the plain attention path;
+8b. lm-mesh — the same model served through ``MeshServe`` on a (1, 1, 1)
+              NCCL mesh, parameters and decode state as the per-rank dry
+              run lays them out: a prefill of the same prompts and 8 greedy
+              decode steps give phase lm-prefill's tokens bit for bit, one
+              flash launch a layer; then the dry run's counter over the
+              mesh prefill (8 x 2048) and one decode step (a cache of 2080)
+              on the card, held in phase roofline;
 9. lm-timings — host-clock medians of prefill, a decode step and a serve
               drain; CUDA-event medians of flash_attention, its plain version
               and torch's SDPA at the prefill shape, beside the bound; then
@@ -139,7 +147,9 @@ exits non-zero:
               tokens with a capacity that holds every choice), and
               (<tag>-shuffle) the ``shuffle`` dispatch
               over a one-rank NCCL expert group against the einsum one;
-              moe-gloo: the dispatch on 2 gloo CPU ranks (host work);
+              moe-gloo: the dispatch on 2 gloo CPU ranks (host work
+              started after phase build at the lowest CPU priority,
+              joined here);
               families-timings: host-clock timings and a profiled prefill
               of each;
 14. search  — ``multisearch_plan(65,536 queries, 1,024 pivots, M 64)``
@@ -239,10 +249,12 @@ exits non-zero:
               three engines beside ``nvidia-smi``'s line, and one run of
               the local and the overlapped engine under torch.profiler
               (device ms and the costliest kernels); then
-              sharded-gloo, host work: ``python -m repro_torch.dist_check
-              --world 4 --check`` with the round machine's cases, four CPU
-              ranks over gloo at the tests' small sizes, every case equal
-              on every rank and to the port's LocalEngine;
+              sharded-gloo, host work started after phase build at the
+              lowest CPU priority and joined here: ``python -m
+              repro_torch.dist_check --world 4 --check`` with the round
+              machine's cases, four CPU ranks over gloo at the tests'
+              small sizes, every case equal on every rank and to the
+              port's LocalEngine;
 27. train-kernels — ``ssm_scan``'s backward kernel (through its autograd
               Function) against autograd through the plain version, da and
               dx for a seeded dh, at the zamba2 and rwkv6 training shapes
@@ -268,9 +280,10 @@ exits non-zero:
               against 2 steps, a checkpoint, a fresh ``Trainer`` resumed
               from it and 2 more, final losses within 1e-5 (checkpoints in
               a temporary directory, deleted afterwards);
-31. train-mesh — the parallel-training slices' main path: phase train's
-              zamba2-1.2b run through the mesh ``Trainer`` on a (1, 1, 1)
-              NCCL mesh (at one rank no axis splits a leaf and "model"
+31. train-mesh — the parallel-training slices' main path: the first 4
+              steps of phase train's zamba2-1.2b run (its schedule of 8;
+              cut from 8 steps for time) through the mesh ``Trainer`` on
+              a (1, 1, 1) NCCL mesh (at one rank no axis splits a leaf and "model"
               has one rank, so the step is the one-device one with the
               mesh step's bookkeeping: the funnel's copies, the pod hop,
               the update in place; resident parameter and moment bytes
@@ -287,7 +300,8 @@ exits non-zero:
               quantize to 0 at step 2, under the leaf's one scale and
               under one scale a layer, and the plain compressed step with
               one scale a layer run 4 steps (cut from 8 for time), its
-              last loss over auto's at step 4;
+              last loss over auto's at step 4; and one more auto step
+              under the dry run's counter, held in phase roofline;
 32. mesh-paths — the sharded-parameter code's collectives on the card, on
               a one-rank NCCL mesh: reduced qwen1.5-0.5b and zamba2-1.2b
               (float32, remat "full"), 3 steps, with every leaf that has
@@ -341,7 +355,16 @@ exits non-zero:
               at the cache's last position), timed beside its bound, its
               peak within 10 % of the dry run's; a cell of
               ``ASSIGNED_CELLS`` over 80 GB is not run and its GB
-              printed.
+              printed.  Per rank of a mesh, beside them on the host: the
+              per-rank dry run (``--mesh``, a stand-in process group) of
+              ``MESH_CELLS`` (kimi-k2 x train_4k on (2, 16, 16), a
+              prefill, and decode with the KV heads, the head dimension
+              and the sequence split), one line a cell: GB a rank, the
+              terms, collective GB and count by op (computed from shapes,
+              not measured); and the (1, 1, 1) per-rank dry runs of phase
+              train-mesh's step and phase lm-mesh's prefill and decode
+              step, their FLOPs, bytes, kernel calls and (zero)
+              collectives equal to the counts on the card.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Every row of the
@@ -394,6 +417,8 @@ SEEDS = (101, 202, 303)
 REPS = 7
 LM_ARCH = "tinyllama-1.1b"
 LM_B, LM_S, LM_DECODE = 8, 2048, 32       # prefill batch and length, steps
+#: new tokens a request of a serve drain (cut from 32 for time)
+SERVE_NEW_TOKENS = 16
 DECODE_WINDOW = 5                          # decode steps in a profiled window
 #: flash_attention shapes (b, hq, hkv, s_q, s_k, d, causal): TinyLlama's
 #: prefill, then the edge shapes of tests/test_kernels.py, one query
@@ -716,8 +741,8 @@ def serve_requests(gen, vocab_size: int) -> list:
 
 def serve_drain(model, requests, clock=time.perf_counter):
     """A ServeEngine (max_batch 8, max_len 256) that drained ``requests``,
-    32 new tokens each; ``eng.admitted`` holds the order in which they left
-    the queue."""
+    SERVE_NEW_TOKENS new tokens each; ``eng.admitted`` holds the order in
+    which they left the queue."""
     from repro_torch.serve import Request, ServeConfig, ServeEngine
     eng = ServeEngine(model, ServeConfig(max_batch=8, max_len=256),
                       clock=clock)
@@ -731,18 +756,20 @@ def serve_drain(model, requests, clock=time.perf_counter):
 
     eng._admit = recording_admit
     for uid, p in requests:
-        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=32))
+        eng.submit(Request(uid=uid, prompt=p,
+                           max_new_tokens=SERVE_NEW_TOKENS))
     eng.run_until_drained()
     return eng
 
 
 def check_drain(eng, n: int) -> dict:
-    """Every request finished with 32 tokens, at most 8 in a round, in
-    FIFO order; returns the engine's stats."""
+    """Every request finished with SERVE_NEW_TOKENS tokens, at most 8 in a
+    round, in FIFO order; returns the engine's stats."""
     st = eng.stats()
     check(st["requests"] == n and len(eng.finished) == n,
           f"serve finished {st['requests']} of {n}")
-    check(all(len(r.output) == 32 for r in eng.finished), "serve outputs")
+    check(all(len(r.output) == SERVE_NEW_TOKENS for r in eng.finished),
+          "serve outputs")
     check(eng.cost.max_reducer_io <= 8,
           f"max_reducer_io {eng.cost.max_reducer_io} > 8")
     check(eng.admitted == list(range(n)), f"admission {eng.admitted}")
@@ -1031,7 +1058,8 @@ def lm_phases(torch, dev) -> dict:
                           f"median wall ms"})
     return {"launches": launches["flash_attention"], "routes": routes,
             "max_abs_err": max_abs, "timing": flash_t,
-            "prefill_ms": prefill_ms}
+            "prefill_ms": prefill_ms,
+            "tokens": torch.stack(tokens[:MESH_DECODE + 1])}
 
 
 def scan_input(torch, dev, gen, rows, n, dtype):
@@ -2144,31 +2172,65 @@ def encdec_phase(torch, dev) -> dict:
             "timings": timings}
 
 
-def moe_gloo_phase() -> dict:
-    """Phase moe-gloo, host work: ``python -m repro_torch.dist_check --cases
-    moe --check`` at 2 gloo CPU ranks (phase sharded-gloo runs the case at
-    SHARDED_GLOO_WORLD among the others), the reduced kimi-k2 layer of
-    ``dist_check.moe_inputs`` in float32: every rank's aux and dropped
-    fraction equal (``--check``), and each rank's shuffle output equal to
-    rank 0's einsum output within 2e-4 where nothing drops (cf 8.0)."""
+def gloo_start(tag: str, world: int, cases, timeout: int):
+    """Start ``python -m repro_torch.dist_check --world WORLD --cases CASES
+    --check`` on gloo CPU ranks, host work beside the card's phases: at
+    the lowest CPU priority, in a session of its own, into a directory of
+    its own.  ``gloo_join`` waits for it; ``gloo_stop`` (also at exit)
+    ends what is left."""
+    import atexit
+    import os
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.dist_check", "--world",
+         str(world), "--out", str(tmp), "--cases", ",".join(cases),
+         "--check", "--timeout", str(timeout)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, preexec_fn=lambda: os.nice(19),
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""})
+    job = (tmp, world, proc, tag)
+    atexit.register(gloo_stop, job)
+    return job
+
+
+def gloo_stop(job) -> None:
     import os
     import shutil
-    import tempfile
+    import signal
+    tmp, _, proc, _ = job
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gloo_join(job, timeout: int = 300):
+    """(the launcher's JSON line, each rank's results) of a job of
+    ``gloo_start``, which must have passed; its directory removed."""
+    from repro_torch import dist_check
+    tmp, world, proc, tag = job
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        check(proc.returncode == 0, f"{tag}: {out[-2000:]} {err[-4000:]}")
+        ranks = dist_check.load_ranks(tmp, world)
+    finally:
+        gloo_stop(job)
+    return json.loads(out.strip().splitlines()[-1]), ranks
+
+
+def moe_gloo_phase(job) -> dict:
+    """Phase moe-gloo, host work started after the build (``gloo_start``):
+    ``python -m repro_torch.dist_check --cases moe --check`` at 2 gloo CPU
+    ranks (phase sharded-gloo runs the case at SHARDED_GLOO_WORLD among
+    the others), the reduced kimi-k2 layer of ``dist_check.moe_inputs``
+    in float32: every rank's aux and dropped fraction equal (``--check``),
+    and each rank's shuffle output equal to rank 0's einsum output within
+    2e-4 where nothing drops (cf 8.0)."""
     import numpy as np
     from repro_torch import dist_check
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_gloo_"))
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.dist_check", "--world", "2",
-             "--out", str(tmp), "--cases", "moe", "--check", "--timeout",
-             "120"], capture_output=True, text=True, timeout=180,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        check(proc.returncode == 0,
-              f"moe-gloo: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
-        ranks = dist_check.load_ranks(tmp, 2)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec, ranks = gloo_join(job)
     want = ranks[0]["moe-8.0/einsum/0"]
     err = [float(np.abs(r["moe-8.0/per-rank/0"] - want).max())
            for r in ranks]
@@ -2182,16 +2244,17 @@ def moe_gloo_phase() -> dict:
     return rec
 
 
-def family_phases(torch, dev) -> list:
+def family_phases(torch, dev, moe_gloo) -> list:
     """The VLM, enc-dec and MoE phases, each model freed before the next;
-    then phase families-timings.  Returns each path's result."""
+    phase moe-gloo (joining ``moe_gloo``, started by ``gloo_start``); then
+    phase families-timings.  Returns each path's result."""
     paths = []
     for phase, args in ([(vlm_phase, ()), (encdec_phase, ())]
                         + [(moe_serve_phase, a) for a in MOE_ARCHS]):
         paths.append(phase(torch, dev, *args))
         gc.collect()
         torch.cuda.empty_cache()
-    moe_gloo_phase()
+    moe_gloo_phase(moe_gloo)
     emit(phase="families-timings",
          seconds={p["tag"]: p["seconds"] for p in paths},
          models=[p["timings"] for p in paths],
@@ -3602,28 +3665,13 @@ def sharded_phase(torch, dev, ops, engine):
     return paths
 
 
-def sharded_gloo_phase() -> dict:
-    """Phase sharded-gloo, host work: ``python -m repro_torch.dist_check``
-    at SHARDED_GLOO_WORLD CPU ranks over gloo, at the tests' small sizes,
-    on this machine's install: every case's result equal on every rank and
+def sharded_gloo_phase(job) -> dict:
+    """Phase sharded-gloo, host work started after the build
+    (``gloo_start``): ``python -m repro_torch.dist_check`` at
+    SHARDED_GLOO_WORLD CPU ranks over gloo, at the tests' small sizes, on
+    this machine's install: every case's result equal on every rank and
     equal to the port's LocalEngine (``--check``)."""
-    import os
-    import shutil
-    import tempfile
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gloo_"))
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.dist_check", "--world",
-             str(SHARDED_GLOO_WORLD), "--out", str(tmp), "--cases",
-             ",".join(SHARDED_GLOO_CASES), "--check",
-             "--timeout", "240"],
-            capture_output=True, text=True, timeout=300,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    check(proc.returncode == 0,
-          f"sharded-gloo: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
-    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec, _ = gloo_join(job)
     check(rec["ok"] and rec["entries_held"] > 0, f"sharded-gloo: {rec}")
     emit(phase="sharded-gloo", kind="host work (CPU ranks, gloo)", **rec)
     return rec
@@ -3900,6 +3948,9 @@ MOE_TRAIN_STEPS = 4
 #: (arch, dispatch) of phase moe-train's mesh Trainer runs
 MOE_MESH_TRAIN = (("kimi-k2-1t-a32b", "einsum"),
                   ("llama4-scout-17b-a16e", "shuffle"))
+#: the steps phase train-mesh runs of phase train's schedule (cut from
+#: TRAIN_STEPS for the script's time limit)
+MESH_TRAIN_STEPS = 4
 #: steps of phase train-mesh's plain compressed reference
 COMPRESSED_REF_STEPS = 4
 #: steps of phase train-mesh's plain step with one int8 scale a layer
@@ -4065,10 +4116,11 @@ def plain_compressed_run(torch, dev, tc, steps: int, layer_scale=False,
 def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
     """Phase train-mesh: the slice's main path.  zamba2-1.2b at full width
     and depth as phase train (bf16 compute, remat "full", AdamW, 8 x 2048,
-    TRAIN_STEPS steps) through the mesh Trainer on a (1, 1, 1) NCCL mesh
-    (``make_host_mesh``), in "auto" and "compressed" modes: auto's losses
-    equal phase train's within 1e-5 relative; 76 ``ssm_scan`` and 38
-    ``ssm_scan.bwd`` launches a step and no other kernel; compressed's
+    phase train's schedule of TRAIN_STEPS steps) through the mesh Trainer
+    on a (1, 1, 1) NCCL mesh (``make_host_mesh``), the first
+    MESH_TRAIN_STEPS steps, in "auto" and "compressed" modes: auto's
+    losses equal phase train's within 1e-5 relative; 76 ``ssm_scan`` and
+    38 ``ssm_scan.bwd`` launches a step and no other kernel; compressed's
     first COMPRESSED_REF_STEPS losses equal its plain version's
     (``plain_compressed_run``) within 1e-5 relative, and its last loss
     is below its first.  Recorded: compressed over auto loss at the last
@@ -4080,14 +4132,14 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
     compressed step with one scale a layer (``layer_scaled_mean``) run
     LAYER_SCALE_STEPS steps, its last loss over auto's at that step (cut
     from TRAIN_STEPS to fit the script's time limit)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.compress import compression_wire_bytes
     from repro_torch.train import TrainConfig
     cfg = get_config("zamba2-1.2b")
     b, s = TRAIN_SHAPE
-    want = {"ssm_scan": 2 * cfg.n_layers * TRAIN_STEPS,
-            "ssm_scan.bwd": cfg.n_layers * TRAIN_STEPS}
+    n = MESH_TRAIN_STEPS
+    want = {"ssm_scan": 2 * cfg.n_layers * n, "ssm_scan.bwd": cfg.n_layers * n}
     runs = {}
     with nccl_world("mesh"):
         mesh = make_host_mesh()
@@ -4095,15 +4147,18 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
             tc = TrainConfig(arch=cfg, global_batch=b, seq_len=s,
                              steps=TRAIN_STEPS, warmup_steps=2, log_every=1,
                              seed=0, pod_grad_mode=mode)
-            r = mesh_train_run(torch, dev, tc, mesh, TRAIN_STEPS)
+            r = mesh_train_run(torch, dev, tc, mesh, n)
             trainer = r.pop("trainer")
+            if mode == "auto":
+                counted = count_mesh_step(torch, trainer, cfg, ShapeConfig(
+                    f"train_{b}x{s}", s, b, "train"))
             if mode == "compressed":
                 check(trainer.ef_state is not None,
                       "train-mesh: compressed mode kept no residuals")
                 r["wire_bytes"] = dict(zip(
                     ("float32", "int8"),
                     compression_wire_bytes(trainer.params)))
-            r["median_step_ms_3_to_8"] = statistics.median(r["step_ms"][2:])
+            r["median_step_ms_from_3"] = statistics.median(r["step_ms"][2:])
             runs[mode] = r
             del trainer
             gc.collect()
@@ -4122,7 +4177,8 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
     per_layer_ratio = per_layer[-1] / auto[LAYER_SCALE_STEPS - 1]
     emit(phase="train-mesh", arch=cfg.name, mesh=[1, 1, 1],
          mesh_axes=["pod", "data", "model"], backend="nccl", batch=b, seq=s,
-         steps=TRAIN_STEPS, runs=runs, auto_vs_train_max_rel=max(rel),
+         steps=n, schedule_steps=TRAIN_STEPS, runs=runs,
+         auto_vs_train_max_rel=max(rel),
          compressed_plain_losses=plain,
          compressed_vs_plain_max_rel=max(rel_plain),
          compressed_over_auto_loss_at_last_step=ratio,
@@ -4130,10 +4186,11 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
          compressed_int8_zero_shares=zero_shares,
          layer_scale_losses=per_layer, layer_scale_steps=LAYER_SCALE_STEPS,
          layer_scale_cut=f"steps {TRAIN_STEPS} -> {LAYER_SCALE_STEPS}",
+         steps_cut=f"steps {TRAIN_STEPS} -> {n}",
          layer_scale_over_auto_loss_at_step=per_layer_ratio,
          train_median_step_ms_3_to_8=train_timing["median_step_ms_3_to_8"],
          train_peak_mem_bytes=train_timing["peak_mem_bytes"],
-         launches_per_step={k: v // TRAIN_STEPS for k, v in want.items()},
+         launches_per_step={k: v // n for k, v in want.items()},
          note="host-clock ms of each step ending in a synchronize; "
               "collectives over a group of one rank are skipped, so the "
               "mesh step on one card adds the funnel's copies, the "
@@ -4142,7 +4199,7 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
         check(r["launches"] == want, f"train-mesh {mode}: launches "
               f"{r['launches']}, want {want}")
         losses = r["losses"]
-        check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+        check(len(losses) == n and all(map(math.isfinite, losses))
               and losses[-1] < losses[0],
               f"train-mesh {mode}: losses {losses}")
     check(max(rel) <= 1e-5, f"train-mesh: auto losses {auto} against phase "
@@ -4153,7 +4210,8 @@ def train_mesh_phase(torch, dev, train_losses, train_timing) -> dict:
     check(zero_shares is not None and len(per_layer) == LAYER_SCALE_STEPS
           and all(map(math.isfinite, per_layer)),
           f"train-mesh: the one-scale-a-layer run's losses {per_layer}")
-    return {"launches": runs["auto"]["launches"], "runs": runs}
+    return {"launches": runs["auto"]["launches"], "runs": runs,
+            "counted": counted}
 
 
 #: (arch, steps) of phase mesh-paths' reduced runs
@@ -4547,15 +4605,34 @@ PEAK_TOL = 0.10
 #: one small launch, for HardwareModel's latency_s: bincount_tiles on one
 #: (1, 4096) tile into 2048 buckets
 LATENCY_TILE = (1, 4096, 2048)
+#: greedy decode steps of phase lm-mesh after its prefill
+MESH_DECODE = 8
+#: the per-rank dry run's cells on the host (arch, shape, mesh): a
+#: training step, a prefill and each of the decode state's three layouts
+#: (KV heads over "model", the head dimension over "model", the sequence
+#: over "data")
+MESH_CELLS = (("kimi-k2-1t-a32b", "train_4k", "multi"),
+              ("tinyllama-1.1b", "prefill_32k", "single"),
+              ("qwen1.5-0.5b", "decode_32k", "single"),
+              ("tinyllama-1.1b", "decode_32k", "multi"),
+              ("zamba2-1.2b", "long_500k", "single"))
+#: (arch, kind, batch, seq) of the (1, 1, 1) per-rank dry runs held against
+#: the card: phase train-mesh's step (one batch, no microbatches, as the
+#: mesh Trainer steps) and phase lm-mesh's prefill and decode step
+MESH_HOLDS = (("tinyllama-1.1b", "prefill", LM_B, LM_S),
+              ("tinyllama-1.1b", "decode", LM_B, LM_S + LM_DECODE),
+              ("zamba2-1.2b", "train", *TRAIN_SHAPE))
 
 
 def roofline_start():
     """Start the dry runs on the host, without the card, at the lowest CPU
-    priority, one after another in a session of their own: the 40 cells
-    (``python -m repro_torch.launch.dryrun --all``) and each step of
-    ROOFLINE_CHECKS (``--arch --kind --batch --seq``), into one directory.
-    ``roofline_phase`` joins them and ``roofline_stop`` (also at exit)
-    ends what is left."""
+    priority, in two sessions of their own, each one run after another,
+    into one directory: the 40 cells (``python -m
+    repro_torch.launch.dryrun --all``) and each step of ROOFLINE_CHECKS
+    (``--arch --kind --batch --seq``); and the (1, 1, 1) per-rank dry runs
+    of MESH_HOLDS (``--mesh-shape 1,1,1 --grad-accum 1``), then the
+    per-rank cells of MESH_CELLS (``--mesh``).  ``roofline_phase`` joins
+    them and ``roofline_stop`` (also at exit) ends what is left."""
     import atexit
     import os
     import tempfile
@@ -4564,15 +4641,20 @@ def roofline_start():
     jobs = [["--all"]] + [["--arch", arch, "--kind", kind, "--batch", str(b),
                            "--seq", str(s)]
                           for arch, kind, b, s in ROOFLINE_CHECKS]
-    script = " && ".join(shlex.join(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *job, "--out",
-         str(tmp)]) for job in jobs)
+    mesh_jobs = [["--arch", arch, "--kind", kind, "--batch", str(b),
+                  "--seq", str(s), "--mesh-shape", "1,1,1", "--grad-accum",
+                  "1"] for arch, kind, b, s in MESH_HOLDS]
+    mesh_jobs += [["--arch", arch, "--shape", shape, "--mesh", mesh]
+                  for arch, shape, mesh in MESH_CELLS]
     procs = [subprocess.Popen(
-        ["sh", "-c", script], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, start_new_session=True,
-        preexec_fn=lambda: os.nice(19),
+        ["sh", "-c", " && ".join(shlex.join(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *job,
+             "--out", str(tmp)]) for job in js)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, preexec_fn=lambda: os.nice(19),
         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
-             "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})]
+             "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
+        for js in (jobs, mesh_jobs)]
     started = (tmp, time.perf_counter(), procs)
     atexit.register(roofline_stop, started)
     return started
@@ -4610,7 +4692,91 @@ def count_on(torch, dev, cfg, shape):
     return counted, peak
 
 
-def roofline_phase(torch, dev, started, measured_ms) -> dict:
+def count_mesh_step(torch, trainer, cfg, shape):
+    """The dry run's record of one more step of a mesh Trainer, counted on
+    its device: the next batch's rows, ``step_local`` under a counter."""
+    from repro_torch.launch.dryrun import Counter, record
+    step = trainer._mesh_step
+    rows = {k: torch.from_numpy(v).to(trainer.device) for k, v in
+            step.local_rows(trainer.pipeline.batch_at(trainer.step)).items()}
+    counter = Counter()
+    counter.track((trainer.model.param_tree(),
+                   (trainer.params, trainer.opt_state, rows)))
+    with counter:
+        out = step.step_local(trainer.params, trainer.opt_state,
+                              trainer.ef_state, rows)
+        del out
+    torch.cuda.synchronize()
+    return record(cfg, shape, counter)
+
+
+def lm_mesh_phase(torch, dev, tokens) -> dict:
+    """Phase lm-mesh: TinyLlama-1.1B (flash prefill) served through
+    ``MeshServe`` on a (1, 1, 1) NCCL mesh, the rank's parameters and
+    decode state as the per-rank dry run lays them out: a prefill of
+    phase lm's prompt and MESH_DECODE greedy decode steps give phase lm's
+    tokens (``tokens``, prefill's first), bit for bit, with one flash
+    launch a layer (the cache as long as phase lm's, LM_S + LM_DECODE: a
+    decode step's sums run over the whole cache, so another length may
+    move a near tie of random weights); then the dry run's counter over
+    the mesh prefill step (LM_B x LM_S) and one decode step (that cache)
+    on the card (``mesh_cell_inputs``, seed 0), held in phase roofline
+    against the (1, 1, 1) per-rank dry runs of MESH_HOLDS."""
+    import numpy as np
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import count, mesh_cell_inputs, record
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve.mesh import MeshServe
+    cfg = get_config(LM_ARCH)
+    counts = {}
+    t0 = time.perf_counter()
+    with nccl_world("lm_mesh"):
+        mesh = make_host_mesh((1, 1, 1), ("pod", "data", "model"))
+        model = build_model(get_config(LM_ARCH, attn_impl="flash"),
+                            device=dev, seed=0)
+        max_len = LM_S + LM_DECODE
+        serve = MeshServe(model, mesh, LM_B, max_len)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (LM_B, LM_S)).astype(np.int32)).to(dev)
+        ops.reset_launches()
+        logits, state = serve.prefill(serve.rows(prompt), max_len)
+        got = [logits.argmax(-1)]
+        for _ in range(MESH_DECODE):
+            logits, state = serve.decode_step(got[-1], state)
+            got.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches().items() if v}
+        got = torch.stack(got)
+        same = torch.equal(got, tokens)
+        del model, serve, state, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kind, s in (("prefill", LM_S), ("decode", max_len)):
+            shape = ShapeConfig(f"{kind}_{LM_B}x{s}", s, LM_B, kind)
+            m, step, args = mesh_cell_inputs(cfg, shape, mesh, dev, seed=0)
+            counts[LM_ARCH, kind] = record(cfg, shape, count(m, step, args))
+            del m, step, args
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit(phase="lm-mesh", arch=LM_ARCH, mesh=[1, 1, 1], backend="nccl",
+         batch=LM_B, seq=LM_S, decode_steps=MESH_DECODE,
+         tokens_equal_phase_lm=same, launches=launches,
+         greedy_tokens_slot0=[int(t) for t in got[:, 0]],
+         counted={kind: {k: counts[LM_ARCH, kind][k] for k in (
+             "cost", "kernels")} for kind in ("prefill", "decode")},
+         seconds=time.perf_counter() - t0)
+    check(same, f"lm-mesh: tokens {got[:, 0].tolist()} against phase lm's "
+                f"{tokens[:, 0].tolist()}")
+    check(launches == {"flash_attention": cfg.n_layers,
+                       "flash_attention.wgmma": cfg.n_layers},
+          f"lm-mesh: launches {launches}")
+    return counts, launches
+
+
+def roofline_phase(torch, dev, started, measured_ms,
+                   mesh_counts=None) -> dict:
     """Phase roofline: the 40-cell dry run (started by ``roofline_start``)
     and its roofline, one line a cell; ``HardwareModel``'s latency beside
     one small launch on the card; the counter over TinyLlama's prefill and
@@ -4664,6 +4830,52 @@ def roofline_phase(torch, dev, started, measured_ms) -> dict:
     n_run = sum(not r.get("skipped") for r in cells.values())
     check(n_run == 32 and len(cells) == 40, f"roofline: {n_run} of "
                                             f"{len(cells)} cells ran")
+    # -- per rank of a mesh: the cells, and the (1, 1, 1) holds --------------
+    from repro_torch.core.distributed import COLLECTIVE_OPS
+    from repro_torch.launch.dryrun import mesh_name
+    from repro_torch.launch.mesh import MESHES
+    for arch, shape_name, mesh in MESH_CELLS:
+        name = mesh_name(MESHES[mesh])
+        rec = roofline._load(f"{arch}_{shape_name}_{name}", tmp)
+        check(rec is not None and not rec.get("skipped"),
+              f"roofline: no record of {arch} x {shape_name} x {name}")
+        row = roofline.analyze_cell(rec)
+        coll = rec["collectives"]
+        check(rec["chips"] == math.prod(MESHES[mesh]) and
+              coll["raw_total"] > 0, f"roofline {arch} x {shape_name} x "
+              f"{name}: chips {rec['chips']}, collectives {coll}")
+        emit(phase="roofline-mesh-cell", arch=arch, shape=shape_name,
+             mesh=name, chips=rec["chips"], rank=rec["rank"],
+             per_rank_gb=row["per_device_gb"], fits_80gb=row["fits_80gb"],
+             compute_s=row["compute_s"], memory_s=row["memory_s"],
+             collective_s=row["collective_s"], dominant=row["dominant"],
+             collective_gb={op: coll[op] / 1e9 for op in COLLECTIVE_OPS
+                            if coll[op]},
+             collective_n={op: coll["n_" + op] for op in COLLECTIVE_OPS
+                           if coll[op]},
+             source=rec["note"])
+    mesh_held = []
+    for arch, kind, b, s in MESH_HOLDS:
+        dry = roofline._load(f"{arch}_{kind}_{b}x{s}_"
+                             f"{mesh_name((1, 1, 1))}", tmp)
+        card = (mesh_counts or {}).get((arch, kind))
+        check(dry is not None and card is not None,
+              f"roofline: no (1, 1, 1) count of {arch} {kind}")
+        for key in ("cost", "kernels", "collectives"):
+            check(card[key] == dry[key], f"roofline {arch} {kind} (1, 1, 1)"
+                  f": {key} on the card {card[key]} against the per-rank "
+                  f"dry run {dry[key]}")
+        check(dry["collectives"]["raw_total"] == 0,
+              f"roofline {arch} {kind} (1, 1, 1): collectives "
+              f"{dry['collectives']}")
+        mesh_held.append({"arch": arch, "kind": kind, "batch": b, "seq": s,
+                          "flops": dry["cost"]["flops"],
+                          "bytes": dry["cost"]["bytes accessed"],
+                          "kernels": dry["kernels"]})
+    emit(phase="roofline-mesh-held", checks=mesh_held,
+         counted="train: one more step of phase train-mesh's auto Trainer; "
+                 "prefill and decode: phase lm-mesh's steps",
+         source="dry run: --mesh-shape 1,1,1 --grad-accum 1 on meta")
     meta = {(arch, kind): roofline._load(
         f"{arch}_{kind}_{b}x{s}_{DEVICE}", tmp)
         for arch, kind, b, s in ROOFLINE_CHECKS}
@@ -4839,6 +5051,10 @@ def main() -> int:
     emit(phase="build-kernels", kernels=hopper,
          source="build.log of the library (nvcc -Xptxas -v)")
     dryrun = roofline_start()       # host work, joined by phase roofline
+    gloo_jobs = {                   # host work, joined by their phases
+        "moe": gloo_start("moe_gloo", 2, ("moe",), 120),
+        "sharded": gloo_start("gloo", SHARDED_GLOO_WORLD,
+                              SHARDED_GLOO_CASES, 240)}
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev)
@@ -5229,6 +5445,10 @@ def main() -> int:
     tinyllama = lm_phases(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_counts, mesh_launches = lm_mesh_phase(torch, dev,
+                                               tinyllama["tokens"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 10-14. the sub-quadratic LMs and the last three kernels -------------
     entry = ssm_kernel_phase(torch, dev)
@@ -5238,7 +5458,7 @@ def main() -> int:
         gc.collect()                 # free each model before the next one
         torch.cuda.empty_cache()
     # -- 13b. the MoE, VLM and enc-dec serving paths ------------------------
-    families = family_phases(torch, dev)
+    families = family_phases(torch, dev, gloo_jobs["moe"])
     totals = ssm_timings_phase(torch, dev, [r["timings"] for r in lms])
     # flash_attention: the sums over one call at each main-path shape
     # (TinyLlama's prefill, the hybrid's shared block), as the sort rows sum
@@ -5252,6 +5472,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:93",
         "launches": (tinyllama["launches"]
+                     + mesh_launches["flash_attention"]
                      + sum(r["launches"]["flash_attention"]
                            for r in lms + families)),
         "max_abs_err": max([tinyllama["max_abs_err"]]
@@ -5268,12 +5489,14 @@ def main() -> int:
         # the float32 route's time at the same shapes beside its bound at
         # the CUDA-core rate
         "launches_by_route": {
-            r: tinyllama["routes"][r] + sum(x["routes"][r]
-                                            for x in lms + families)
+            r: (tinyllama["routes"][r]
+                + mesh_launches.get(f"flash_attention.{r}", 0)
+                + sum(x["routes"][r] for x in lms + families))
             for r in ("wgmma", "cuda_core")},
         # each serving path's main run: one prefill (none in decode)
         "launches_by_path": {
             LM_ARCH: tinyllama["launches"],
+            f"{LM_ARCH} (1, 1, 1) mesh": mesh_launches["flash_attention"],
             **{arch: r["launches"]["flash_attention"]
                for (arch, _), r in zip(SSM_ARCHS, lms)},
             **{p["timings"]["arch"]: p["launches"]["flash_attention"]
@@ -5341,7 +5564,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sharded = sharded_phase(torch, dev, ops, engine)
-    sharded_gloo_phase()
+    sharded_gloo_phase(gloo_jobs["sharded"])
     emit(phase="sharded-summary", seconds=time.perf_counter() - t0,
          launches_by_path=sharded)
     by_path.update(sharded)
@@ -5369,9 +5592,11 @@ def main() -> int:
         train_gloo_stop(gloo)
     families_train_phase(torch, dev)
     # -- 36. the assigned shape cells and the roofline --------------------
+    mesh_counts["zamba2-1.2b", "train"] = meshed["counted"]
     roofline_phase(torch, dev, dryrun, {
         "tinyllama-1.1b": tinyllama["prefill_ms"],
-        "zamba2-1.2b": trained["timing"]["median_step_ms_3_to_8"]})
+        "zamba2-1.2b": trained["timing"]["median_step_ms_3_to_8"]},
+        mesh_counts)
     emit(phase="train-summary", seconds=time.perf_counter() - t0,
          parity=parity, launches=trained["launches"],
          mesh_launches=meshed["launches"],

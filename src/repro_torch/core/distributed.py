@@ -32,16 +32,39 @@ group) on that rank's tensors: ``lax.all_to_all(tiled=True)`` becomes
 ``axis_index`` the rank within the group.  Boolean tensors cross the wire
 as ``uint8``.  The caller starts the process group.  At world size 1 every
 function degenerates to the local operation.
+
+This module is the package's one door to ``torch.distributed``'s
+collectives (:func:`all_reduce_`, :func:`all_gather_into`,
+:func:`reduce_scatter_into`, :func:`all_to_all_into`, :func:`permute`):
+each runs inside every active counter's ``collective(op, nbytes)``
+context, a ``TorchDispatchMode`` on the dispatch stack with that method
+(:class:`repro_torch.launch.dryrun.Counter`), as
+:func:`repro_torch.kernels.ops.counted` reports kernel calls.  ``op`` is
+one of XLA's names (:data:`COLLECTIVE_OPS`) and ``nbytes`` the bytes of
+the result on this rank, the JAX dry run's convention; the counter keeps
+the aten ops a backend runs inside the call (gloo copies a result on
+``wait``) out of its counts.  A collective over a group of one rank moves
+nothing and reports ``nbytes`` None, so the count is the same on any
+backend (gloo, NCCL, or the stand-in group of
+:func:`repro_torch.launch.mesh.stand_in_mesh`, on which the door counts
+and makes no call).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
 from .._tree import tree_map
 from .mrmodel import _SPILL
+
+#: the collectives by the names XLA's HLO gives them
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                  "collective-permute")
 
 # the names newer releases give reduce_scatter_tensor and
 # all_gather_into_tensor (same signatures)
@@ -55,26 +78,107 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
+# ---------------------------------------------------------------------------
+# The door: every collective of the package, counted
+# ---------------------------------------------------------------------------
+
+def _moves(group) -> bool:
+    """Whether a collective over ``group`` moves data: not on the
+    stand-in process group (:func:`repro_torch.launch.mesh.stand_in_mesh`),
+    whose collectives return at once; the door counts them all the same
+    and skips the call (the dry run's ranks make tens of thousands)."""
+    return dist.get_backend(group) != "fake"
+
+
+def _counted(op: str, result: torch.Tensor, group):
+    """The context of one collective ``op`` whose result is ``result``:
+    each active counter's ``collective(op, nbytes)``, ``nbytes`` None
+    over a group of one rank."""
+    stack = contextlib.ExitStack()
+    nbytes = (None if dist.get_world_size(group) == 1
+              else result.numel() * result.element_size())
+    for mode in _get_current_dispatch_mode_stack():
+        hook = getattr(mode, "collective", None)
+        if hook is not None:
+            stack.enter_context(hook(op, nbytes))
+    return stack
+
+
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
+                group=None) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (``t`` contiguous)."""
+    with _counted("all-reduce", t, group):
+        if _moves(group):
+            dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor,
+                    group=None) -> torch.Tensor:
+    """Every rank's ``x`` into ``out`` along the leading axis, in rank
+    order."""
+    with _counted("all-gather", out, group):
+        if _moves(group):
+            _all_gather(_wire(out), _wire(x), group=group)
+    return out
+
+
+def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor,
+                        group=None) -> torch.Tensor:
+    """The group's SUM of ``x``, rank i's block of the leading axis into
+    ``out``."""
+    with _counted("reduce-scatter", out, group):
+        if _moves(group):
+            _reduce_scatter(out, x, group=group)
+    return out
+
+
+def all_to_all_into(recv: torch.Tensor, send: torch.Tensor,
+                    group=None) -> torch.Tensor:
+    """Block j of ``send`` to rank j; block i of ``recv`` from rank i."""
+    with _counted("all-to-all", recv, group):
+        if _moves(group):
+            dist.all_to_all_single(_wire(recv), _wire(send), group=group)
+    return recv
+
+
+def permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """``x`` sent to group rank r + ``shift`` (mod the group's size); the
+    result is what rank r - ``shift`` sent (``lax.ppermute``)."""
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with _counted("collective-permute", out, group):
+        if not _moves(group):
+            return out
+        ops = [dist.P2POp(dist.isend, x,
+                          dist.get_global_rank(group, (r + shift) % n),
+                          group),
+               dist.P2POp(dist.irecv, out,
+                          dist.get_global_rank(group, (r - shift) % n),
+                          group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
 def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     send = send.contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(_wire(recv), _wire(send), group=group)
-    return recv
+    return all_to_all_into(torch.empty_like(send), send, group)
 
 
 def _all_gather_plain(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
                       + tuple(x.shape[1:]))
-    _all_gather(_wire(out), _wire(x), group=group)
-    return out
+    return all_gather_into(out, x, group)
 
 
 def _all_reduce_plain(x: torch.Tensor, op, group) -> torch.Tensor:
     # NCCL takes contiguous tensors only (a gradient may arrive strided)
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=group)
-    return out
+    return all_reduce_(out, op, group)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -165,8 +269,7 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
                       + tuple(x.shape[1:]))
-    _reduce_scatter(out, x, group=group)
-    return out
+    return reduce_scatter_into(out, x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +517,11 @@ def funnel_allreduce(x: torch.Tensor, inner_group,
     if x.shape[scatter_dim] % k != 0:
         y = all_reduce(x, group=inner_group)
         if outer_group is not None:
-            dist.all_reduce(y, group=outer_group)
+            all_reduce_(y, group=outer_group)
         return y
     shard = reduce_scatter(x.movedim(scatter_dim, 0), inner_group)
     if outer_group is not None:
-        dist.all_reduce(shard, group=outer_group)
+        all_reduce_(shard, group=outer_group)
     return all_gather(shard, inner_group).movedim(0, scatter_dim)
 
 
@@ -516,5 +619,7 @@ __all__ = [
     "softmax_merge_axis", "ShardedSortOut", "sharded_sample_sort",
     "all_to_all", "all_gather", "all_reduce", "reduce_scatter",
     "copy_to_region", "reduce_from_region", "gather_from_region",
-    "gather_along", "scale_grad", "fsdp_gather",
+    "gather_along", "scale_grad", "fsdp_gather", "COLLECTIVE_OPS",
+    "all_reduce_", "all_gather_into", "reduce_scatter_into",
+    "all_to_all_into", "permute",
 ]

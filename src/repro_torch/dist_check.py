@@ -22,7 +22,7 @@ The training cases run the mesh ``Trainer`` (:mod:`repro_torch.train.zero`)
 on ``DeviceMesh``es over the ranks.  ``train``: every layout of
 ``TRAIN_MESHES[world]`` for each of ``TRAIN_ARCHS``, the MoE configs'
 layouts of ``MOE_TRAIN`` and the other families' of ``FAMILY_TRAIN``,
-five steps in ``"auto"`` mode, the ``"compressed"`` pod hop where the
+three steps in ``"auto"`` mode, the ``"compressed"`` pod hop where the
 layout has two pods, and AdamW / Adafactor ZeRO state where a layout
 shards it; rank 0 also trains without a mesh (variant ``single``) and
 holds every mesh run to it within ``TRAIN_TOL`` (``GRAD_HELD`` configs
@@ -40,6 +40,16 @@ where nothing drops) against the ``einsum`` dispatch's.  These cases
 check themselves on every rank (``check``), ``--check`` or not.
 ``train-drift`` holds nothing: it writes where a mesh run's params end
 furthest from one device's, and that element's gradients.
+``mesh-serve``: the sharded prefill and one decode step
+(:class:`repro_torch.serve.mesh.MeshServe`) of each of ``SERVE_CASES``, in
+each of the decode state's three layouts, from the ``--keys`` params
+(``serve/<arch>/<leaf index>``, the JAX init) on ``serve_tokens``; each
+rank writes its rows of the logits (variant ``per-rank``).
+``mesh-count``: the dry run's counter
+(:class:`repro_torch.launch.dryrun.Counter`) over each of ``COUNT_CASES``'
+steps run for real on the rank (:func:`repro_torch.launch.dryrun.
+mesh_cell_inputs`), written as JSON (``#record``, variant ``per-rank``),
+for the tests to hold against the per-rank dry run of that layout.
 
 Nothing here imports JAX.  The plan families are written once for either
 package's ``core`` module (``m``) and array module (``xp``), so the tests
@@ -76,7 +86,7 @@ from .obs import Tracer
 
 CASES = ("shuffle", "rounds", "plans", "collectives", "elastic", "tracer",
          "errors", "moe", "train", "elastic-train", "pipeline", "moe-grad",
-         "train-drift")
+         "train-drift", "mesh-serve", "mesh-count")
 #: the plan families run on the kernel scatter as well
 KERNEL_FAMILIES = ("sort", "hull2d")
 SEED = 5
@@ -528,7 +538,7 @@ FAMILY_TRAIN = {arch: ({}, {4: ((1, 2, 2), (1, 1, 4))})
 #: every loss and the whole tree to the JAX trainer
 GRAD_HELD = ("rwkv6-1.6b",)
 GRAD_TOL = 2e-4
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
 #: mesh against single-device runs: losses and params, relative to each
 #: leaf's largest magnitude (the sums are taken in another order)
 TRAIN_TOL = 1e-5
@@ -960,6 +970,75 @@ def check(cond, what: str) -> None:
 # ---------------------------------------------------------------------------
 # Ranks and the launcher
 # ---------------------------------------------------------------------------
+
+#: (arch, mesh shape, batch): the sharded serving cases, one a layout of
+#: the decode state: KV heads over "model", the head dimension over
+#: "model" (one KV head), the sequence over "data" (B = 1)
+SERVE_CASES = (("qwen1.5-0.5b", (1, 1, 4), 4),
+               ("tinyllama-1.1b", (1, 1, 4), 4),
+               ("zamba2-1.2b", (1, 4, 1), 1))
+SERVE_PROMPT, SERVE_MAX_LEN = 8, 16
+#: (arch, config overrides, shape (name, seq, batch, kind), mesh shape):
+#: the counted steps, a training step of two microbatches, a prefill and
+#: a decode step over both "data" and "model"
+COUNT_CASES = (
+    ("qwen1.5-0.5b", {"grad_accum": 2}, ("train", 16, 8, "train"),
+     (1, 2, 2)),
+    ("qwen1.5-0.5b", {}, ("prefill", 16, 4, "prefill"), (1, 2, 2)),
+    ("zamba2-1.2b", {}, ("decode", 32, 1, "decode"), (1, 2, 2)))
+
+
+def serve_tokens(arch: str, batch: int) -> np.ndarray:
+    """The serving cases' prompt (batch, SERVE_PROMPT) int32."""
+    from .configs import get_config
+    vocab = get_config(arch, reduced=True).vocab_size
+    return np.random.default_rng(7).integers(
+        0, vocab, (batch, SERVE_PROMPT)).astype(np.int32)
+
+
+def case_mesh_serve(res: Results, rank: int, keys) -> None:
+    from ._tree import tree_flatten, tree_unflatten
+    from .configs import get_config
+    from .launch.mesh import make_host_mesh
+    from .models import build_model, model_class
+    from .serve.mesh import MeshServe
+    for arch, shape, batch in SERVE_CASES:
+        cfg = get_config(arch, reduced=True)
+        struct = tree_flatten(build_model(cfg, device="meta")
+                              .param_tree())[1]
+        n = sum(1 for k in keys if k.startswith(f"serve/{arch}/"))
+        params = tree_unflatten(struct, [torch.from_numpy(
+            keys[f"serve/{arch}/{i}"]) for i in range(n)])
+        model = model_class(cfg)(cfg, params)
+        serve = MeshServe(model, make_host_mesh(shape, ("pod", "data",
+                                                        "model")),
+                          batch, SERVE_MAX_LEN)
+        tokens = serve.rows(torch.from_numpy(serve_tokens(arch, batch)))
+        logits, state = serve.prefill(tokens, SERVE_MAX_LEN)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        step, _ = serve.decode_step(tok, state)
+        tag = f"serve-{arch}-{'x'.join(map(str, shape))}"
+        res.put(tag, "per-rank", (logits, step))
+
+
+def case_mesh_count(res: Results, rank: int, keys) -> None:
+    import json
+    from .configs import ShapeConfig, get_config
+    from .launch import dryrun
+    from .launch.mesh import make_host_mesh
+    from .models.sharding import config_rules
+    for arch, over, shape, mesh_shape in COUNT_CASES:
+        cfg = get_config(arch, reduced=True, **over)
+        shape = ShapeConfig(*shape)
+        mesh = make_host_mesh(mesh_shape, ("pod", "data", "model"))
+        with config_rules(cfg):
+            model, step, args = dryrun.mesh_cell_inputs(cfg, shape, mesh,
+                                                        "cpu", seed=3)
+            rec = dryrun.record(cfg, shape, dryrun.count(model, step, args))
+        tag = f"count-{arch}-{shape.kind}"
+        res.meta(tag, "per-rank", record=json.dumps(
+            {k: rec[k] for k in ("cost", "kernels", "collectives")}))
+
 
 def run_rank(rank: int, world: int, out_dir: Path, cases, keys) -> None:
     torch.set_num_threads(1)

@@ -27,10 +27,11 @@ import torch
 from ..configs.base import ArchConfig
 from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      apply_mlp, apply_norm, attention_decode,
-                     attention_prefill, cdtype, cross_attention,
-                     init_attention, init_cross_kv, init_embed, init_lm_head,
-                     init_mlp, init_norm)
-from .transformer import _LM
+                     attention_prefill, cdtype, cross_attention, cross_decode,
+                     cross_kv_all, init_attention, init_cross_kv, init_embed,
+                     init_lm_head, init_mlp, init_norm, model_part,
+                     write_prompt)
+from .transformer import _LM, whole_vocab
 
 LN = "layernorm"
 
@@ -189,28 +190,32 @@ class EncDecLM(_LM):
         decode state with the prompt's K/V in slots 0..S-1 of ``max_len``
         and every layer's cross K/V of the F frames)."""
         cfg = self.cfg
-        P, _ = self.compute_params()
+        P, _ = self.serve_params()
+        P = dict(P, **self._use({k: v for k, v in P.items()
+                                 if k not in ("enc", "dec")}))
         enc_out = self._encode(P, frames)
         tokens, max_len = self._prompt(tokens, max_len)
         b, s = tokens.shape
         x = self._embed(P, tokens)
         positions = torch.arange(s, device=self.device).expand(b, s)
         f = enc_out.shape[1]
-        state = self.init_decode_state(b, max_len)
+        state = self._new_state(b, max_len)
         if state.cross_k.shape[2] != f:       # frames other than n_frames
             shape = (cfg.n_layers, b, f, cfg.n_kv_heads, cfg.hd)
             state = state._replace(cross_k=state.cross_k.new_zeros(shape),
                                    cross_v=state.cross_v.new_zeros(shape))
+        lay, lay_x = (self._state_layout(n) for n in ("self_k", "cross_k"))
         for i, lp in enumerate(P["dec"]):
+            lp = self._use(lp)
             z = _ln(lp["attn_norm"], cfg, x)
             h, (k, v) = attention_prefill(lp["attn"], cfg, z, positions)
-            state.self_k[i, :, :s] = k
-            state.self_v[i, :, :s] = v
-            kx, vx = init_cross_kv(lp["xattn"], cfg, enc_out)
-            state.cross_k[i] = kx
-            state.cross_v[i] = vx
-            x = _dec_tail(lp, cfg, x + h, kx, vx)
-        logits = self._logits(P, x[:, -1:])[:, 0]
+            write_prompt(state.self_k[i], k, lay)
+            write_prompt(state.self_v[i], v, lay)
+            (kx, vx), heads = cross_kv_all(lp["xattn"], cfg, enc_out)
+            state.cross_k[i] = model_part(kx, lay_x)
+            state.cross_v[i] = model_part(vx, lay_x)
+            x = _dec_tail(lp, cfg, x + h, *heads)
+        logits = whole_vocab(self._logits(P, x[:, -1:]))[:, 0]
         return logits, state._replace(pos=self._pos(b, s))
 
     @torch.no_grad()
@@ -219,13 +224,22 @@ class EncDecLM(_LM):
         """tok (B,) -> (logits (B, V), the next state); the token's
         sinusoidal position is ``state.pos``."""
         cfg = self.cfg
-        P, _ = self.compute_params()
+        P, _ = self.serve_params()
+        P = dict(P, **self._use({k: v for k, v in P.items()
+                                 if k not in ("enc", "dec")}))
         tok = torch.as_tensor(tok, device=self.device)
         x = apply_embed(P["embed"], cfg, tok[:, None])
         x = x + _sinusoid_at(state.pos, cfg.d_model)[:, None].to(x.dtype)
+        lay, lay_x = (self._state_layout(n) for n in ("self_k", "cross_k"))
         for i, lp in enumerate(P["dec"]):
+            lp = self._use(lp)
             z = _ln(lp["attn_norm"], cfg, x)
             h, _, _ = attention_decode(lp["attn"], cfg, z, state.self_k[i],
-                                       state.self_v[i], state.pos)
-            x = _dec_tail(lp, cfg, x + h, state.cross_k[i], state.cross_v[i])
-        return self._logits(P, x)[:, 0], state._replace(pos=state.pos + 1)
+                                       state.self_v[i], state.pos, lay)
+            x = x + h
+            x = x + cross_decode(lp["xattn"], cfg,
+                                 _ln(lp["xattn_norm"], cfg, x),
+                                 state.cross_k[i], state.cross_v[i], lay_x)
+            x = x + apply_mlp(lp["mlp"], cfg, _ln(lp["mlp_norm"], cfg, x))
+        return (whole_vocab(self._logits(P, x))[:, 0],
+                state._replace(pos=state.pos + 1))

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..core.distributed import all_reduce
+from ..core.distributed import AttnPartial, all_reduce, softmax_merge_axis
 from ..kernels import ops as kops
 from . import sharding
 
@@ -169,7 +169,7 @@ def init_embed(gen, cfg: ArchConfig) -> Params:
 
 def apply_embed(p: Params, cfg: ArchConfig, ids: torch.Tensor) -> torch.Tensor:
     table = p["table"].to(cdtype(cfg))
-    tp = sharding.tp_split(table, 0, cfg.padded_vocab)
+    tp = sharding.tp_split(table, 0)
     if tp is None:
         return table[ids.long()]
     # vocab-parallel: the rows of the rank's slice, zero elsewhere, summed
@@ -190,10 +190,12 @@ def apply_lm_head(p: Optional[Params], cfg: ArchConfig, x: torch.Tensor,
     """Logits over ``padded_vocab``, the padding tail masked to -1e30 (so a
     softmax or argmax sees exactly the real vocabulary)."""
     if cfg.tie_embeddings and embed is not None:
+        tp = sharding.tp_split(embed["table"], 0)
         w = embed["table"].to(cdtype(cfg)).T
     else:
         w = p["w"].to(cdtype(cfg))
-    tp, first = sharding.tp_split(w, -1, cfg.padded_vocab), 0
+        tp = sharding.tp_split(w, -1)
+    first = 0
     if tp is not None:
         # vocab-parallel: the rank's slice of the logits
         x, first = tp.copy(x), tp.rank * w.shape[-1]
@@ -202,6 +204,8 @@ def apply_lm_head(p: Optional[Params], cfg: ArchConfig, x: torch.Tensor,
         pad = torch.arange(first, first + logits.shape[-1],
                            device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
+    if tp is not None:
+        logits.tp_dim = logits.ndim - 1    # the rank's vocabulary slice
     return logits
 
 
@@ -225,7 +229,7 @@ def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     all-reduce; ``b_up`` sliced to the columns, ``b_down`` after the
     sum)."""
     dt = cdtype(cfg)
-    tp = sharding.tp_split(p["w_down"], 0, cfg.d_ff)
+    tp = sharding.tp_split(p["w_down"], 0)
     b_up = p.get("b_up")
     if tp is not None:
         x = tp.copy(x)
@@ -451,7 +455,7 @@ def apply_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """Training self-attention over the full sequence: y (b, s, d); over
     a ``"model"`` axis on the rank's heads."""
     b, s, _ = x.shape
-    tp = sharding.tp_split(p["wo"], 0, cfg.n_heads * cfg.hd)
+    tp = sharding.tp_split(p["wo"], 0)
     if tp is not None:
         hs = _tp_heads(p, cfg, tp)
         x = tp.copy(x)
@@ -464,10 +468,219 @@ def apply_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
 
 
+# ---------------------------------------------------- serving on a mesh
+# Prefill and decode in a mesh step (an active ShardRun): the weights are
+# the rank's blocks where "model" splits them, the decode state is the
+# rank's part in the layout of launch.specs.mesh_decode_state_specs (KV
+# heads, or else the head dimension, over "model"; the sequence over
+# "data" when the batch does not split), and the activations between the
+# layers are whole on every "model" rank.
+
+def split_dim(lay) -> Optional[int]:
+    """The dimension of a layout that ``"model"`` splits over more than
+    one rank, or None (no layout, or whole)."""
+    if lay is None or lay.model_dim is None or lay.parts[lay.model_dim] < 2:
+        return None
+    return lay.model_dim
+
+
+def model_part(t: torch.Tensor, lay) -> torch.Tensor:
+    """The rank's block of ``t`` (whole along the dimension ``lay``
+    splits over ``"model"``; the other dimensions already the rank's)."""
+    md = split_dim(lay)
+    if md is None:
+        return t
+    n = lay.local_shape[md]
+    return t.narrow(md, lay.index[md] * n, n)
+
+
+def seq_split(lay) -> bool:
+    """Whether ``lay`` (one layer's cache, (B, T, ...)) splits the
+    sequence over ``"data"``."""
+    return lay is not None and lay.parts[1] > 1
+
+
+def meshed(lay) -> bool:
+    """Whether a serving step's layer runs its mesh form: a ``"model"``
+    axis of more than one rank, or a cache layout ``lay`` whose sequence
+    is split (else the rank's rows run as on one device)."""
+    return sharding.tp() is not None or seq_split(lay)
+
+
+def write_prompt(cache: torch.Tensor, kv: torch.Tensor, lay=None) -> None:
+    """Write a prompt's K or V ``kv`` (b, s, kvh, hd; every head) at
+    positions 0..s-1 of one layer's cache (b, T, ...), the rank's part of
+    it in ``lay``: its heads or head-dimension block, and of the positions
+    only those in its slice of the sequence."""
+    kv = model_part(kv, lay)
+    if seq_split(lay):
+        t = cache.shape[1]
+        lo = lay.index[1] * t
+        kv = kv[:, lo:lo + max(0, min(t, kv.shape[1] - lo))]
+    cache[:, :kv.shape[1]] = kv
+
+
+def cols(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor,
+         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w (+ b)`` for every column of ``w``: on a ``"model"`` axis
+    that splits ``w``'s columns, the ranks' blocks gathered."""
+    dt = cdtype(cfg)
+    y = x @ w.to(dt)
+    tp = sharding.tp_split(w, -1)
+    if tp is not None:
+        y = tp.gather_out(y, -1)
+    return y if b is None else y + b.to(dt)
+
+
+def rows(cfg: ArchConfig, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``y @ w`` for ``y`` whole along its last dimension: on a
+    ``"model"`` axis that splits ``w``'s rows, the rank's block of ``y``
+    times its rows, summed over the axis."""
+    dt = cdtype(cfg)
+    tp = sharding.tp_split(w, -2)
+    if tp is None:
+        return y @ w.to(dt)
+    return tp.sum(tp.block(y, -1, w.shape[-2]) @ w.to(dt))
+
+
+def _kv_all(p: Params, cfg: ArchConfig, x: torch.Tensor,
+            positions: Optional[torch.Tensor]):
+    """K and V (b, t, kvh, hd) of every KV head of ``x``."""
+    b, t, _ = x.shape
+    k = cols(cfg, x, p["wk"], p.get("bk")).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.hd)
+    v = cols(cfg, x, p["wv"], p.get("bv")).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.hd)
+    if positions is not None and cfg.use_rope:
+        k = rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _kv_of_heads(hs: _Heads, cfg: ArchConfig, k: torch.Tensor):
+    """The K (or V) of every KV head cut to the rank's query heads: the
+    block of KV heads they read where they form whole groups, else one KV
+    head a query head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hs.q0 % g == 0 and hs.hq % g == 0:
+        return k[:, :, hs.q0 // g:(hs.q0 + hs.hq) // g]
+    pick = (hs.q0 + torch.arange(hs.hq, device=k.device)) // g
+    return k[:, :, pick]
+
+
+def _attend(cfg: ArchConfig, q: torch.Tensor, ck: torch.Tensor,
+            cv: torch.Tensor, lay, keep: Optional[torch.Tensor]):
+    """One query (b, 1, h', hd') over the rank's cache part (b, t, kvh',
+    hd') in ``lay``: the partial scores summed over ``"model"`` where it
+    splits the head dimension, the partials merged over ``"data"``
+    (:func:`repro_torch.core.distributed.softmax_merge_axis`) where it
+    splits the sequence.  ``keep`` (b, t) masks the positions.  Returns
+    (b, 1, h', hd')."""
+    b = q.shape[0]
+    hk = ck.shape[2]
+    qg = q.float().reshape(b, 1, hk, q.shape[2] // hk, q.shape[3])
+    scores = torch.einsum("bsngd,btnd->bngst", qg, ck.float())
+    if split_dim(lay) == 3:
+        scores = all_reduce(scores, group=sharding.tp().group)
+    scores = scores / math.sqrt(cfg.hd)
+    if keep is not None:
+        scores = scores.masked_fill(~keep[:, None, None, None, :], NEG_INF)
+    if seq_split(lay):
+        m = scores.amax(-1)
+        e = torch.exp(scores - m[..., None])
+        o = torch.einsum("bngst,btnd->bngsd", e, cv.float())
+        data = sharding.shard_run().groups.group("data")
+        out = softmax_merge_axis(AttnPartial(m, e.sum(-1), o), data)
+        out = out.permute(0, 3, 1, 2, 4)
+    else:
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bngst,btnd->bsngd", w, cv.float())
+    return out.reshape(b, 1, -1, out.shape[-1])
+
+
+def _attend_out(p: Params, cfg: ArchConfig, out: torch.Tensor,
+                lay) -> torch.Tensor:
+    """The output projection of one query's heads ``out`` (b, 1, h',
+    hd') in ``lay``: the rank's heads times its rows of ``wo`` where they
+    match, else every head gathered first."""
+    b, dt = out.shape[0], cdtype(cfg)
+    md = split_dim(lay)
+    tp = sharding.tp()
+    if md == 2:
+        wo_tp = sharding.tp_split(p["wo"], -2)
+        if wo_tp is not None and p["wo"].shape[0] == out.shape[2] * cfg.hd:
+            return tp.sum(out.reshape(b, 1, -1).to(dt) @ p["wo"].to(dt))
+        out = tp.gather_out(out, 2)
+    elif md == 3:
+        out = tp.gather_out(out, 3)
+    return rows(cfg, out.reshape(b, 1, -1).to(dt), p["wo"])
+
+
+def _q_part(q: torch.Tensor, cfg: ArchConfig, lay) -> torch.Tensor:
+    """The query heads (b, 1, h, hd) the rank's cache part in ``lay``
+    serves: the heads that read its KV heads, or every head's block of
+    the head dimension."""
+    md = split_dim(lay)
+    if md == 2:
+        n = q.shape[2] * lay.local_shape[2] // cfg.n_kv_heads
+        return q.narrow(2, lay.index[2] * n, n)
+    return model_part(q, lay) if md == 3 else q
+
+
+def _decode_mesh(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 pos: torch.Tensor, lay):
+    """:func:`attention_decode` in a mesh step: the new token's Q, K, V
+    for every head, its K/V written at ``pos`` by the rank whose part
+    holds that slot, attention on the rank's part (:func:`_attend`)."""
+    b = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = cols(cfg, x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
+    if cfg.use_rope:
+        q = rope(q, pos[:, None], cfg.rope_theta)
+    k, v = _kv_all(p, cfg, x, pos[:, None])
+    t = cache_k.shape[1]
+    lo = lay.index[1] * t if seq_split(lay) else 0
+    slot = pos.long().clamp(0, lay.shape[1] - 1) - lo
+    mine = ((slot >= 0) & (slot < t))[:, None, None]
+    slot = slot.clamp(0, t - 1)
+    at = torch.arange(b, device=x.device)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        new = model_part(new, lay)[:, 0].to(cache.dtype)
+        cache[at, slot] = torch.where(mine, new, cache[at, slot])
+    keep = (torch.arange(t, device=x.device)[None, :] + lo) <= pos[:, None]
+    out = _attend(cfg, _q_part(q, cfg, lay), cache_k, cache_v, lay, keep)
+    return _attend_out(p, cfg, out, lay), cache_k, cache_v
+
+
+def cross_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 kv_k: torch.Tensor, kv_v: torch.Tensor,
+                 lay=None) -> torch.Tensor:
+    """Decoder cross-attention of one token x (b, 1, d) over the cached
+    encoder K/V: :func:`cross_attention`, and in a mesh step on the
+    rank's part of the cache in ``lay``."""
+    if not meshed(lay):
+        return cross_attention(p, cfg, x, kv_k, kv_v)
+    b = x.shape[0]
+    q = cols(cfg, x, p["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+    out = _attend(cfg, _q_part(q, cfg, lay), kv_k, kv_v, lay, None)
+    return _attend_out(p, cfg, out, lay)
+
+
 def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
                       positions: torch.Tensor):
-    """Returns (y, (k, v)) — k and v in (b, s, kvh, hd)."""
+    """Returns (y, (k, v)) — k and v in (b, s, kvh, hd), every KV head;
+    over a ``"model"`` axis the attention runs on the rank's query
+    heads."""
     b, s, _ = x.shape
+    tp = sharding.tp_split(p["wo"], 0)
+    if tp is not None:
+        hs = _tp_heads(p, cfg, tp, kv=False)
+        x = tp.copy(x)
+        k, v = _kv_all(p, cfg, x, positions)
+        out = sdpa(cfg, _tp_q(hs, cfg, x, positions),
+                   _kv_of_heads(hs, cfg, k), _kv_of_heads(hs, cfg, v),
+                   causal=True)
+        return _tp_out(hs, cfg, p, out.reshape(b, s, -1), tp), (k, v)
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = sdpa(cfg, q, k, v, causal=True)
     y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
@@ -476,14 +689,19 @@ def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos: torch.Tensor):
+                     pos: torch.Tensor, lay=None):
     """One-token decode.  x: (b, 1, d); caches: (b, T_max, kvh, hd);
     pos: (b,) tokens already in the cache.
 
     Attends the new token to cache[0:pos] and itself, and writes its K/V
     at ``pos`` — **in place**, into ``cache_k`` and ``cache_v``, which are
     returned.  A position past the end writes the last slot, as JAX's
-    ``dynamic_update_slice`` clamps its start."""
+    ``dynamic_update_slice`` clamps its start.
+
+    In a mesh step the caches are the rank's part in ``lay``, one layer's
+    cache layout (:func:`_decode_mesh`)."""
+    if meshed(lay):
+        return _decode_mesh(p, cfg, x, cache_k, cache_v, pos, lay)
     b = x.shape[0]
     dt = cdtype(cfg)
     q, k, v = _project_qkv(p, cfg, x, pos[:, None])
@@ -514,7 +732,7 @@ def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     the einsum path at decode."""
     dt = cdtype(cfg)
     b, s, _ = x.shape
-    tp = sharding.tp_split(p["wo"], 0, cfg.n_heads * cfg.hd)
+    tp = sharding.tp_split(p["wo"], 0)
     if tp is not None:
         # the rank's heads; kv_k, kv_v are init_cross_kv's for them
         hs = _tp_heads(p, cfg, tp, kv=False)
@@ -526,12 +744,26 @@ def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
 
 
+def cross_kv_all(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
+    """(the cross-attention K/V of every KV head (b, t, kvh, hd), those
+    the rank's query heads read): :func:`init_cross_kv` twice over on
+    one device; over a ``"model"`` axis the first is the cache's and the
+    second :func:`cross_attention`'s."""
+    tp = sharding.tp_split(p["wo"], 0)
+    if tp is None:
+        kv = init_cross_kv(p, cfg, enc_out)
+        return kv, kv
+    k, v = _kv_all(p, cfg, tp.copy(enc_out), None)
+    hs = _tp_heads(p, cfg, tp, kv=False)
+    return (k, v), (_kv_of_heads(hs, cfg, k), _kv_of_heads(hs, cfg, v))
+
+
 def init_cross_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
     """The cross-attention K/V (b, t, kvh, hd) of the encoder output; over
     a ``"model"`` axis those the rank's query heads read."""
     dt = cdtype(cfg)
     b, t, _ = enc_out.shape
-    tp = sharding.tp_split(p["wo"], 0, cfg.n_heads * cfg.hd)
+    tp = sharding.tp_split(p["wo"], 0)
     if tp is not None:
         return _tp_kv(_tp_heads(p, cfg, tp), cfg, tp.copy(enc_out), None)
     k = (enc_out @ p["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
@@ -548,7 +780,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``mask`` the mean over the positions where it is nonzero.  Over a
     ``"model"`` axis, logits narrower than ``vocab`` are the rank's
     vocabulary slice (:func:`vocab_parallel_cross_entropy`)."""
-    tp = None if vocab is None else sharding.tp_split(logits, -1, vocab)
+    tp = None if vocab is None else sharding.tp_split(logits, -1)
     if tp is not None:
         return vocab_parallel_cross_entropy(
             logits, labels, mask, z_loss, first=tp.rank * logits.shape[-1],

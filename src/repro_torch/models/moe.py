@@ -146,7 +146,7 @@ def _add_shared(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if not cfg.shared_expert:
         return y
     dt, sp = cdtype(cfg), p["shared"]
-    tp = sharding.tp_split(sp["w_down"], 0, cfg.moe_d_ff or cfg.d_ff)
+    tp = sharding.tp_split(sp["w_down"], 0)
     if tp is not None:
         x = tp.copy(x)
     h = F.silu(x @ sp["w_gate"].to(dt)) * (x @ sp["w_up"].to(dt))
@@ -245,7 +245,7 @@ def _moe_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
     pos_oh = _one_hot(torch.where(r.keep, r.pos, r.cap), r.cap, dt)
     xg, w = r.xg.to(dt), torch.where(r.keep, r.w, 0).to(dt)
     n_loc = p["w_gate"].shape[0]
-    tp = sharding.tp_split(p["w_gate"], 0, cfg.n_experts)
+    tp = sharding.tp_split(p["w_gate"], 0)
     if tp is not None:
         onehot = tp.block(onehot, -1, n_loc)
         xg, w = tp.copy(xg), tp.copy(w)

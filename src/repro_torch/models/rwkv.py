@@ -34,7 +34,8 @@ from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from . import sharding
-from .layers import Params, _dense_init, _full, cdtype, pdtype, repeat_each
+from .layers import (Params, _dense_init, _full, cdtype, cols, meshed,
+                     model_part, pdtype, repeat_each, rows, split_dim)
 
 RWKV_HEAD = 64          # dk = dv = 64
 DECAY_LORA = 64
@@ -112,7 +113,7 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
     dt_c = cdtype(cfg)
     b, s, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
-    tp = sharding.tp_split(p["output"], -2, d)
+    tp = sharding.tp_split(p["output"], -2)
     rows = p["output"].shape[-2]
     width = d                       # the channels computed here
     if tp is not None:
@@ -220,7 +221,7 @@ def apply_rwkv_channel(p: Params, cfg: ArchConfig, x: torch.Tensor,
                        prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     dt_c = cdtype(cfg)
     b, s, d = x.shape
-    tp = sharding.tp_split(p["wv"], -2, cfg.d_ff)
+    tp = sharding.tp_split(p["wv"], -2)
     if tp is not None:
         return _channel_region(p, cfg, x, prev, tp)
     xx = _shift(x, x.new_zeros((b, d)) if prev is None else prev)
@@ -271,8 +272,15 @@ def init_rwkv_state(cfg: ArchConfig, batch: int,
 
 
 def rwkv_time_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                     state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
-    """x: (b, 1, d) one-token decode."""
+                     state: RWKVState, lay=None
+                     ) -> Tuple[torch.Tensor, RWKVState]:
+    """x: (b, 1, d) one-token decode.  In a mesh step ``state.S`` is the
+    rank's part in ``lay`` (one layer's ``S`` layout: the value dimension
+    over ``"model"``): r, k, v and the gate for every head from the
+    rank's columns with the activations gathered, the rank's value block
+    of the state and the output, gathered before the group norm."""
+    if meshed(lay):
+        return _time_decode_mesh(p, cfg, x, state, lay)
     dt_c = cdtype(cfg)
     b, _, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
@@ -295,9 +303,38 @@ def rwkv_time_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
     return y, state._replace(S=new_S, x_time=x1.float())
 
 
+def _time_decode_mesh(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                      state: RWKVState, lay) -> Tuple[torch.Tensor,
+                                                      RWKVState]:
+    dt_c = cdtype(cfg)
+    b, _, d = x.shape
+    n_heads, hd = rwkv_dims(cfg)
+    x1 = x[:, 0]
+    xr, xk, xv, xw, xg = _mixes(x1, state.x_time.to(x1.dtype),
+                                p["mu"].to(dt_c))
+    r, k, v = (cols(cfg, t, p[n]).reshape(b, n_heads, hd).float()
+               for t, n in ((xr, "receptance"), (xk, "key"), (xv, "value")))
+    g = F.silu(cols(cfg, xg, p["gate"]))
+    w = torch.exp(_decay(p, xw)).reshape(b, n_heads, hd)
+    kv = k[..., :, None] * model_part(v[..., None, :], lay)   # (b,h,k,v')
+    out = torch.einsum("bhk,bhkv->bhv", r,
+                       state.S + p["u"][None, :, :, None] * kv)
+    new_S = w[..., None] * state.S + kv
+    if split_dim(lay) is not None:
+        out = sharding.tp().gather_out(out, -1)
+    y = out.reshape(b, 1, d).to(dt_c)
+    y = _group_norm(y, p["ln_x_scale"], n_heads) * g[:, None]
+    y = rows(cfg, y[:, 0], p["output"])[:, None]
+    return y, state._replace(S=new_S, x_time=x1.float())
+
+
 def rwkv_channel_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
     dt_c = cdtype(cfg)
+    if sharding.tp() is not None:
+        # over "model": channel mixing's tensor-parallel region
+        y = apply_rwkv_channel(p, cfg, x, prev=state.x_chan.to(x.dtype))
+        return y, state._replace(x_chan=x[:, 0].float())
     x1 = x[:, 0]
     xx = state.x_chan.to(x1.dtype)
     xk, xr = _mixes(x1, xx, p["mu"].to(dt_c))

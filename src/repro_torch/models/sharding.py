@@ -113,6 +113,18 @@ def rules_for_config(cfg) -> None:
     set_rule_overrides(ov)
 
 
+@contextlib.contextmanager
+def config_rules(cfg):
+    """:func:`rules_for_config` for the block only (the JAX dry run's
+    ``param_specs`` applies them)."""
+    token = _RULE_OVERRIDES.set(())
+    try:
+        rules_for_config(cfg)
+        yield
+    finally:
+        _RULE_OVERRIDES.reset(token)
+
+
 def get_mesh():
     return _MESH.get()
 
@@ -430,7 +442,7 @@ class MeshGroups:
         ``axes``."""
         for a in self.names:
             if a in axes and self.sizes[a] > 1:
-                dist.all_reduce(t, op=op, group=self.group(a))
+                D.all_reduce_(t, op=op, group=self.group(a))
         return t
 
     def barrier(self, device) -> None:
@@ -483,12 +495,13 @@ class TensorParallel:
 
 
 class BatchAxes:
-    """The ``("pod", "data")`` ranks of a mesh step: rank ``index`` of
-    ``size`` in the global batch's row order."""
+    """The ranks a mesh step's batch splits over (``("pod", "data")`` by
+    default): rank ``index`` of ``size`` in the global batch's row
+    order."""
 
-    def __init__(self, groups: MeshGroups):
+    def __init__(self, groups: MeshGroups, axes=("pod", "data")):
         self.groups = groups
-        self.axes = tuple(a for a in ("pod", "data") if a in groups.names)
+        self.axes = tuple(a for a in axes if a in groups.names)
         self.size = groups.size(self.axes)
         self.index = 0
         for a in self.axes:
@@ -521,14 +534,28 @@ class LeafRef:
         self.layer, self.dtype = layer, dtype
 
 
+def _tagged(t: torch.Tensor, lay: TensorLayout) -> torch.Tensor:
+    """``t``, a tensor a layer computes with, marked with the dimension
+    its leaf's layout splits over more than one ``"model"`` rank (None:
+    whole): what :func:`tp_split` reads."""
+    md = lay.model_dim
+    t.tp_dim = md if md is not None and lay.parts[md] > 1 else None
+    return t
+
+
 class ShardRun:
     """What a mesh step's model reads while it runs (:func:`use_shard_run`):
     the leaves' layouts, the mesh's groups, the ``"model"`` axis (``tp``,
-    None at one rank), the batch ranks, and the sink of the FSDP gathers'
-    regions (``regions``: leaf index -> the rank's region of its
-    gradient, summed over the step's gathers)."""
+    None at one rank), the batch ranks (``batch_axes``, by default
+    ``("pod", "data")``), the sink of the FSDP gathers' regions
+    (``regions``: leaf index -> the rank's region of its gradient, summed
+    over the step's gathers), and on a serving mesh the decode state's
+    layouts (``state_layouts``: field name -> the :class:`TensorLayout` of
+    the whole stacked leaf) and ``init_state()``, the rank's part of a
+    zeroed state (both None in training)."""
 
-    def __init__(self, groups: MeshGroups, layouts):
+    def __init__(self, groups: MeshGroups, layouts,
+                 batch_axes=("pod", "data")):
         self.groups = groups
         self.layouts = list(layouts)
         m = groups.sizes.get("model", 1)
@@ -536,8 +563,10 @@ class ShardRun:
                                   groups.coord["model"]) if m > 1 else None)
         self.expert_group = (groups.group("model")
                              if "model" in groups.names else None)
-        self.batch = BatchAxes(groups)
+        self.batch = BatchAxes(groups, batch_axes)
         self.regions: Dict[int, torch.Tensor] = {}
+        self.state_layouts: Optional[Dict[str, TensorLayout]] = None
+        self.init_state: Optional[Callable[[], Any]] = None
 
     def refs(self, leaves, dtypes):
         """The flat trainable ``leaves`` as a layer takes them, each to be
@@ -549,7 +578,7 @@ class ShardRun:
             if lay.fsdp_axes():
                 out.append(LeafRef(p, lay, i, None, dt))
             else:
-                out.append(p if dt is None else p.to(dt))
+                out.append(_tagged(p if dt is None else p.to(dt), lay))
         return out
 
     def layer_refs(self, ref: LeafRef):
@@ -557,6 +586,19 @@ class ShardRun:
         lay = ref.layout.inner()
         return [LeafRef(t, lay, ref.leaf, j, ref.dtype)
                 for j, t in enumerate(ref.tensor.unbind(0))]
+
+    def layer_views(self, leaf: torch.Tensor, i: int):
+        """Per-layer views of flat leaf ``i`` (not a :class:`LeafRef`),
+        stacked on axis 0."""
+        lay = self.layouts[i].inner()
+        return [_tagged(t, lay) for t in leaf.unbind(0)]
+
+    def state_layout(self, name: str) -> Optional[TensorLayout]:
+        """The layout of one layer's entry of the decode state's stacked
+        leaf ``name`` (None off a serving mesh)."""
+        if self.state_layouts is None:
+            return None
+        return self.state_layouts[name].inner()
 
     def _sink(self, ref: LeafRef) -> Callable:
         def add(region: torch.Tensor) -> None:
@@ -576,7 +618,8 @@ class ShardRun:
             x = D.fsdp_gather(x, ref.layout.data_dim, groups,
                               axes.index("data") if "data" in axes else None,
                               self._sink(ref))
-        return x if ref.dtype is None else x.to(ref.dtype)
+        return _tagged(x if ref.dtype is None else x.to(ref.dtype),
+                       ref.layout)
 
 
 def shard_run() -> Optional[ShardRun]:
@@ -591,16 +634,20 @@ def tp() -> Optional[TensorParallel]:
     return None if run is None else run.tp
 
 
-def tp_split(w: torch.Tensor, dim: int, whole: int
-             ) -> Optional[TensorParallel]:
+def tp_split(w: torch.Tensor, dim: int) -> Optional[TensorParallel]:
     """The ``"model"`` axis (:func:`tp`) where the active mesh step gave
-    this rank a block of ``w`` along ``dim`` (of ``whole``), else None:
-    the one test by which a layer enters its tensor-parallel region.  A
-    dimension that ``validate_spec`` leaves whole keeps its ``whole``
-    size, so the block's size is the spec's split as the rank holds
-    it."""
+    this rank a block of ``w`` along ``dim``, else None: the one test by
+    which a layer enters its tensor-parallel region.  ``w`` is a tensor
+    the step handed the layer (a leaf as :class:`ShardRun` makes it, or
+    logits marked by the LM head); the test reads the dimension its
+    leaf's :class:`TensorLayout` splits over ``"model"``
+    (``model_dim``), which is None where ``validate_spec`` left the
+    leaf whole."""
     axis = tp()
-    return axis if axis is not None and w.shape[dim] < whole else None
+    if axis is None:
+        return None
+    md = getattr(w, "tp_dim", None)
+    return axis if md is not None and md == dim % w.ndim else None
 
 
 @contextlib.contextmanager

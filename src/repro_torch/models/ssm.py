@@ -31,7 +31,8 @@ from .._device import as_device
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from . import sharding
-from .layers import Params, _dense_init, _full, cdtype, pdtype, repeat_each
+from .layers import (Params, _dense_init, _full, cdtype, cols, meshed,
+                     model_part, pdtype, repeat_each, rows, split_dim)
 
 D_CONV = 4
 SSM_HEAD = 64
@@ -109,11 +110,10 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     b, s, _ = x.shape
     d_in, n_heads, d_state = ssm_dims(cfg)
     q = cfg.ssm_chunk
-    for k, dim, n in (("in_proj", -1, 2 * d_in + 2 * d_state + n_heads),
-                      ("out_proj", -2, d_in)):
+    for k, dim in (("in_proj", -1), ("out_proj", -2)):
         # over "model": the whole block on every rank, from the weights
         # gathered
-        tp = sharding.tp_split(p[k], dim, n)
+        tp = sharding.tp_split(p[k], dim)
         if tp is not None:
             p = dict(p, **{k: tp.gather_out(p[k], dim)})
     proj = x @ p["in_proj"].to(dt_c)
@@ -204,9 +204,18 @@ def init_mamba_state(cfg: ArchConfig, batch: int,
 
 
 def mamba_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                      state: MambaState) -> Tuple[torch.Tensor, MambaState]:
+                      state: MambaState, lay=None
+                      ) -> Tuple[torch.Tensor, MambaState]:
     """x: (b, 1, d) -> (y (b, 1, d), new state).  O(1) in context length.
-    The new state's conv is in the compute dtype, as in the JAX package."""
+    The new state's conv is in the compute dtype, as in the JAX package.
+
+    In a mesh step ``state.h`` is the rank's part in ``lay`` (one layer's
+    ``mamba_h`` layout: heads over ``"model"``): the projections run on
+    the rank's columns and rows of ``in_proj`` and ``out_proj`` with the
+    activations gathered, the rank's heads update their state, and their
+    outputs are gathered over ``"model"``."""
+    if meshed(lay):
+        return _decode_mesh(p, cfg, x, state, lay)
     dt_c = cdtype(cfg)
     b = x.shape[0]
     d_in, n_heads, d_state = ssm_dims(cfg)
@@ -230,3 +239,31 @@ def mamba_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     y = _gated_rmsnorm(y, z, p["norm_scale"])
     out = y @ p["out_proj"].to(dt_c)
     return out, MambaState(h=h, conv=new_conv)
+
+
+def _decode_mesh(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 state: MambaState, lay) -> Tuple[torch.Tensor, MambaState]:
+    dt_c = cdtype(cfg)
+    b = x.shape[0]
+    d_in, n_heads, d_state = ssm_dims(cfg)
+    z, xs, b_mat, c_mat, dt = _split_proj(cfg, cols(cfg, x, p["in_proj"]))
+    conv_in = torch.cat([xs, b_mat, c_mat], -1)
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"].to(dt_c),
+                                      state.conv)
+    xs = conv_out[..., :d_in]
+    b_mat = conv_out[:, 0, d_in:d_in + d_state].float()
+    c_mat = conv_out[:, 0, d_in + d_state:].float()
+    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])              # (b,h)
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)
+    x_raw = xs[:, 0].reshape(b, n_heads, SSM_HEAD).float()
+    # the rank's heads (dimension 1 of a (b, heads, ...) state)
+    a, dt_x, d_skip = (model_part(t, lay) for t in (
+        a, x_raw * dt[..., None], p["D"][None].expand(b, -1)))
+    x_mine = model_part(x_raw, lay)
+    h = a[:, :, None, None] * state.h + b_mat[:, None, :, None] * \
+        dt_x[:, :, None, :]
+    y = torch.einsum("bs,bhse->bhe", c_mat, h) + d_skip[..., None] * x_mine
+    if split_dim(lay) is not None:
+        y = sharding.tp().gather_out(y, 1)
+    y = _gated_rmsnorm(y.reshape(b, 1, d_in).to(dt_c), z, p["norm_scale"])
+    return rows(cfg, y, p["out_proj"]), MambaState(h=h, conv=new_conv)

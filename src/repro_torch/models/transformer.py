@@ -82,12 +82,13 @@ from ..configs.base import ArchConfig
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
-from .sharding import LeafRef, materialize, shard_run
+from .sharding import LeafRef, materialize, shard_run, tp
 from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      apply_mlp, apply_norm, attention_decode,
                      attention_prefill, cdtype, cross_entropy,
                      init_attention, init_embed, init_lm_head, init_mlp,
-                     init_norm, MetaSource, pdtype, randn)
+                     init_norm, MetaSource, model_part, pdtype, randn,
+                     write_prompt)
 
 class ParamNest(nn.Module):
     """A nest of parameters that indexes like the JAX params nest:
@@ -227,16 +228,40 @@ class _LM(ParamNest):
                                            for p, d in zip(leaves, dtypes)])
         else:
             tree = tree_unflatten(struct, run.refs(leaves, dtypes))
-        unbind = lambda leaf: (run.layer_refs(leaf)
-                               if isinstance(leaf, LeafRef)
-                               else leaf.unbind(0))
         if not self.STACKED:
             return tree, []
         leaves, structure = tree_flatten(tree["layers"])
-        cols = [unbind(leaf) for leaf in leaves]
+        index = tree_leaves(tree_unflatten(struct, list(range(len(dtypes))))
+                            ["layers"])
+        cols = [leaf.unbind(0) if run is None else
+                run.layer_refs(leaf) if isinstance(leaf, LeafRef) else
+                run.layer_views(leaf, i) for leaf, i in zip(leaves, index)]
         layers = [tree_unflatten(structure, [c[i] for c in cols])
                   for i in range(self.cfg.n_layers)]
         return tree, layers
+
+    def serve_params(self) -> Tuple[Params, List[Params]]:
+        """What prefill and decode compute with: :meth:`compute_params`,
+        or in a mesh step (an active ShardRun) :meth:`train_params`, the
+        rank's blocks, each layer's taken through :meth:`_use` where it
+        runs."""
+        return (self.compute_params() if shard_run() is None
+                else self.train_params())
+
+    def _new_state(self, batch_size: int, max_len: int):
+        """A zeroed decode state: :meth:`init_decode_state`, or on a
+        serving mesh the rank's part of the state the mesh serves."""
+        run = shard_run()
+        if run is None or run.state_layouts is None:
+            return self.init_decode_state(batch_size, max_len)
+        return run.init_state()
+
+    @staticmethod
+    def _state_layout(name: str):
+        """One layer's layout of the decode state's leaf ``name`` on a
+        serving mesh, else None."""
+        run = shard_run()
+        return None if run is None else run.state_layout(name)
 
     @staticmethod
     def _use(tree):
@@ -313,9 +338,9 @@ def _block_prefill(p, cfg, x, positions):
     return x, kv
 
 
-def _block_decode(p, cfg, x, ck, cv, pos):
+def _block_decode(p, cfg, x, ck, cv, pos, lay=None):
     z = apply_norm(p["attn_norm"], cfg, x)
-    h, ck, cv = attention_decode(p["attn"], cfg, z, ck, cv, pos)
+    h, ck, cv = attention_decode(p["attn"], cfg, z, ck, cv, pos, lay)
     x = x + h
     x = x + _ffn(p, cfg, apply_norm(p["mlp_norm"], cfg, x))[0]
     return x, ck, cv
@@ -385,7 +410,7 @@ class DecoderLM(_LM):
         return apply_lm_head(P.get("lm_head"), self.cfg, x, embed=P["embed"])
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
-        return self._head(P, x)[:, 0]
+        return whole_vocab(self._head(P, x))[:, 0]
 
     def _embed_inputs(self, P: Params, tokens: torch.Tensor,
                       patch_embeds) -> torch.Tensor:
@@ -434,17 +459,19 @@ class DecoderLM(_LM):
         VLM takes ``patch_embeds`` (B, n_patches, d) too: they fill the
         first n_patches slots and the prompt the S after them."""
         cfg = self.cfg
-        P, layers = self.compute_params()
+        P, layers = self.serve_params()
+        P = self._use({k: v for k, v in P.items() if k != "layers"})
         n_pre = 0 if patch_embeds is None else patch_embeds.shape[1]
         tokens, max_len = self._prompt(tokens, max_len, n_pre)
         x = self._embed_inputs(P, tokens, patch_embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
-        state = self.init_decode_state(b, max_len)
+        state = self._new_state(b, max_len)
+        lay = self._state_layout("k")
         for i, lp in enumerate(layers):
-            x, (k, v) = _block_prefill(lp, cfg, x, positions)
-            state.k[i, :, :s] = k
-            state.v[i, :, :s] = v
+            x, (k, v) = _block_prefill(self._use(lp), cfg, x, positions)
+            write_prompt(state.k[i], k, lay)
+            write_prompt(state.v[i], v, lay)
         logits = self._logits(P, x[:, -1:])
         return logits, state._replace(pos=self._pos(b, s))
 
@@ -453,12 +480,14 @@ class DecoderLM(_LM):
                     ) -> Tuple[torch.Tensor, KVDecodeState]:
         """tok (B,) -> (logits (B, V), the next state)."""
         cfg = self.cfg
-        P, layers = self.compute_params()
+        P, layers = self.serve_params()
+        P = self._use({k: v for k, v in P.items() if k != "layers"})
         tok = torch.as_tensor(tok, device=self.device)
         x = apply_embed(P["embed"], cfg, tok[:, None])
+        lay = self._state_layout("k")
         for i, lp in enumerate(layers):
-            x, _, _ = _block_decode(lp, cfg, x, state.k[i], state.v[i],
-                                    state.pos)
+            x, _, _ = _block_decode(self._use(lp), cfg, x, state.k[i],
+                                    state.v[i], state.pos, lay)
         return self._logits(P, x), state._replace(pos=state.pos + 1)
 
 
@@ -532,7 +561,7 @@ class HybridLM(_LM):
         return apply_lm_head(P["lm_head"], self.cfg, x)
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
-        return self._head(P, x)[:, 0]
+        return whole_vocab(self._head(P, x))[:, 0]
 
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"ce": loss}) of the JAX hybrid ``loss_fn``: each layer,
@@ -573,27 +602,33 @@ class HybridLM(_LM):
         state: each layer's Mamba2 state after the prompt, and each shared
         invocation's K/V in slots 0..S-1 of ``max_len``)."""
         cfg = self.cfg
-        P, layers = self.compute_params()
+        P, layers = self.serve_params()
+        shared_refs, shared_at = P["shared"], _shared_positions(cfg)
+        P = self._use({k: v for k, v in P.items()
+                       if k not in ("layers", "shared")})
         tokens, max_len = self._prompt(tokens, max_len)
         b, s = tokens.shape
         x = apply_embed(P["embed"], cfg, tokens)
         positions = torch.arange(s, device=self.device).expand(b, s)
-        state = self.init_decode_state(b, max_len)
-        sp, shared_at = P["shared"], _shared_positions(cfg)
+        state = self._new_state(b, max_len)
+        lay_kv, lay_h = (self._state_layout(n)
+                         for n in ("shared_k", "mamba_h"))
         inv = 0
         for i, lp in enumerate(layers):
+            lp = self._use(lp)
             if i in shared_at:
+                sp = self._use(shared_refs)
                 z = apply_norm(sp["attn_norm"], cfg, x)
                 h, (k, v) = attention_prefill(sp["attn"], cfg, z, positions)
-                state.shared_k[inv, :, :s] = k
-                state.shared_v[inv, :, :s] = v
+                write_prompt(state.shared_k[inv], k, lay_kv)
+                write_prompt(state.shared_v[inv], v, lay_kv)
                 inv += 1
                 x = _shared_block_tail(sp, cfg, x, h)
             y, ms = ssm_mod.apply_mamba(lp["mamba"], cfg,
                                         apply_norm(lp["norm"], cfg, x),
                                         return_state=True)
             x = x + y
-            state.mamba_h[i] = ms.h
+            state.mamba_h[i] = model_part(ms.h, lay_h)
             state.mamba_conv[i] = ms.conv
         return self._logits(P, x[:, -1:]), state._replace(pos=self._pos(b, s))
 
@@ -602,23 +637,30 @@ class HybridLM(_LM):
                     ) -> Tuple[torch.Tensor, HybridDecodeState]:
         """tok (B,) -> (logits (B, V), the next state)."""
         cfg = self.cfg
-        P, layers = self.compute_params()
+        P, layers = self.serve_params()
+        shared_refs, shared_at = P["shared"], _shared_positions(cfg)
+        P = self._use({k: v for k, v in P.items()
+                       if k not in ("layers", "shared")})
         tok = torch.as_tensor(tok, device=self.device)
         x = apply_embed(P["embed"], cfg, tok[:, None])
-        sp, shared_at = P["shared"], _shared_positions(cfg)
+        lay_kv, lay_h = (self._state_layout(n)
+                         for n in ("shared_k", "mamba_h"))
         inv = 0
         for i, lp in enumerate(layers):
+            lp = self._use(lp)
             if i in shared_at:
+                sp = self._use(shared_refs)
                 z = apply_norm(sp["attn_norm"], cfg, x)
                 h, _, _ = attention_decode(sp["attn"], cfg, z,
                                            state.shared_k[inv],
-                                           state.shared_v[inv], state.pos)
+                                           state.shared_v[inv], state.pos,
+                                           lay_kv)
                 inv += 1
                 x = _shared_block_tail(sp, cfg, x, h)
             y, ms = ssm_mod.mamba_decode_step(
                 lp["mamba"], cfg, apply_norm(lp["norm"], cfg, x),
                 ssm_mod.MambaState(h=state.mamba_h[i],
-                                   conv=state.mamba_conv[i]))
+                                   conv=state.mamba_conv[i]), lay_h)
             x = x + y
             state.mamba_h[i] = ms.h
             state.mamba_conv[i] = ms.conv
@@ -676,7 +718,7 @@ class RWKVLM(_LM):
         return apply_lm_head(P["lm_head"], self.cfg, x)
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
-        return self._head(P, x)[:, 0]
+        return whole_vocab(self._head(P, x))[:, 0]
 
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"ce": loss}) of the JAX RWKV6 ``loss_fn``: time mixing
@@ -710,20 +752,25 @@ class RWKVLM(_LM):
         """tokens (B, S) -> (logits of the last position (B, V), the decode
         state after the prompt).  ``max_len`` is checked, not used."""
         cfg = self.cfg
-        P, layers = self.compute_params()
+        P, layers = self.serve_params()
+        P = self._use({k: v for k, v in P.items() if k != "layers"})
         tokens, _ = self._prompt(tokens, max_len)
         b, s = tokens.shape
         x = apply_embed(P["embed"], cfg, tokens)
-        state = self.init_decode_state(b)
+        state = self._new_state(b, max_len)
+        lay = self._state_layout("S")
         chunk = min(cfg.ssm_chunk, 64)
         for i, lp in enumerate(layers):
+            lp = self._use(lp)
             z = apply_norm(lp["ln1"], cfg, x, kind="layernorm")
             y, (S, x_last) = rwkv_mod.apply_rwkv_time(
                 lp["time"], cfg, z, chunk=chunk, return_state=True)
             x = x + y
             z2 = apply_norm(lp["ln2"], cfg, x, kind="layernorm")
             x = x + rwkv_mod.apply_rwkv_channel(lp["chan"], cfg, z2)
-            state.S[i] = S
+            if S.shape[1] < cfg.d_model // rwkv_mod.RWKV_HEAD:
+                S = tp().gather_out(S, 1)       # the rank's heads: all
+            state.S[i] = model_part(S, lay)
             state.x_time[i] = x_last
             state.x_chan[i] = z2[:, -1]
         return self._logits(P, x[:, -1:]), state._replace(pos=self._pos(b, s))
@@ -733,14 +780,17 @@ class RWKVLM(_LM):
                     ) -> Tuple[torch.Tensor, RWKVDecodeState]:
         """tok (B,) -> (logits (B, V), the next state)."""
         cfg = self.cfg
-        P, layers = self.compute_params()
+        P, layers = self.serve_params()
+        P = self._use({k: v for k, v in P.items() if k != "layers"})
         tok = torch.as_tensor(tok, device=self.device)
         x = apply_embed(P["embed"], cfg, tok[:, None])
+        lay = self._state_layout("S")
         for i, lp in enumerate(layers):
+            lp = self._use(lp)
             st = rwkv_mod.RWKVState(S=state.S[i], x_time=state.x_time[i],
                                     x_chan=state.x_chan[i])
             z = apply_norm(lp["ln1"], cfg, x, kind="layernorm")
-            y, st = rwkv_mod.rwkv_time_decode(lp["time"], cfg, z, st)
+            y, st = rwkv_mod.rwkv_time_decode(lp["time"], cfg, z, st, lay)
             x = x + y
             z = apply_norm(lp["ln2"], cfg, x, kind="layernorm")
             y, st = rwkv_mod.rwkv_channel_decode(lp["chan"], cfg, z, st)
@@ -749,6 +799,14 @@ class RWKVLM(_LM):
             state.x_time[i] = st.x_time
             state.x_chan[i] = st.x_chan
         return self._logits(P, x), state._replace(pos=state.pos + 1)
+
+
+def whole_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary: on a ``"model"`` axis that split
+    the LM head, the ranks' slices gathered."""
+    if getattr(logits, "tp_dim", None) is None:
+        return logits
+    return tp().gather_out(logits, -1)
 
 
 # ================================================================== building

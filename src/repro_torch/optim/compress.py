@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from .._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..core import distributed as D
 from ..core.distributed import all_gather
 
 
@@ -83,7 +84,7 @@ def compressed_allreduce(g: torch.Tensor, residual: torch.Tensor,
         scale_group = [scale_group]
     for sg in scale_group or ():
         if dist.get_world_size(sg) > 1:
-            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=sg)
+            D.all_reduce_(amax, op=dist.ReduceOp.MAX, group=sg)
     scale = _scale(amax)
     q = _quantize(corrected, scale)
     new_res = corrected - dequantize_int8(q, scale)

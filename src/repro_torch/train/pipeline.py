@@ -26,21 +26,12 @@ import torch
 import torch.distributed as dist
 
 from .._tree import tree_map
+from ..core import distributed as D
 
 
 def _ring(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     """Send ``x`` to group rank r + shift, receive from r - shift."""
-    n = dist.get_world_size(group)
-    r = dist.get_rank(group)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x,
-                      dist.get_global_rank(group, (r + shift) % n), group),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (r - shift) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+    return D.permute(x, group, shift)
 
 
 class _RingPermute(torch.autograd.Function):
@@ -63,9 +54,7 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return D.all_reduce_(x.clone(), group=group)
 
     @staticmethod
     def backward(ctx, grad):

@@ -40,7 +40,14 @@ step on every rank of the mesh:
                 ranks that split a dimension;
   (e) loss      the mean of the ranks' losses.
 
-Collectives over a group of one rank are the identity and are skipped.
+With ``accum`` > 1 the rank's rows are cut into ``accum`` microbatches,
+as the JAX dry run's ``build_train_step`` cuts the global batch: (b) and
+the data half of (c) run once a microbatch, their regions and losses
+summed in the parameter dtype, then divided by ``accum``, and the pod hop,
+the update and the loss's mean run once a step.
+
+Collectives over a group of one rank are the identity and are skipped; at
+one rank the step runs the one-device step's operations.
 Megatron sequence parallelism (``seq_shard_activations``) is not ported.
 """
 from __future__ import annotations
@@ -58,36 +65,55 @@ from ..optim import compress
 from ..optim.api import Optimizer, state_shardings
 
 
-class MeshStep:
-    """The superstep of the module docstring for ``model`` and ``opt`` on
-    ``mesh``.  ``compressed`` runs the pod hop through the int8 funnel.
-    Building it keeps only this rank's shard of each of ``model``'s
-    parameters (the caller's whole ones are cut in place)."""
+class MeshParams:
+    """``model``'s parameters on ``mesh``, seen from this rank: the
+    mesh's groups (``g``), the axis sizes and this rank's coordinates
+    (every axis of ``AXES``), each parameter's spec (``specs``, by
+    :func:`repro_torch.models.sharding.param_spec`) and layout
+    (``layouts``, flat).  :meth:`keep_shards` cuts the parameters to the
+    rank's shards in place."""
 
-    def __init__(self, model, opt: Optimizer, mesh, lr_at,
-                 compressed: bool = False):
-        self.model, self.opt, self.lr_at = model, opt, lr_at
+    def __init__(self, model, mesh):
         self.g = MeshGroups(mesh)
-        sizes = {a: self.g.sizes.get(a, 1) for a in AXES}
+        self.sizes = {a: self.g.sizes.get(a, 1) for a in AXES}
         self.coord = {a: self.g.coord.get(a, 0) for a in AXES}
-        self.n_pod, self.n_data = sizes["pod"], sizes["data"]
-        self.n_model = sizes["model"]
-        self.compressed = compressed and "pod" in self.g.names
         params = model.trainable_tree()
         with shmod.use_mesh(mesh):
             self.specs = shmod.tree_param_specs(params)
-        self.state_specs = state_shardings(opt, self.specs, params, mesh)
-        self.sizes = sizes
-        self.layouts = [TensorLayout(s, p.shape, sizes, self.coord)
+        self.layouts = [TensorLayout(s, p.shape, self.sizes, self.coord)
                         for s, p in zip(tree_leaves(self.specs),
                                         tree_leaves(params))]
+
+    @torch.no_grad()
+    def keep_shards(self, params) -> None:
+        for p, lay in zip(tree_leaves(params), self.layouts):
+            if lay.n_shards > 1:
+                p.data = lay.shard(p.data).clone()
+
+
+class MeshStep:
+    """The superstep of the module docstring for ``model`` and ``opt`` on
+    ``mesh``.  ``compressed`` runs the pod hop through the int8 funnel;
+    ``accum`` is the microbatches a step.  Building it keeps only this
+    rank's shard of each of ``model``'s parameters (the caller's whole
+    ones are cut in place)."""
+
+    def __init__(self, model, opt: Optimizer, mesh, lr_at,
+                 compressed: bool = False, accum: int = 1):
+        self.model, self.opt, self.lr_at = model, opt, lr_at
+        self.accum = max(1, accum)
+        mp = MeshParams(model, mesh)
+        self.g, self.coord, self.sizes = mp.g, mp.coord, mp.sizes
+        self.n_pod, self.n_data = self.sizes["pod"], self.sizes["data"]
+        self.n_model = self.sizes["model"]
+        self.compressed = compressed and "pod" in self.g.names
+        params = model.trainable_tree()
+        self.specs, self.layouts = mp.specs, mp.layouts
+        self.state_specs = state_shardings(opt, self.specs, params, mesh)
         self.state_layouts = self._state_layouts(params)
         self.n_ranks = self.g.size(self.g.names)
         self.run = shmod.ShardRun(self.g, self.layouts)
-        with torch.no_grad():
-            for p, lay in zip(tree_leaves(params), self.layouts):
-                if lay.n_shards > 1:
-                    p.data = lay.shard(p.data).clone()
+        mp.keep_shards(params)
 
     # -- state ---------------------------------------------------------
     def _layouts_of(self, specs, shapes) -> list:
@@ -185,15 +211,15 @@ class MeshStep:
         rows = b // n
         return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
 
-    def _region(self, i: int, p: torch.Tensor, lay: TensorLayout):
-        """(c)'s first half: leaf ``i``'s region of the gradient, summed
-        over ``"data"``."""
+    def _part(self, i: int, p: torch.Tensor, g, lay: TensorLayout):
+        """Leaf ``i``'s part of one microbatch's gradient on this rank:
+        its region (an FSDP leaf, reduce-scattered over ``"data"`` by the
+        gather's backward) or its local gradient ``g``."""
         if lay.fsdp_axes():
             r = self.run.regions.pop(i, None)
             return (torch.zeros(lay.region_shape(), dtype=p.dtype,
                                 device=p.device) if r is None else r)
-        r = torch.zeros_like(p) if p.grad is None else p.grad
-        return self.g.all_reduce(r, ("data",))
+        return torch.zeros_like(p) if g is None else g
 
     def _pod_hop(self, r: torch.Tensor, lay: TensorLayout, residual):
         """(c)'s second half: the mean of the region over every batch
@@ -207,7 +233,8 @@ class MeshStep:
                 scale_group=scale)
             return m.to(r.dtype), residual
         self.g.all_reduce(r, ("pod",))
-        return r / (self.n_pod * self.n_data), residual
+        n = self.n_pod * self.n_data
+        return (r if n == 1 else r / n), residual
 
     def _reduce(self, shapes):
         """Adafactor's ``reduce`` hook: sums over the ranks that split the
@@ -218,31 +245,80 @@ class MeshStep:
         reduce.shapes = shapes
         return reduce
 
+    def _backward(self, rows):
+        """One forward and backward of ``rows`` under the step's
+        ShardRun: (the loss, each leaf's part of the gradient)."""
+        leaves = tree_leaves(self.model.trainable_tree())
+        self.run.regions = {}
+        with shmod.use_shard_run(self.run):
+            loss, _ = self.model.loss_fn(rows)
+            # the gradients as the backward hands them over, without the
+            # leaves' accumulators (which copy a gradient that something
+            # else still holds, a count that would depend on the backend)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        parts = [self._part(i, p, g, lay) for i, (p, g, lay) in
+                 enumerate(zip(leaves, grads, self.layouts))]
+        return loss.detach(), parts
+
+    def _grads(self, rows):
+        """(the loss, each leaf's region of the gradient summed over
+        ``"data"``): over ``accum`` microbatches of ``rows``, their sum
+        in the parameter dtype over ``accum``."""
+        if self.accum == 1:
+            loss, parts = self._backward(rows)
+        else:
+            a = self.accum
+            b = next(iter(rows.values())).shape[0]
+            if b % a:
+                raise ValueError(f"{b} rows do not split into {a} "
+                                 f"microbatches")
+            micro = {k: v.reshape((a, b // a) + tuple(v.shape[1:]))
+                     for k, v in rows.items()}
+            leaves = tree_leaves(self.model.trainable_tree())
+            sums = [torch.zeros(lay.region_shape() if lay.fsdp_axes()
+                                else p.shape, dtype=p.dtype,
+                                device=p.device)
+                    for p, lay in zip(leaves, self.layouts)]
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            for j in range(a):
+                loss, parts = self._backward({k: v[j]
+                                              for k, v in micro.items()})
+                with torch.no_grad():
+                    for acc, part in zip(sums, parts):
+                        acc.add_(part.to(acc.dtype))
+                del parts
+                lsum = lsum + loss
+            with torch.no_grad():
+                parts = [g / a for g in sums]
+            del sums
+            loss = lsum / a
+        for r, lay in zip(parts, self.layouts):
+            if not lay.fsdp_axes():
+                self.g.all_reduce(r, ("data",))
+        return loss, parts
+
     def step_local(self, params, opt_state, ef_state, rows):
         """One superstep on this rank's ``rows`` of the batch
         (:meth:`local_rows`); ``params`` are the rank's shards, updated in
         place; returns (params, opt_state, ef_state, loss)."""
         leaves = tree_leaves(params)
-        for p in leaves:
-            p.grad = None
-        self.run.regions = {}
-        with shmod.use_shard_run(self.run):
-            loss, _ = self.model.loss_fn(rows)
-            loss.backward()
+        loss, parts = self._grads(rows)
         residuals = (tree_leaves(ef_state.residual) if ef_state is not None
                      else [None] * len(leaves))
         g_shards, new_res = [], []
         with torch.no_grad():
-            for i, (p, lay, res) in enumerate(zip(leaves, self.layouts,
-                                                  residuals)):
-                r, res = self._pod_hop(self._region(i, p, lay), lay, res)
+            for r, lay, res in zip(parts, self.layouts, residuals):
+                r, res = self._pod_hop(r, lay, res)
                 g_shards.append(lay.shard_of_region(r))
                 new_res.append(res)
-                p.grad = None
+            del parts
             struct = tree_flatten(params)[1]
             grads = tree_unflatten(struct, g_shards)
             kw = {}
-            if self.opt.name == "adamw":
+            if self.n_ranks == 1:
+                pass                  # the one-device update
+            elif self.opt.name == "adamw":
                 sq = sum(torch.sum(torch.square(g.float())) * (
                     lay.n_shards / self.n_ranks)
                     for g, lay in zip(g_shards, self.layouts))
@@ -252,8 +328,9 @@ class MeshStep:
                                              for lay in self.layouts])
             _, opt_state = self.opt.update(grads, opt_state, params,
                                            self.lr_at(opt_state.step), **kw)
-            loss = self.g.all_reduce(loss.detach().clone(),
-                                     self.g.names) / self.n_ranks
+            if self.n_ranks > 1:
+                loss = self.g.all_reduce(loss.clone(),
+                                         self.g.names) / self.n_ranks
         if ef_state is not None:
             ef_state = compress.EFState(residual=tree_unflatten(struct,
                                                                 new_res))

@@ -76,23 +76,31 @@ def _jax_draws() -> dict:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """world -> the ranks' results, each world's ranks run once."""
+    """world -> the ranks' results, each world's ranks run once (every
+    world started at once, each joined at its first use)."""
     root = tmp_path_factory.mktemp("ranks")
     keys = root / "keys.npz"
     np.savez(keys, **_jax_draws())
+    procs = {world: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.dist_check", "--world",
+         str(world), "--out", str(root / f"world{world}"), "--keys",
+         str(keys), "--cases", cases, "--timeout", "150"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        for world, cases in WORLD_CASES.items()}
 
     @functools.lru_cache(maxsize=None)
     def run(world):
-        out = root / f"world{world}"
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.dist_check", "--world",
-             str(world), "--out", str(out), "--keys", str(keys), "--cases",
-             WORLD_CASES[world], "--timeout", "150"],
-            capture_output=True, text=True, timeout=180,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        assert proc.returncode == 0, proc.stdout + proc.stderr[-6000:]
-        return DC.load_ranks(out, world)
-    return run
+        stdout, stderr = procs[world].communicate(timeout=180)
+        assert procs[world].returncode == 0, stdout + stderr[-6000:]
+        return DC.load_ranks(root / f"world{world}", world)
+    try:
+        yield run
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 @pytest.fixture

@@ -6,7 +6,7 @@ package's trainer, on gloo CPU ranks.
 Exact mode: ``python -m repro_torch.dist_check --cases train`` at 4 and
 8 ranks runs reduced qwen1.5-0.5b (dense), zamba2-1.2b (hybrid) and
 kimi-k2 (MoE, einsum dispatch, choices dropping) from the JAX trainer's
-initial params (handed over with ``--keys``) for five steps on the (pod,
+initial params (handed over with ``--keys``) for three steps on the (pod,
 data, model) layouts (1, 4, 1), (2, 2, 1), (1, 2, 2), (1, 1, 4) and
 (2, 2, 2), llama4-scout (the shuffle dispatch over "model", a shared
 expert, capacity 8) on (1, 2, 2) and (2, 2, 2), and at 4 ranks reduced
@@ -118,15 +118,57 @@ def _jax_compressed(arch, init, n_pod):
     return np.array(losses), params
 
 
+#: the archs the JAX trainer runs as the oracle
+JAX_ARCHS = DC.TRAIN_ARCHS + tuple(DC.MOE_TRAIN) + tuple(DC.FAMILY_TRAIN)
+
+
 @pytest.fixture(scope="module")
-def jax_runs():
+def _started(tmp_path_factory):
+    """The JAX trainers (initialised, not yet run) and the JAX init of
+    ``dist_check.SERVE_CASES``, and the gloo ranks of every world started
+    on them at once (``dist_check --keys``): the ranks run while this
+    process computes the JAX oracle."""
+    trainers = {arch: JaxTrainer(_jax_tc(arch)) for arch in JAX_ARCHS}
+    inits = {arch: jax.tree_util.tree_map(np.array, jt.params)
+             for arch, jt in trainers.items()}
+    serve = {}
+    for arch, _, _ in DC.SERVE_CASES:
+        model = jax_build_model(jax_get_config(arch, reduced=True))
+        serve[arch] = (model, model.init(jax.random.PRNGKey(11)))
+    root = tmp_path_factory.mktemp("train_ranks")
+    keys = {f"train/{arch}/{i}": leaf for arch, init in inits.items()
+            for i, leaf in enumerate(jax.tree_util.tree_leaves(init))}
+    keys.update({f"serve/{arch}/{i}": np.asarray(leaf)
+                 for arch, (_, params) in serve.items()
+                 for i, leaf in enumerate(jax.tree_util.tree_leaves(params))})
+    np.savez(root / "keys.npz", **keys)
+    procs = {}
+    for world in WORLDS:
+        cases = ("train,elastic-train,mesh-serve,mesh-count" if world == 4
+                 else "train")
+        procs[world] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.dist_check", "--world",
+             str(world), "--out", str(root / f"w{world}"), "--cases", cases,
+             "--keys", str(root / "keys.npz"), "--check", "--timeout",
+             "240"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=_env())
+    try:
+        yield trainers, inits, serve, root, procs
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_runs(_started):
     """arch -> (init params, exact losses, exact final params, compressed
     losses at pod = 2)."""
+    trainers, inits, *_ = _started
     out = {}
-    for arch in (DC.TRAIN_ARCHS + tuple(DC.MOE_TRAIN)
-                 + tuple(DC.FAMILY_TRAIN)):
-        jt = JaxTrainer(_jax_tc(arch))
-        init = jax.tree_util.tree_map(np.array, jt.params)
+    for arch, jt in trainers.items():
+        init = inits[arch]
         r = jt.train()
         final = [np.asarray(x) for x in jax.tree_util.tree_leaves(jt.params)]
         comp = _jax_compressed(arch, init, 2)[0] \
@@ -136,24 +178,33 @@ def jax_runs():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, jax_runs):
-    """world -> (out dir, each rank's results) of the training cases, from
-    the JAX init."""
-    root = tmp_path_factory.mktemp("train_ranks")
-    keys = {f"train/{arch}/{i}": leaf
-            for arch, (init, *_) in jax_runs.items()
-            for i, leaf in enumerate(jax.tree_util.tree_leaves(init))}
-    np.savez(root / "keys.npz", **keys)
+def jax_serve(_started):
+    """arch -> (the one-device JAX prefill's last logits, the next decode
+    step's logits) of ``dist_check.SERVE_CASES``, from the JAX init the
+    ranks serve."""
     out = {}
-    for world in WORLDS:
-        cases = "train,elastic-train" if world == 4 else "train"
+    for arch, _, batch in DC.SERVE_CASES:
+        model, params = _started[2][arch]
+        logits, state = model.prefill(params, {
+            "tokens": jnp.asarray(DC.serve_tokens(arch, batch)),
+            "max_len": DC.SERVE_MAX_LEN})
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        step, _ = model.decode_step(params, tok, state)
+        out[arch] = (np.asarray(logits), np.asarray(step))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(_started, jax_runs, jax_serve):
+    """world -> (out dir, each rank's results) of the training cases, from
+    the JAX init (and at four ranks the sharded serving and counted
+    cases), joined after the JAX oracle ran."""
+    root, procs = _started[3:]
+    out = {}
+    for world, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=280)
+        assert proc.returncode == 0, stdout + stderr[-6000:]
         d = root / f"w{world}"
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.dist_check", "--world",
-             str(world), "--out", str(d), "--cases", cases, "--keys",
-             str(root / "keys.npz"), "--check", "--timeout", "240"],
-            capture_output=True, text=True, timeout=280, env=_env())
-        assert proc.returncode == 0, proc.stdout + proc.stderr[-6000:]
         out[world] = (d, DC.load_ranks(d, world))
     return out
 
@@ -456,11 +507,9 @@ def test_one_rank_mesh_trainer(mode, world1, jax_runs):
         assert got.ef_state is not None
 
 
-def test_moe_over_a_model_axis_is_left_for_item_5d(ranks):
-    """Named when ROADMAP item 5d was open and this refusal was checked;
-    5d is done, so it now checks the opposite: a MoE config trains over a
-    "model" axis (its experts and heads split), every rank on the
-    one-device losses."""
+def test_moe_trains_over_a_model_axis(ranks):
+    """A MoE config trains over a "model" axis (its experts and heads
+    split), every rank on the one-device losses."""
     for arch in DC.MOE_TRAIN:
         for world in WORLDS:
             for shape in DC.train_layouts(arch, world):
@@ -475,12 +524,10 @@ def test_moe_over_a_model_axis_is_left_for_item_5d(ranks):
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 1), (2, 2, 1), (2, 2, 2)])
-def test_moe_over_pod_or_data_ranks_is_left_for_item_5d(shape, ranks):
-    """Named when ROADMAP item 5d was open and this refusal was checked;
-    5d is done, so it now checks the opposite: over pod x data ranks a
-    MoE layer routes with the router statistics and capacity groups of
-    the global batch, so its aux loss and drops are the one-device run's,
-    not each rank's own."""
+def test_moe_trains_over_pod_or_data_ranks(shape, ranks):
+    """Over pod x data ranks a MoE layer routes with the router statistics
+    and capacity groups of the global batch, so its aux loss and drops are
+    the one-device run's, not each rank's own."""
     arch = "kimi-k2-1t-a32b"
     world = int(np.prod(shape))
     single = ranks[world][1][0][f"train-{arch}/moe/0"]
@@ -519,3 +566,49 @@ def test_launcher_trains_on_a_host_mesh_under_torchrun(tmp_path):
     assert line["arch"] == "qwen1.5-0.5b" and line["steps"] == 3
     assert np.isfinite(line["final_loss"])
     assert (tmp_path / "step_00000003" / "manifest.json").exists()
+
+
+#: the port's serving tests' tolerance (tests/test_torch_lm.py, float32)
+SERVE_TOL = 2e-4
+
+
+@pytest.mark.parametrize("arch,shape,batch", DC.SERVE_CASES)
+def test_sharded_prefill_and_decode_match_jax(arch, shape, batch, ranks,
+                                              jax_serve):
+    """Each of the decode state's three mesh layouts (KV heads over
+    "model"; the head dimension over "model", tinyllama's one KV head;
+    the sequence over "data" at B = 1): every rank's rows of the sharded
+    prefill's last logits, its tokens, and the next decode step's logits
+    equal the one-device JAX model's within 2e-4 (rtol and atol)."""
+    want_prefill, want_step = jax_serve[arch]
+    tag = f"serve-{arch}-{'x'.join(map(str, shape))}"
+    n_rows = batch // (shape[1] if batch % shape[1] == 0 else 1)
+    for r, res in enumerate(ranks[4][1]):
+        i = (r // shape[2]) % shape[1] if n_rows < batch else 0
+        rows = slice(i * n_rows, (i + 1) * n_rows)
+        logits, step = res[f"{tag}/per-rank/0"], res[f"{tag}/per-rank/1"]
+        np.testing.assert_allclose(logits, want_prefill[rows],
+                                   rtol=SERVE_TOL, atol=SERVE_TOL)
+        np.testing.assert_array_equal(np.argmax(logits, -1),
+                                      np.argmax(want_prefill[rows], -1))
+        np.testing.assert_allclose(step, want_step[rows], rtol=SERVE_TOL,
+                                   atol=SERVE_TOL)
+
+
+@pytest.mark.parametrize("case", DC.COUNT_CASES, ids=lambda c: c[2][0])
+def test_rank_counts_equal_the_per_rank_dry_run(case, ranks):
+    """The dry run's counter over each rank's real step on gloo (a
+    training step of two microbatches, a prefill, a decode step) equals
+    the per-rank dry run of that rank of the same layout on meta: FLOPs,
+    bytes, kernel calls and collective bytes and counts by op."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    arch, over, shape, mesh = case
+    cfg = get_config(arch, reduced=True, **over)
+    tag = f"count-{arch}-{shape[3]}"
+    for r, res in enumerate(ranks[4][1]):
+        got = json.loads(str(res[f"{tag}/per-rank/#record"]))
+        want = dryrun.mesh_dry_run(cfg, ShapeConfig(*shape), mesh, rank=r)
+        for key in ("cost", "kernels", "collectives"):
+            assert got[key] == want[key], (r, key)
+        assert want["collectives"]["raw_total"] > 0

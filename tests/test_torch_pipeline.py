@@ -65,27 +65,53 @@ def _close(got, want, tol, what=""):
 
 
 @pytest.fixture(scope="module")
-def jax_oracle(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_pipe") / "oracle.npz"
-    proc = subprocess.run(
-        [sys.executable, "-c", JAX_ORACLE, str(out)], capture_output=True,
-        text=True, timeout=300,
-        env={**_env(), "XLA_FLAGS": "--xla_force_host_platform_device_count=4"})
-    assert proc.returncode == 0, proc.stderr[-6000:]
-    return dict(np.load(out))
-
-
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def _started(tmp_path_factory):
+    """The JAX oracle's subprocess and the gloo ranks of both worlds
+    (``dist_check --cases pipeline``), started at once."""
     root = tmp_path_factory.mktemp("pipe_ranks")
-    out = {}
+    oracle = tmp_path_factory.mktemp("jax_pipe") / "oracle.npz"
+    procs = {"jax": subprocess.Popen(
+        [sys.executable, "-c", JAX_ORACLE, str(oracle)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**_env(),
+             "XLA_FLAGS": "--xla_force_host_platform_device_count=4"})}
     for world in (2, 4):
-        proc = subprocess.run(
+        procs[world] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.dist_check", "--world",
              str(world), "--out", str(root / f"w{world}"), "--cases",
              "pipeline", "--check", "--timeout", "120"],
-            capture_output=True, text=True, timeout=150, env=_env())
-        assert proc.returncode == 0, proc.stdout + proc.stderr[-6000:]
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_env())
+    try:
+        yield root, oracle, procs
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _joined(proc, timeout):
+    stdout, stderr = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, stdout + stderr[-6000:]
+
+
+@pytest.fixture(scope="module")
+def jax_oracle(_started):
+    """The JAX ``run_pipeline`` oracle, run once in a subprocess with 4
+    host devices."""
+    _, oracle, procs = _started
+    _joined(procs["jax"], 300)
+    return dict(np.load(oracle))
+
+
+@pytest.fixture(scope="module")
+def ranks(_started):
+    """world -> each rank's results of ``dist_check --cases pipeline``."""
+    root, _, procs = _started
+    out = {}
+    for world in (2, 4):
+        _joined(procs[world], 150)
         out[world] = DC.load_ranks(root / f"w{world}", world)
     return out
 
