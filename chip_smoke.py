@@ -312,7 +312,9 @@ exits non-zero:
               within 1e-5 relative and params within 1e-5 (whole tree)
               of the same Trainer without a mesh; then the Megatron pair
               and the vocab-parallel cross-entropy under a checkpoint,
-              gradients within 1e-5 of those without the collectives;
+              and the sequence-parallel pair (an all-gather of the
+              sequence in, a reduce-scatter out, and back), gradients
+              within 1e-5 of those without the collectives;
 33. moe-train — the reduced MoE on one NCCL rank: the ``shuffle``
               dispatch's gradients equal the ``einsum`` dispatch's within
               1e-4 (float32, no drops), a planted detached ``all_to_all``
@@ -325,12 +327,16 @@ exits non-zero:
 34. train-gloo — host work, started at the lowest CPU priority before
               phase train-kernels and run beside phases 27-33 (their
               steps are bound by the card):
-              ``dist_check --cases train,elastic-train,pipeline,moe-grad
-              --check`` at 4 gloo CPU ranks (the mesh trainer on (1, 4,
-              1), (2, 2, 1), (1, 1, 4) and (1, 2, 2), and rwkv6-1.6b,
-              whisper-base and internvl2-2b on (1, 2, 2) and (1, 1, 4):
-              FSDP-3, Megatron tensor parallelism and MoE over the global
-              batch against one device, resident parameter bytes);
+              ``dist_check --cases train,elastic-train,pipeline,moe-grad,
+              train-sp --check`` at 4 gloo CPU ranks (the mesh trainer on
+              (1, 4, 1), (2, 2, 1), (1, 1, 4) and (1, 2, 2), and
+              rwkv6-1.6b, whisper-base and internvl2-2b on (1, 2, 2) and
+              (1, 1, 4): FSDP-3, Megatron tensor parallelism and MoE over
+              the global batch against one device, resident parameter
+              bytes; Megatron sequence parallelism on (1, 1, 4) and (1,
+              2, 2) for qwen1.5-0.5b, zamba2-1.2b, rwkv6-1.6b, kimi-k2
+              and whisper-base against the same layout without it and
+              one device, and two planted faults that must fail);
 35. families-train — internvl2-2b (8 x (256 patches + 1792 tokens)) and
               whisper-base (8 x 1500 frames, 448 tokens) at full size
               through the mesh ``Trainer``, 8 steps, losses finite and
@@ -361,10 +367,15 @@ exits non-zero:
               prefill, and decode with the KV heads, the head dimension
               and the sequence split), one line a cell: GB a rank, the
               terms, collective GB and count by op (computed from shapes,
-              not measured); and the (1, 1, 1) per-rank dry runs of phase
-              train-mesh's step and phase lm-mesh's prefill and decode
-              step, their FLOPs, bytes, kernel calls and (zero)
-              collectives equal to the counts on the card.
+              not measured); the ``--seq-shard`` records of
+              ``MESH_SP_CELLS`` (tinyllama x train_4k and prefill_32k on
+              (1, 16, 16), kimi-k2 x train_4k on (2, 16, 16)) beside the
+              plain ones, GB a rank (and before the optimizer's update)
+              and collective GB by op, each keeping less a rank
+              (``roofline-mesh-sp``); and the (1, 1, 1) per-rank dry
+              runs of phase train-mesh's step and phase lm-mesh's
+              prefill and decode step, their FLOPs, bytes, kernel calls
+              and (zero) collectives equal to the counts on the card.
 
 The last three lines are the kernels summary, the ``nvidia-smi`` name and
 power line, and ``{"ok": true, "device": {...}}``.  Every row of the
@@ -3940,7 +3951,8 @@ def train_resume_phase(torch, dev) -> dict:
 
 # -- the parallel-training half (the mesh Trainer) ---------------------------
 TRAIN_GLOO_WORLDS = (4,)          # the tests also run 2 and 8 ranks
-TRAIN_GLOO_CASES = ("train", "elastic-train", "pipeline", "moe-grad")
+TRAIN_GLOO_CASES = ("train", "elastic-train", "pipeline", "moe-grad",
+                    "train-sp")
 FAMILY_TRAIN = (("internvl2-2b", 8, 1792), ("whisper-base", 8, 448))
 FAMILY_TRAIN_STEPS = 8
 FAMILY_TRAIN_LR = (1e-4, 4)       # peak lr, warmup steps
@@ -4251,7 +4263,10 @@ def tp_pair_check(torch, dev, group) -> dict:
     one-rank NCCL group, under a checkpoint (its recompute runs the
     forward collectives again, its backward the backward ones on
     autograd's device thread): a column- and a row-parallel matmul, the
-    region left through a sum and through a gather, the logits' CE;
+    region left through a sum and through a gather, the logits' CE; and
+    the sequence-parallel pair (``sp_*``): the region entered by an
+    all-gather of the sequence (a reduce-scatter back) and left by a
+    reduce-scatter (an all-gather back), its output's gradient strided;
     gradients against the same function without the collectives
     (float32, TF32 off): max abs error over each gradient's max."""
     import torch.distributed as dist
@@ -4281,16 +4296,28 @@ def tp_pair_check(torch, dev, group) -> dict:
             psum=lambda t: D.reduce_from_region(t, group),
             pmax=lambda t: D.all_reduce(t, dist.ReduceOp.MAX, group))
 
-    grads = {}
-    for tp in (True, False):
-        ins = [t.detach().clone().requires_grad_() for t in (x, w1, w2, wv)]
-        loss = checkpoint(f, *ins, tp, use_reentrant=False)
-        loss.backward()
-        torch.cuda.synchronize()
-        grads[tp] = [loss.detach()] + [t.grad for t in ins]
-    return {name: float((a - b).abs().max() / b.abs().max())
-            for name, a, b in zip(("loss", "x", "w1", "w2", "wv"),
-                                  grads[True], grads[False])}
+    def g(x, w1, w2, sp: bool):
+        h = D.enter_sequence(x, group) if sp else x
+        y = torch.relu(h @ w1) @ w2
+        y = D.leave_sequence(y, group) if sp else y
+        return (y.transpose(1, 2) ** 2).sum()
+
+    out = {}
+    for fn, names, args in ((f, ("loss", "x", "w1", "w2", "wv"),
+                             (x, w1, w2, wv)),
+                            (g, ("sp_loss", "sp_x", "sp_w1", "sp_w2"),
+                             (x, w1, w2))):
+        grads = {}
+        for on in (True, False):
+            ins = [t.detach().clone().requires_grad_() for t in args]
+            loss = checkpoint(fn, *ins, on, use_reentrant=False)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads[on] = [loss.detach()] + [t.grad for t in ins]
+        out.update({name: float((a - b).abs().max() / b.abs().max())
+                    for name, a, b in zip(names, grads[True],
+                                          grads[False])})
+    return out
 
 
 def mesh_paths_phase(torch, dev) -> dict:
@@ -4535,7 +4562,7 @@ def train_gloo_start() -> list:
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.dist_check", "--world",
              str(world), "--out", str(tmp), "--cases",
-             ",".join(TRAIN_GLOO_CASES), "--check", "--timeout", "300"],
+             ",".join(TRAIN_GLOO_CASES), "--check", "--timeout", "420"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             start_new_session=True, preexec_fn=lambda: os.nice(19),
             env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
@@ -4568,9 +4595,9 @@ def train_gloo_phase(started) -> dict:
     recs = []
     for _, t0, proc in started:
         try:
-            out, err = proc.communicate(timeout=360)
+            out, err = proc.communicate(timeout=480)
         except subprocess.TimeoutExpired:
-            check(False, "train-gloo: timed out after 360 s")
+            check(False, "train-gloo: timed out after 480 s")
         check(proc.returncode == 0, f"train-gloo: {out[-2000:]} "
               f"{err[-4000:]}")
         rec = json.loads(out.strip().splitlines()[-1])
@@ -4616,6 +4643,12 @@ MESH_CELLS = (("kimi-k2-1t-a32b", "train_4k", "multi"),
               ("qwen1.5-0.5b", "decode_32k", "single"),
               ("tinyllama-1.1b", "decode_32k", "multi"),
               ("zamba2-1.2b", "long_500k", "single"))
+#: the per-rank dry run's cells with Megatron sequence parallelism
+#: (``dryrun --seq-shard``: the residual stream's sequence split over
+#: "model"), each beside its plain record
+MESH_SP_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
+                 ("kimi-k2-1t-a32b", "train_4k", "multi"),
+                 ("tinyllama-1.1b", "prefill_32k", "single"))
 #: (arch, kind, batch, seq) of the (1, 1, 1) per-rank dry runs held against
 #: the card: phase train-mesh's step (one batch, no microbatches, as the
 #: mesh Trainer steps) and phase lm-mesh's prefill and decode step
@@ -4646,6 +4679,10 @@ def roofline_start():
                   "1"] for arch, kind, b, s in MESH_HOLDS]
     mesh_jobs += [["--arch", arch, "--shape", shape, "--mesh", mesh]
                   for arch, shape, mesh in MESH_CELLS]
+    mesh_jobs += [["--arch", arch, "--shape", shape, "--mesh", mesh]
+                  + flag for arch, shape, mesh in MESH_SP_CELLS
+                  for flag in ([], ["--seq-shard"])
+                  if flag or (arch, shape, mesh) not in MESH_CELLS]
     procs = [subprocess.Popen(
         ["sh", "-c", " && ".join(shlex.join(
             [sys.executable, "-m", "repro_torch.launch.dryrun", *job,
@@ -4670,6 +4707,54 @@ def roofline_stop(started) -> None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_sp_cells(tmp) -> list:
+    """Phase roofline's lines ``roofline-mesh-sp``: each cell of
+    MESH_SP_CELLS, its ``dryrun --seq-shard`` record in ``tmp`` beside
+    the plain one: GB a rank (the step's peak and the peak before the
+    optimizer's update), collective GB by op.  Checked: the flag split
+    the sequence (more reduce-scatters) and a rank keeps less."""
+    from repro_torch.core.distributed import COLLECTIVE_OPS
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import SEQ_SHARD_SUFFIX, mesh_name
+    from repro_torch.launch.mesh import MESHES
+    rows = []
+    for arch, shape_name, mesh in MESH_SP_CELLS:
+        name = mesh_name(MESHES[mesh])
+        recs = [roofline._load(f"{arch}_{shape_name}_{n}", tmp)
+                for n in (name, name + SEQ_SHARD_SUFFIX)]
+        check(all(r is not None and not r.get("skipped") for r in recs),
+              f"roofline: no plain or --seq-shard record of {arch} x "
+              f"{shape_name} x {name}")
+        plain, sp = recs
+        gb = [r["memory"]["peak_bytes"] / 1e9 for r in recs]
+        before = [r["memory"].get("peak_before_update_bytes", 0) / 1e9
+                  for r in recs]
+        coll = [{op: r["collectives"][op] / 1e9 for op in COLLECTIVE_OPS
+                 if r["collectives"][op]} for r in recs]
+        rows.append(dict(arch=arch, shape=shape_name, mesh=name,
+                         per_rank_gb=gb[0], sp_per_rank_gb=gb[1],
+                         before_update_gb=before[0],
+                         sp_before_update_gb=before[1],
+                         collective_gb=coll[0], sp_collective_gb=coll[1]))
+        emit(phase="roofline-mesh-sp", arch=arch, shape=shape_name,
+             mesh=name, per_rank_gb=gb[0], sp_per_rank_gb=gb[1],
+             before_update_gb=before[0], sp_before_update_gb=before[1],
+             collective_gb=coll[0], sp_collective_gb=coll[1],
+             source=sp["note"])
+        # the activations a rank keeps fall: the step's peak, or where
+        # the optimizer's update holds it (kimi-k2's Adafactor), the
+        # peak before the update
+        check(sp["seq_shard"] and not plain["seq_shard"]
+              and sp["collectives"]["n_reduce-scatter"]
+              > plain["collectives"]["n_reduce-scatter"]
+              and gb[1] <= gb[0] and before[1] <= before[0]
+              and (gb[1] < gb[0] or before[1] < before[0]),
+              f"roofline {arch} x {shape_name} x {name}: --seq-shard "
+              f"GB {gb[1]} (before the update {before[1]}) against "
+              f"{gb[0]} ({before[0]}), collectives {coll}")
+    return rows
 
 
 def count_on(torch, dev, cfg, shape):
@@ -4854,6 +4939,7 @@ def roofline_phase(torch, dev, started, measured_ms,
              collective_n={op: coll["n_" + op] for op in COLLECTIVE_OPS
                            if coll[op]},
              source=rec["note"])
+    mesh_sp_cells(tmp)
     mesh_held = []
     for arch, kind, b, s in MESH_HOLDS:
         dry = roofline._load(f"{arch}_{kind}_{b}x{s}_"

@@ -20,6 +20,11 @@ the collective counterpart of a :mod:`repro_torch.core` algorithm:
   copy_to_region, reduce_from_region, gather_from_region
                         -- Megatron's tensor-parallel pair (and the gather
                            that leaves a region through a concatenation).
+  enter_sequence, leave_sequence
+                        -- the pair under Megatron sequence parallelism:
+                           an all-gather of the sequence into a region (a
+                           reduce-scatter back), a reduce-scatter of the
+                           sequence out of it (an all-gather back).
   fsdp_gather           -- FSDP-3's parameter gather, whose backward is the
                            funnel's reduce-scatter over the data axis.
 
@@ -323,6 +328,71 @@ class _GatherFromRegion(torch.autograd.Function):
         n = grad.shape[ctx.dim] // dist.get_world_size(ctx.group)
         r = dist.get_rank(ctx.group)
         return grad.narrow(ctx.dim, r * n, n).contiguous(), None, None
+
+
+def _seq_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' slices of the sequence (dim 1) of ``x`` (b, s / n, ...)
+    joined in rank order into a contiguous (b, s, ...)."""
+    n = dist.get_world_size(group)
+    y = _all_gather_plain(x, group)
+    return y.unflatten(0, (n, -1)).transpose(0, 1).flatten(1, 2)
+
+
+def _seq_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's SUM of ``x`` (b, s, ...), the rank's slice of the
+    sequence kept: (b, s / n, ...)."""
+    n = dist.get_world_size(group)
+    # contiguous before the collective: NCCL refuses strided tensors
+    y = x.unflatten(1, (n, -1)).transpose(0, 1).flatten(0, 1)
+    return reduce_scatter(y, group)
+
+
+class _EnterSequence(torch.autograd.Function):
+    """Megatron sequence parallelism's entry into a region: the ranks'
+    slices of the sequence (dim 1) gathered in rank order; the backward
+    sums the ranks' parts of the gradient and keeps the rank's slice
+    (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_scatter(grad, ctx.group), None
+
+
+class _LeaveSequence(torch.autograd.Function):
+    """Megatron sequence parallelism's exit from a region: the ranks'
+    parts summed, the rank's slice of the sequence (dim 1) kept
+    (reduce-scatter); the backward gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_gather(grad, ctx.group), None
+
+
+def enter_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (b, s / n, ...), the rank's slice of the sequence, gathered
+    to (b, s, ...) as the region's input: each rank's gradient of it is
+    its part of the objective's."""
+    if _tracked(x):
+        return _EnterSequence.apply(x, group)
+    return _seq_gather(x, group)
+
+
+def leave_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """The region's output (b, s, ...), the ranks' parts, summed and cut
+    to the rank's slice of the sequence (b, s / n, ...)."""
+    if _tracked(x):
+        return _LeaveSequence.apply(x, group)
+    return _seq_scatter(x, group)
 
 
 class _ScaleGrad(torch.autograd.Function):

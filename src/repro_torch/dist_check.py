@@ -38,13 +38,20 @@ sequential chain, forward and gradients.  ``moe-grad``: the gradients of
 the ``shuffle`` dispatch (every rank on the same tokens, at a capacity
 where nothing drops) against the ``einsum`` dispatch's.  These cases
 check themselves on every rank (``check``), ``--check`` or not.
+``train-sp`` (4 ranks): each of ``SP_ARCHS`` with ``seq_shard_activations``
+(Megatron sequence parallelism) on each of ``SP_MESHES``, held to the same
+layout without the flag and to one device (``_sp_held``; the MoE layers'
+aux and drops equal), then ``SP_MUTANTS``, planted faults whose runs
+must miss one device (``#held`` False).
 ``train-drift`` holds nothing: it writes where a mesh run's params end
 furthest from one device's, and that element's gradients.
 ``mesh-serve``: the sharded prefill and one decode step
 (:class:`repro_torch.serve.mesh.MeshServe`) of each of ``SERVE_CASES``, in
-each of the decode state's three layouts, from the ``--keys`` params
-(``serve/<arch>/<leaf index>``, the JAX init) on ``serve_tokens``; each
-rank writes its rows of the logits (variant ``per-rank``).
+each of the decode state's three layouts, and of ``SP_SERVE_CASES`` with
+the prompt's sequence split over "model" (``serve-sp-*``), from the
+``--keys`` params (``serve/<arch>/<leaf index>``, the JAX init) on
+``serve_tokens``; each rank writes its rows of the logits (variant
+``per-rank``).
 ``mesh-count``: the dry run's counter
 (:class:`repro_torch.launch.dryrun.Counter`) over each of ``COUNT_CASES``'
 steps run for real on the rank (:func:`repro_torch.launch.dryrun.
@@ -62,11 +69,15 @@ and each model the port's seeded init.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import inspect
 import json
 import os
 import shutil
 import subprocess
 import sys
+import textwrap
 import time
 from pathlib import Path
 
@@ -86,7 +97,7 @@ from .obs import Tracer
 
 CASES = ("shuffle", "rounds", "plans", "collectives", "elastic", "tracer",
          "errors", "moe", "train", "elastic-train", "pipeline", "moe-grad",
-         "train-drift", "mesh-serve", "mesh-count")
+         "train-drift", "mesh-serve", "mesh-count", "train-sp")
 #: the plan families run on the kernel scatter as well
 KERNEL_FAMILIES = ("sort", "hull2d")
 SEED = 5
@@ -547,6 +558,16 @@ TRAIN_TOL = 1e-5
 COMPRESSED_TOL = 0.05
 #: the layout whose per-layer shapes the train case records (model = 2)
 SHAPE_MESH = (1, 2, 2)
+#: Megatron sequence parallelism (``seq_shard_activations``): the configs
+#: the ``train-sp`` case trains with the flag, every family (llama4-scout
+#: for the shuffle dispatch), on the layouts of ``SP_MESHES`` (4 ranks)
+SP_ARCHS = ("qwen1.5-0.5b", "zamba2-1.2b", "rwkv6-1.6b", "kimi-k2-1t-a32b",
+            "llama4-scout-17b-a16e", "whisper-base", "internvl2-2b")
+SP_MESHES = ((1, 1, 4), (1, 2, 2))
+#: each rank's one-device and mesh runs of the train case: (arch,
+#: variant) -> (losses, whole params, first-step gradient or None, the MoE
+#: layers' first-step (aux, dropped)), for the train-sp case to reuse
+_RUNS: dict = {}
 
 
 def _listed(arch: str):
@@ -689,13 +710,18 @@ def case_train(res: Results, rank: int, keys) -> None:
         params = _init_params(arch, keys)
         n_moe = train_config(arch).arch.n_layers if arch in MOE_TRAIN else 0
         by_grad = arch in GRAD_HELD
+        # the train-sp case reads the first-step gradients of its configs'
+        # runs at 4 ranks
+        grads = by_grad or (arch in SP_ARCHS and world == 4)
         single = None
         if rank == 0:
             with LayerHook() as hook:
                 _, losses, whole, *g1 = _train(train_config(arch), params,
-                                               None, grads=by_grad)
+                                               None, grads=grads)
             single = (losses, [p.detach().clone()
                                for p in tree_leaves(whole)])
+            _RUNS[arch, None] = single + (g1[0][0] if g1 else None,
+                                          np.array(hook.moe[:n_moe]))
             res.put(f"train-{arch}", "single", (losses, whole))
             if n_moe:
                 res.put(f"train-{arch}", "moe", np.array(hook.moe[:n_moe]))
@@ -704,8 +730,12 @@ def case_train(res: Results, rank: int, keys) -> None:
             mesh = make_host_mesh(shape, ("pod", "data", "model"))
             with LayerHook() as hook:
                 t, losses, whole, *gm = _train(train_config(arch), params,
-                                               mesh, grads=by_grad)
+                                               mesh, grads=grads)
             res.put(tag, "mesh", (losses, whole))
+            _RUNS[arch, shape] = (losses, [p.detach().clone() for p in
+                                           tree_leaves(whole)],
+                                  gm[0][0] if gm else None,
+                                  np.array(hook.moe[:n_moe]))
             if n_moe:
                 # the first step's (aux, dropped) of each MoE layer
                 res.put(tag, "moe", np.array(hook.moe[:n_moe]))
@@ -758,6 +788,124 @@ def case_train(res: Results, rank: int, keys) -> None:
     if want is not None:
         _held(losses, tree_leaves(whole), *want, TRAIN_TOL,
               "train-adafactor")
+
+
+def _run_of(arch: str, shape, params, steps: int = TRAIN_STEPS, **over):
+    """(losses, whole params, first-step gradient, the MoE layers'
+    first-step (aux, dropped)) of ``arch`` trained ``steps`` steps on the
+    layout ``shape`` (None: one device), with config overrides ``over``;
+    the train case's run where it made it."""
+    from .launch.mesh import make_host_mesh
+    if not over and steps == TRAIN_STEPS and (arch, shape) in _RUNS:
+        return _RUNS[arch, shape]
+    tc = train_config(arch, steps=steps)
+    tc.arch = dataclasses.replace(tc.arch, **over)
+    mesh = None if shape is None else make_host_mesh(
+        shape, ("pod", "data", "model"))
+    n_moe = tc.arch.n_layers if arch in MOE_TRAIN else 0
+    with LayerHook() as hook:
+        _, losses, whole, g = _train(tc, params, mesh, grads=True)
+    return (losses, [p.detach().clone() for p in tree_leaves(whole)],
+            g[0], np.array(hook.moe[:n_moe]))
+
+
+def _sp_held(got, want, what: str, whole: bool = True) -> None:
+    """A run held to another (:func:`_run_of`'s tuples): the first loss
+    within ``TRAIN_TOL`` and each leaf's first-step gradient within
+    ``GRAD_TOL`` of its largest element, which is what a split sequence
+    changes; with ``whole`` also every loss and the whole tree of params
+    within ``TRAIN_TOL`` (``_held`` without its per-leaf rule: AdamW
+    turns the rounding noise that is the whole gradient of a leaf such
+    as qwen's key bias into steps that differ with the summation order,
+    by about 1e-4 of that leaf)."""
+    check(abs(got[0][0] - want[0][0]) <= TRAIN_TOL * abs(want[0][0])
+          and np.all(np.isfinite(got[0])),
+          f"{what}: losses {got[0]} against {want[0]}")
+    err = grad_errors(got[2], want[2])
+    check(err.max() <= GRAD_TOL, f"{what}: first-step gradient off by "
+          f"{err.max()} of a leaf's max")
+    if whole:
+        _held(got[0], got[1], want[0], want[1], TRAIN_TOL, what,
+              per_leaf=False)
+
+
+#: the two planted faults the train-sp case runs (one step each), each of
+#: which its hold of the first step must catch: the "model" sum of the
+#: gradients of the leaves used on the slice dropped (arch, layout), and
+#: RWKV's channel mix shifting the rank's slice rather than the gathered
+#: sequence
+SP_MUTANTS = {"norm-sum": ("qwen1.5-0.5b", (1, 1, 4)),
+              "rwkv-shift": ("rwkv6-1.6b", (1, 1, 4))}
+
+
+@contextlib.contextmanager
+def sp_mutant(name: str):
+    """One of ``SP_MUTANTS`` planted for the block."""
+    from .models import rwkv
+    from .train.zero import MeshStep
+    if name == "norm-sum":
+        saved = MeshStep._model_summed
+        MeshStep._model_summed = lambda self, i, lay: False
+        try:
+            yield
+        finally:
+            MeshStep._model_summed = saved
+        return
+    src = textwrap.dedent(inspect.getsource(rwkv._channel_region))
+    good = "torch.sigmoid(tp.own(xr) @ wr.to(dt_c)) * kv"
+    check(good in src, "rwkv-shift: the gate's line is not in the source")
+    scope = dict(vars(rwkv))
+    exec(src.replace(good, "torch.sigmoid(_mixes(x, shift(x), mu)[1] @ "
+                           "wr.to(dt_c)) * kv"), scope)
+    saved = rwkv._channel_region
+    rwkv._channel_region = scope["_channel_region"]
+    try:
+        yield
+    finally:
+        rwkv._channel_region = saved
+
+
+def case_train_sp(res: Results, rank: int, keys) -> None:
+    """Each of ``SP_ARCHS`` trained with ``seq_shard_activations`` on each
+    of ``SP_MESHES``: held (``_sp_held``) to one device (rank 0) and to
+    the same layout without the flag, its MoE layers' first-step aux and
+    drops to the run without the flag; then each of ``SP_MUTANTS`` held
+    to one device on rank 0, which must fail (``#held`` False)."""
+    world = dist.get_world_size()
+    if world != 4:
+        return
+    for arch in SP_ARCHS:
+        params = _init_params(arch, keys)
+        single = _run_of(arch, None, params) if rank == 0 else None
+        for shape in SP_MESHES:
+            tag = f"train-sp-{arch}-{'x'.join(map(str, shape))}"
+            got = _run_of(arch, shape, params, seq_shard_activations=True)
+            res.put(tag, "mesh", (got[0], got[1]))
+            plain = _run_of(arch, shape, params)
+            res.put(tag, "plain", (plain[0],))
+            whole = arch not in GRAD_HELD
+            _sp_held(got, plain, f"{tag} against no flag", whole)
+            if len(got[3]):
+                res.put(tag, "moe", got[3])
+                check(np.allclose(got[3][:, 0], plain[3][:, 0], rtol=1e-5,
+                                  atol=0) and np.array_equal(
+                          got[3][:, 1], plain[3][:, 1]),
+                      f"{tag}: MoE aux/drops {got[3]} against {plain[3]}")
+            if single is not None:
+                _sp_held(got, single, f"{tag} against one device", whole)
+    for name, (arch, shape) in SP_MUTANTS.items():
+        params = _init_params(arch, keys)
+        with sp_mutant(name):
+            got = _run_of(arch, shape, params, steps=1,
+                          seq_shard_activations=True)
+        if rank == 0:
+            try:
+                _sp_held(got, _run_of(arch, None, params), name,
+                         whole=False)
+                held = True
+            except AssertionError:
+                held = False
+            res.meta(f"train-sp-mutant-{name}", "per-rank", held=held)
 
 
 def case_train_drift(res: Results, rank: int, keys, out_dir: Path) -> None:
@@ -978,12 +1126,20 @@ SERVE_CASES = (("qwen1.5-0.5b", (1, 1, 4), 4),
                ("tinyllama-1.1b", (1, 1, 4), 4),
                ("zamba2-1.2b", (1, 4, 1), 1))
 SERVE_PROMPT, SERVE_MAX_LEN = 8, 16
+#: the serving cases whose prefill splits the prompt's sequence over
+#: "model" (``seq_shard_activations``; the decode step, one position, does
+#: not split)
+SP_SERVE_CASES = (("qwen1.5-0.5b", (1, 1, 4), 4),
+                  ("tinyllama-1.1b", (1, 1, 4), 4))
 #: (arch, config overrides, shape (name, seq, batch, kind), mesh shape):
-#: the counted steps, a training step of two microbatches, a prefill and
-#: a decode step over both "data" and "model"
+#: the counted steps, a training step of two microbatches (also with the
+#: sequence split over "model"), a prefill and a decode step over both
+#: "data" and "model"
 COUNT_CASES = (
     ("qwen1.5-0.5b", {"grad_accum": 2}, ("train", 16, 8, "train"),
      (1, 2, 2)),
+    ("qwen1.5-0.5b", {"grad_accum": 2, "seq_shard_activations": True},
+     ("train-sp", 16, 8, "train"), (1, 2, 2)),
     ("qwen1.5-0.5b", {}, ("prefill", 16, 4, "prefill"), (1, 2, 2)),
     ("zamba2-1.2b", {}, ("decode", 32, 1, "decode"), (1, 2, 2)))
 
@@ -1002,8 +1158,9 @@ def case_mesh_serve(res: Results, rank: int, keys) -> None:
     from .launch.mesh import make_host_mesh
     from .models import build_model, model_class
     from .serve.mesh import MeshServe
-    for arch, shape, batch in SERVE_CASES:
-        cfg = get_config(arch, reduced=True)
+    for (arch, shape, batch), sp in ([(c, False) for c in SERVE_CASES]
+                                     + [(c, True) for c in SP_SERVE_CASES]):
+        cfg = get_config(arch, reduced=True, seq_shard_activations=sp)
         struct = tree_flatten(build_model(cfg, device="meta")
                               .param_tree())[1]
         n = sum(1 for k in keys if k.startswith(f"serve/{arch}/"))
@@ -1017,7 +1174,8 @@ def case_mesh_serve(res: Results, rank: int, keys) -> None:
         logits, state = serve.prefill(tokens, SERVE_MAX_LEN)
         tok = torch.argmax(logits, -1).to(torch.int32)
         step, _ = serve.decode_step(tok, state)
-        tag = f"serve-{arch}-{'x'.join(map(str, shape))}"
+        tag = (f"serve{'-sp' if sp else ''}-{arch}-"
+               f"{'x'.join(map(str, shape))}")
         res.put(tag, "per-rank", (logits, step))
 
 
@@ -1035,7 +1193,7 @@ def case_mesh_count(res: Results, rank: int, keys) -> None:
             model, step, args = dryrun.mesh_cell_inputs(cfg, shape, mesh,
                                                         "cpu", seed=3)
             rec = dryrun.record(cfg, shape, dryrun.count(model, step, args))
-        tag = f"count-{arch}-{shape.kind}"
+        tag = f"count-{arch}-{shape.name}"
         res.meta(tag, "per-rank", record=json.dumps(
             {k: rec[k] for k in ("cost", "kernels", "collectives")}))
 

@@ -37,7 +37,13 @@ shards under the config's rules and the caches in
 every collective the rank makes (:mod:`repro_torch.core.distributed`):
 bytes of its result on the rank and count, by op.  The ranks are
 symmetric, so rank 0 stands for all.  The record adds ``rank``,
-``chips`` and ``mesh_shape``.
+``chips`` and ``mesh_shape``.  A training record's ``memory`` (one
+card's too) also holds the peak before the optimizer's update
+(``peak_before_update_bytes``: the forward's, the backward's and the
+gradients' reduction).  With
+``--seq-shard`` the config's ``seq_shard_activations`` is set (Megatron
+sequence parallelism: the residual stream's sequence split over
+``"model"``) and the record's mesh is named ``<mesh>_sp``.
 
 Prefill cells run the flash kernel (``attn_impl="flash"``), as the port
 serves on the card; training and decode keep each config's own attention
@@ -47,11 +53,12 @@ MoE cells use each config's ``moe_dispatch``, as the JAX dry run does.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-1.2b \\
-      --shape long_500k [--mesh multi]
+      --shape long_500k [--mesh multi] [--seq-shard]
 
 writes ``experiments/dryrun_torch/<arch>_<shape>_h100.json`` (a directory
 git ignores), ``..._h100_16x16.json`` and ``..._h100_2x16x16.json`` per
-rank of a mesh; :mod:`.roofline` reads them.
+rank of a mesh (``..._sp.json`` with ``--seq-shard``); :mod:`.roofline`
+reads them.
 """
 from __future__ import annotations
 
@@ -68,7 +75,8 @@ import weakref
 from typing import Any, Dict, Optional, Union
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 
 from .._tree import tree_leaves, tree_map
@@ -131,6 +139,13 @@ class Counter(TorchDispatchMode):
         self.collectives: Dict[str, int] = {op: 0 for op in COLLECTIVE_OPS}
         self.n_collectives: Dict[str, int] = {op: 0 for op in
                                               COLLECTIVE_OPS}
+        #: label -> the peak up to the moment :meth:`mark` was called
+        self.marks: Dict[str, int] = {}
+
+    def mark(self, label: str) -> None:
+        """Keep the peak so far under ``label`` (the step's peak before
+        one of its phases)."""
+        self.marks[label] = self.peak
 
     # -- arguments and storages ------------------------------------------
     def track(self, tree) -> None:
@@ -211,7 +226,7 @@ class Counter(TorchDispatchMode):
         return {"flops": self.flops, "bytes": self.bytes,
                 "kernels": dict(sorted(self.kernels.items())),
                 "peak_bytes": self.peak, "argument_bytes": self.args,
-                "collectives": coll}
+                "marks": dict(self.marks), "collectives": coll}
 
 
 # ------------------------------------------------------- meta kernels
@@ -365,7 +380,7 @@ def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, device="meta",
     model = build_model(cfg, device=device, seed=seed)
     vocab = cfg.vocab_size
     if shape.kind == "train":
-        opt = make_optimizer(cfg)
+        opt = _marked_update(make_optimizer(cfg))
         params = model.trainable_tree()
         batch = S.train_batch_specs(cfg, shape, device)
         if torch.device(device).type != "meta":
@@ -384,6 +399,20 @@ def cell_inputs(cfg: ArchConfig, shape: ShapeConfig, device="meta",
     if torch.device(device).type != "meta":
         S.draw((tok, state), seed + 1, vocab)
     return model, build_serve_step(cfg, model), (tok, state)
+
+
+def _marked_update(opt):
+    """``opt`` whose update first marks ``"update"`` on each active
+    :class:`Counter`: a training record's ``peak_before_update_bytes``,
+    the peak of the forward, the backward and the gradients' reduction
+    (where the activations a step keeps count), apart from the
+    optimizer's own."""
+    def update(*args, **kw):
+        for mode in _get_current_dispatch_mode_stack():
+            if isinstance(mode, Counter):
+                mode.mark("update")
+        return opt.update(*args, **kw)
+    return opt._replace(update=update)
 
 
 def mesh_cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
@@ -409,7 +438,7 @@ def mesh_cell_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
         batch, specs = S.mesh_train_batch_specs(cfg, shape, mesh, device)
         if not meta:
             S.draw(batch, seed + 1, vocab)
-        opt = make_optimizer(cfg)
+        opt = _marked_update(make_optimizer(cfg))
         step = MeshStep(model, opt, mesh, lambda t: warmup_cosine(
             t, peak_lr=3e-4, warmup_steps=2000, total_steps=100_000),
             accum=cfg.grad_accum)
@@ -473,7 +502,9 @@ def record(cfg: ArchConfig, shape: ShapeConfig, counted: Counter
                    "argument_size_in_bytes": out["argument_bytes"],
                    "temp_size_in_bytes": out["peak_bytes"]
                    - out["argument_bytes"],
-                   "peak_bytes": out["peak_bytes"]},
+                   "peak_bytes": out["peak_bytes"],
+                   **{f"peak_before_{k}_bytes": v
+                      for k, v in out["marks"].items()}},
         "cost": {"flops": float(out["flops"]),
                  "bytes accessed": float(out["bytes"])},
         "kernels": out["kernels"],
@@ -514,6 +545,10 @@ def mesh_dry_run(cfg: ArchConfig, shape: ShapeConfig, mesh_shape,
     return rec
 
 
+#: the suffix of a record's mesh name under sequence parallelism
+SEQ_SHARD_SUFFIX = "_sp"
+
+
 def mesh_name(mesh_shape) -> str:
     """``h100_16x16`` for (1, 16, 16), ``h100_2x16x16`` for (2, 16, 16):
     the JAX mesh's name on H100 ranks."""
@@ -541,8 +576,11 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], save: bool = True,
     shape_name = shape.name
     ok, reason = shape_applicable(cfg, shape)
     name = DEVICE if mesh_shape is None else mesh_name(mesh_shape)
+    if cfg.seq_shard_activations:
+        name += SEQ_SHARD_SUFFIX
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
-                           "mesh": name, "kind": shape.kind}
+                           "mesh": name, "kind": shape.kind,
+                           "seq_shard": cfg.seq_shard_activations}
     if not ok:
         rec["skipped"] = reason
         if verbose:
@@ -595,6 +633,10 @@ def main(argv=None) -> int:
                     "(pod, data, model) mesh instead of --mesh")
     ap.add_argument("--grad-accum", type=int,
                     help="the config's microbatches a training step")
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="Megatron sequence parallelism "
+                         "(seq_shard_activations): records named "
+                         f"<mesh>{SEQ_SHARD_SUFFIX}")
     args = ap.parse_args(argv)
     meshes = {"card": [None], "single": [MESHES["single"]],
               "multi": [MESHES["multi"]],
@@ -603,6 +645,8 @@ def main(argv=None) -> int:
         meshes = [tuple(int(n) for n in args.mesh_shape.split(","))]
     overrides = ({} if args.grad_accum is None
                  else {"grad_accum": args.grad_accum})
+    if args.seq_shard:
+        overrides["seq_shard_activations"] = True
     if args.all:
         cells = [(a, s.name) for a in ARCH_IDS for s in SHAPES]
     elif args.arch and args.shape:

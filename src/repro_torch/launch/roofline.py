@@ -26,11 +26,14 @@ two unrolled shallow compiles; the port's counter runs eagerly and sees
 every layer, so its counts need no correction.
 
   PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh both]
+      [--seq-shard]
 
 reads ``experiments/dryrun_torch/*.json`` and writes
 ``experiments/roofline_torch_<mesh>.json`` and ``.md`` (the table,
 printed), ``<mesh>`` ``h100`` (one card, the default), ``h100_16x16`` or
-``h100_2x16x16``.
+``h100_2x16x16``; with ``--seq-shard`` the records of ``dryrun
+--seq-shard`` (Megatron sequence parallelism), ``<mesh>_sp``.  A mesh's
+table gives each cell's collective GB a rank by op.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from ..configs import ARCH_IDS, SHAPES, get_shape
 from ..core.costmodel import (HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16,
                               HardwareModel)
 from .dryrun import (COLLECTIVE_OPS, DEVICE, RESULTS_DIR as DRYRUN_DIR,
-                     mesh_name)
+                     SEQ_SHARD_SUFFIX, mesh_name)
 from .mesh import MESHES
 
 RESULTS_DIR = DRYRUN_DIR.parent
@@ -113,17 +116,19 @@ def analyze_cell(rec: Optional[Dict[str, Any]], *,
 
 def table(rows: List[Dict[str, Any]], coll: bool = False) -> str:
     """The markdown table of :func:`analyze_cell`'s rows; with ``coll``
-    also each cell's collective GB a rank and the largest op's."""
-    extra = " collective GB / rank | largest op |" if coll else ""
+    also each cell's collective GB a rank, the largest op's, and the GB
+    of each op."""
+    extra = (" collective GB / rank | largest op | GB by op |" if coll
+             else "")
     md = ["| arch | shape | compute s | memory s | collective s | dominant "
           "| useful FLOPs ratio | GB | fits 80 GB |" + extra,
-          "|---|---|---|---|---|---|---|---|---|" + ("---|---|" if coll
+          "|---|---|---|---|---|---|---|---|---|" + ("---|---|---|" if coll
                                                       else "")]
     for r in rows:
         if r.get("skipped"):
             md.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
                       f"SKIP: {r['skipped'][:40]}… | — | — | — |"
-                      + (" — | — |" if coll else ""))
+                      + (" — | — | — |" if coll else ""))
             continue
         gb = ("n/a" if r["per_device_gb"] is None
               else f"{r['per_device_gb']:.2f}")
@@ -134,8 +139,10 @@ def table(rows: List[Dict[str, Any]], coll: bool = False) -> str:
         if coll:
             by_op = r["collective_bytes"]
             top = max(by_op, key=by_op.get)
+            ops = ", ".join(f"{op} {n / 1e9:.4g}" for op, n in
+                            by_op.items() if n) or "—"
             line += (f" {sum(by_op.values()) / 1e9:.4g} | "
-                     f"{top if by_op[top] else '—'} |")
+                     f"{top if by_op[top] else '—'} | {ops} |")
         md.append(line)
     return "\n".join(md)
 
@@ -147,12 +154,17 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=["card", "single", "multi", "both"],
                     default="card", help="the table of one card (default) "
                     "or of a rank of the (1, 16, 16) or (2, 16, 16) mesh")
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="the records of dryrun --seq-shard (Megatron "
+                    "sequence parallelism)")
     args = ap.parse_args(argv)
     names = {"card": [DEVICE],
              "single": [mesh_name(MESHES["single"])],
              "multi": [mesh_name(MESHES["multi"])],
              "both": [mesh_name(MESHES[m]) for m in ("single", "multi")]
              }[args.mesh]
+    if args.seq_shard:
+        names = [n + SEQ_SHARD_SUFFIX for n in names]
     args.out.mkdir(parents=True, exist_ok=True)
     for name in names:
         rows = []

@@ -13,6 +13,11 @@ one nest a layer.  Decode state :class:`EncDecState`: the decoder's
 self-attention K/V caches and the cross-attention K/V, computed once at
 prefill from the encoder output.
 
+With sequence parallelism the encoder's frames and the decoder's tokens
+each split over ``"model"`` where the axis divides their length (whisper
+-base's 1500 frames on 16 ranks do not), and the decoder's
+cross-attention reads the encoder output whole.
+
 Attention goes through the flash kernel under ``attn_impl="flash"``
 wherever more than one query attends: the encoder (unmasked), the
 decoder's prefill (causal) and its cross-attention at prefill (the prompt
@@ -31,6 +36,7 @@ from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      cross_kv_all, init_attention, init_cross_kv, init_embed,
                      init_lm_head, init_mlp, init_norm, model_part,
                      write_prompt)
+from .sharding import seq_split, sequence
 from .transformer import _LM, whole_vocab
 
 LN = "layernorm"
@@ -112,6 +118,11 @@ class EncDecLM(_LM):
                 "enc": enc, "dec": dec}
 
     def _encode(self, P: Params, frames) -> torch.Tensor:
+        """The encoder output; where it runs on a split sequence the
+        frames' slices are gathered for the decoder: with their parts of
+        the gradient summed (reduce-scattered) where the decoder's
+        sequence is split too, else as whole values (the rank's block of
+        the whole gradient kept)."""
         cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(cdtype(cfg))
         b, f = x.shape[:2]
@@ -119,10 +130,22 @@ class EncDecLM(_LM):
         positions = torch.arange(f, device=self.device).expand(b, f)
         # cfg.remat applies where a gradient is built (loss_fn)
         remat = self._remat if torch.is_grad_enabled() else (lambda fn: fn)
-        for lp in P["enc"]:
-            x = remat(lambda h, lp=lp: _enc_block(self._use(lp), cfg,
-                                                  positions, h))(x)
-        return _ln(P["enc_norm"], cfg, x)
+        split = seq_split() is not None
+        with sequence(f):
+            sp = seq_split()
+            if sp is not None:
+                x = sp.own(x)
+            for lp in P["enc"]:
+                x = remat(lambda h, lp=lp: _enc_block(self._use(lp), cfg,
+                                                      positions, h))(x)
+            x = _ln(self._use(P["enc_norm"]), cfg, x)
+        if sp is not None:
+            return (sp.enter(x) if split else
+                    sp.gather_out(x.contiguous(), 1))
+        if split:
+            # whole on every rank: each rank's decoder adds its part
+            return seq_split().enter_whole(x)
+        return x
 
     @torch.no_grad()
     def encode(self, frames) -> torch.Tensor:
@@ -132,40 +155,48 @@ class EncDecLM(_LM):
 
     def _embed(self, P: Params, tokens: torch.Tensor) -> torch.Tensor:
         x = apply_embed(P["embed"], self.cfg, tokens)
-        pe = _sinusoid(tokens.shape[1], self.cfg.d_model, self.device)
-        return x + pe.to(x.dtype)[None]
+        pe = _sinusoid(tokens.shape[1], self.cfg.d_model, self.device)[None]
+        sp = seq_split()
+        return x + (pe if sp is None else sp.own(pe)).to(x.dtype)
 
-    def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, P: Params, x: torch.Tensor,
+                tail: Optional[int] = None) -> torch.Tensor:
         return apply_lm_head(P["lm_head"], self.cfg,
-                             _ln(P["dec_norm"], self.cfg, x))
+                             _ln(P["dec_norm"], self.cfg, x), tail=tail)
+
+    def _use_top(self, P: Params) -> Params:
+        """``P`` with its decoder-side top-level leaves taken (the
+        encoder's norm is taken where the encoder runs)."""
+        return dict(P, **self._use({k: v for k, v in P.items()
+                                    if k not in ("enc", "dec", "enc_norm")}))
 
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"ce": loss}) of the JAX enc-dec ``loss_fn`` on ``batch``
         (``frames`` (B, F, d), ``tokens``, ``labels`` (B, S) int32, optional
         ``loss_mask``), each encoder and decoder layer under
         ``cfg.remat``."""
-        cfg = self.cfg
         P, _ = self.train_params()
-        P = dict(P, **self._use({k: v for k, v in P.items()
-                                 if k not in ("enc", "dec")}))
-        enc_out = self._encode(P, self._batch_tensor(batch, "frames"))
         tokens = self._batch_tensor(batch, "tokens")
-        b, s = tokens.shape
-        x = self._embed(P, tokens)
-        positions = torch.arange(s, device=self.device).expand(b, s)
+        cfg = self.cfg
+        with sequence(tokens.shape[1]):
+            P = self._use_top(P)
+            enc_out = self._encode(P, self._batch_tensor(batch, "frames"))
+            b, s = tokens.shape
+            x = self._embed(P, tokens)
+            positions = torch.arange(s, device=self.device).expand(b, s)
 
-        def dec_block(lp, h):
-            lp = self._use(lp)
-            h = h + apply_attention(lp["attn"], cfg,
-                                    _ln(lp["attn_norm"], cfg, h), positions,
-                                    causal=True)
-            return _dec_tail(lp, cfg, h, *init_cross_kv(lp["xattn"], cfg,
-                                                        enc_out))
+            def dec_block(lp, h):
+                lp = self._use(lp)
+                h = h + apply_attention(lp["attn"], cfg,
+                                        _ln(lp["attn_norm"], cfg, h),
+                                        positions, causal=True)
+                return _dec_tail(lp, cfg, h, *init_cross_kv(lp["xattn"], cfg,
+                                                            enc_out))
 
-        for lp in P["dec"]:
-            x = self._remat(lambda h, lp=lp: dec_block(lp, h))(x)
-        loss = self._ce(self._logits(P, x), batch)
-        return loss, {"ce": loss}
+            for lp in P["dec"]:
+                x = self._remat(lambda h, lp=lp: dec_block(lp, h))(x)
+            loss = self._ce(self._logits(P, x), batch)
+            return loss, {"ce": loss}
 
     def init_decode_state(self, batch_size: int,
                           max_len: int) -> EncDecState:
@@ -189,34 +220,35 @@ class EncDecLM(_LM):
         prompt ``tokens`` (B, S): (logits of the last position (B, V), the
         decode state with the prompt's K/V in slots 0..S-1 of ``max_len``
         and every layer's cross K/V of the F frames)."""
-        cfg = self.cfg
-        P, _ = self.serve_params()
-        P = dict(P, **self._use({k: v for k, v in P.items()
-                                 if k not in ("enc", "dec")}))
-        enc_out = self._encode(P, frames)
         tokens, max_len = self._prompt(tokens, max_len)
-        b, s = tokens.shape
-        x = self._embed(P, tokens)
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        f = enc_out.shape[1]
-        state = self._new_state(b, max_len)
-        if state.cross_k.shape[2] != f:       # frames other than n_frames
-            shape = (cfg.n_layers, b, f, cfg.n_kv_heads, cfg.hd)
-            state = state._replace(cross_k=state.cross_k.new_zeros(shape),
-                                   cross_v=state.cross_v.new_zeros(shape))
-        lay, lay_x = (self._state_layout(n) for n in ("self_k", "cross_k"))
-        for i, lp in enumerate(P["dec"]):
-            lp = self._use(lp)
-            z = _ln(lp["attn_norm"], cfg, x)
-            h, (k, v) = attention_prefill(lp["attn"], cfg, z, positions)
-            write_prompt(state.self_k[i], k, lay)
-            write_prompt(state.self_v[i], v, lay)
-            (kx, vx), heads = cross_kv_all(lp["xattn"], cfg, enc_out)
-            state.cross_k[i] = model_part(kx, lay_x)
-            state.cross_v[i] = model_part(vx, lay_x)
-            x = _dec_tail(lp, cfg, x + h, *heads)
-        logits = whole_vocab(self._logits(P, x[:, -1:]))[:, 0]
-        return logits, state._replace(pos=self._pos(b, s))
+        cfg = self.cfg
+        with sequence(tokens.shape[1]):
+            P, _ = self.serve_params()
+            P = self._use_top(P)
+            enc_out = self._encode(P, frames)
+            b, s = tokens.shape
+            x = self._embed(P, tokens)
+            positions = torch.arange(s, device=self.device).expand(b, s)
+            f = enc_out.shape[1]
+            state = self._new_state(b, max_len)
+            if state.cross_k.shape[2] != f:       # frames other than n_frames
+                shape = (cfg.n_layers, b, f, cfg.n_kv_heads, cfg.hd)
+                state = state._replace(cross_k=state.cross_k.new_zeros(shape),
+                                       cross_v=state.cross_v.new_zeros(shape))
+            lay, lay_x = (self._state_layout(n)
+                          for n in ("self_k", "cross_k"))
+            for i, lp in enumerate(P["dec"]):
+                lp = self._use(lp)
+                z = _ln(lp["attn_norm"], cfg, x)
+                h, (k, v) = attention_prefill(lp["attn"], cfg, z, positions)
+                write_prompt(state.self_k[i], k, lay)
+                write_prompt(state.self_v[i], v, lay)
+                (kx, vx), heads = cross_kv_all(lp["xattn"], cfg, enc_out)
+                state.cross_k[i] = model_part(kx, lay_x)
+                state.cross_v[i] = model_part(vx, lay_x)
+                x = _dec_tail(lp, cfg, x + h, *heads)
+            logits = whole_vocab(self._logits(P, *self._tail(x, 1)))[:, 0]
+            return logits, state._replace(pos=self._pos(b, s))
 
     @torch.no_grad()
     def decode_step(self, tok: torch.Tensor, state: EncDecState
@@ -225,8 +257,7 @@ class EncDecLM(_LM):
         sinusoidal position is ``state.pos``."""
         cfg = self.cfg
         P, _ = self.serve_params()
-        P = dict(P, **self._use({k: v for k, v in P.items()
-                                 if k not in ("enc", "dec")}))
+        P = self._use_top(P)
         tok = torch.as_tensor(tok, device=self.device)
         x = apply_embed(P["embed"], cfg, tok[:, None])
         x = x + _sinusoid_at(state.pos, cfg.d_model)[:, None].to(x.dtype)

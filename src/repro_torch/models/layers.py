@@ -32,6 +32,16 @@ MLP and attention run on the rank's d_ff columns and heads
 that cuts a head is gathered over ``"model"`` (kimi-k2's 2 KV heads at 4
 ranks), and each local query head reads its own KV head.  Replicated
 biases are entered into the region and sliced to the local columns.
+
+With ``cfg.seq_shard_activations`` (Megatron sequence parallelism, the
+JAX package's ``residual_shard``) and a sequence the ``"model"`` axis
+divides (:func:`.sharding.sequence`), the residual stream between the
+regions is the rank's slice of the sequence: the embedding leaves
+through a reduce-scatter, attention, the MLP and ``lm_head`` enter by an
+all-gather of the sequence (RoPE takes the gathered positions) and leave
+by a reduce-scatter, ``b_down`` is added on the slice, and a layer that
+``"model"`` does not split gathers the sequence where it mixes it
+(attention) and keeps its slice of the output.
 """
 from __future__ import annotations
 
@@ -167,17 +177,32 @@ def init_embed(gen, cfg: ArchConfig) -> Params:
                                  pdtype(cfg), scale=0.02)}
 
 
-def apply_embed(p: Params, cfg: ArchConfig, ids: torch.Tensor) -> torch.Tensor:
+def apply_embed(p: Params, cfg: ArchConfig, ids: torch.Tensor,
+                prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The embeddings of ``ids`` (b, s), after ``prefix`` (b, n, d) when
+    given (the VLM's projected patches, the same on every rank).  With
+    the sequence split over ``"model"`` (:func:`.sharding.seq_split`),
+    the rank's slice of the (prefixed) sequence."""
     table = p["table"].to(cdtype(cfg))
     tp = sharding.tp_split(table, 0)
     if tp is None:
-        return table[ids.long()]
+        x = table[ids.long()]
+        if prefix is not None:
+            x = torch.cat([prefix, x], dim=1)
+        sp = sharding.seq_split()
+        return x if sp is None else sp.own(x)
     # vocab-parallel: the rows of the rank's slice, zero elsewhere, summed
     n = table.shape[0]
     local = ids.long() - tp.rank * n
     inside = (local >= 0) & (local < n)
-    x = table[local.clamp(0, n - 1)]
-    return tp.sum(torch.where(inside[..., None], x, 0))
+    x = torch.where(inside[..., None], table[local.clamp(0, n - 1)], 0)
+    if prefix is None:
+        return tp.leave(x)
+    if not tp.seq:
+        return torch.cat([prefix, tp.sum(x)], dim=1)
+    # the prefix enters the ranks' sum once, from the first rank
+    lead = prefix if tp.rank == 0 else torch.zeros_like(prefix)
+    return tp.leave(torch.cat([lead, x], dim=1))
 
 
 def init_lm_head(gen, cfg: ArchConfig) -> Params:
@@ -186,9 +211,13 @@ def init_lm_head(gen, cfg: ArchConfig) -> Params:
 
 
 def apply_lm_head(p: Optional[Params], cfg: ArchConfig, x: torch.Tensor,
-                  embed: Optional[Params] = None) -> torch.Tensor:
+                  embed: Optional[Params] = None,
+                  tail: Optional[int] = None) -> torch.Tensor:
     """Logits over ``padded_vocab``, the padding tail masked to -1e30 (so a
-    softmax or argmax sees exactly the real vocabulary)."""
+    softmax or argmax sees exactly the real vocabulary); of the last
+    ``tail`` positions only when given.  With the sequence split over
+    ``"model"``, ``x`` is the rank's slice and the logits are the whole
+    sequence's (gathered before the vocab-parallel matmul)."""
     if cfg.tie_embeddings and embed is not None:
         tp = sharding.tp_split(embed["table"], 0)
         w = embed["table"].to(cdtype(cfg)).T
@@ -198,7 +227,12 @@ def apply_lm_head(p: Optional[Params], cfg: ArchConfig, x: torch.Tensor,
     first = 0
     if tp is not None:
         # vocab-parallel: the rank's slice of the logits
-        x, first = tp.copy(x), tp.rank * w.shape[-1]
+        x, first = tp.enter(x), tp.rank * w.shape[-1]
+    elif sharding.seq_split() is not None:
+        raise ValueError(f"{cfg.name}: a split sequence needs the LM head "
+                         f"split over the vocabulary")
+    if tail is not None:
+        x = x[:, -tail:]
     logits = x @ w
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(first, first + logits.shape[-1],
@@ -232,7 +266,7 @@ def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     tp = sharding.tp_split(p["w_down"], 0)
     b_up = p.get("b_up")
     if tp is not None:
-        x = tp.copy(x)
+        x = tp.enter(x)
         if b_up is not None:
             b_up = tp.block(tp.copy(b_up), -1, p["w_down"].shape[0])
     up = x @ p["w_up"].to(dt)
@@ -244,7 +278,7 @@ def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")        # jax.nn.gelu's default
     out = h @ p["w_down"].to(dt)
     if tp is not None:
-        out = tp.sum(out)
+        out = tp.leave(out)
     if "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
@@ -434,7 +468,7 @@ def _tp_out(hs: _Heads, cfg: ArchConfig, p: Params, out: torch.Tensor,
     rows = p["wo"].shape[0]
     if out.shape[-1] != rows:              # every head computed here
         out = tp.block(out, -1, rows)
-    return tp.sum(out @ p["wo"].to(cdtype(cfg)))
+    return tp.leave(out @ p["wo"].to(cdtype(cfg)))
 
 
 def _tp_q(hs: _Heads, cfg: ArchConfig, x: torch.Tensor, positions):
@@ -454,18 +488,24 @@ def apply_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Training self-attention over the full sequence: y (b, s, d); over
     a ``"model"`` axis on the rank's heads."""
-    b, s, _ = x.shape
     tp = sharding.tp_split(p["wo"], 0)
     if tp is not None:
         hs = _tp_heads(p, cfg, tp)
-        x = tp.copy(x)
+        x = tp.enter(x)
+        b, s, _ = x.shape
         q = _tp_q(hs, cfg, x, positions)
         k, v = _tp_kv(hs, cfg, x, positions)
         out = sdpa(cfg, q, k, v, causal)
         return _tp_out(hs, cfg, p, out.reshape(b, s, -1), tp)
+    sp = sharding.seq_split()
+    if sp is not None:
+        # every head on every rank, over the gathered sequence
+        x = sp.enter(x)
+    b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = sdpa(cfg, q, k, v, causal)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
+    y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
+    return y if sp is None else sp.own(y)
 
 
 # ---------------------------------------------------- serving on a mesh
@@ -671,20 +711,24 @@ def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """Returns (y, (k, v)) — k and v in (b, s, kvh, hd), every KV head;
     over a ``"model"`` axis the attention runs on the rank's query
     heads."""
-    b, s, _ = x.shape
     tp = sharding.tp_split(p["wo"], 0)
     if tp is not None:
         hs = _tp_heads(p, cfg, tp, kv=False)
-        x = tp.copy(x)
+        x = tp.enter(x)
+        b, s, _ = x.shape
         k, v = _kv_all(p, cfg, x, positions)
         out = sdpa(cfg, _tp_q(hs, cfg, x, positions),
                    _kv_of_heads(hs, cfg, k), _kv_of_heads(hs, cfg, v),
                    causal=True)
         return _tp_out(hs, cfg, p, out.reshape(b, s, -1), tp), (k, v)
+    sp = sharding.seq_split()
+    if sp is not None:
+        x = sp.enter(x)
+    b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = sdpa(cfg, q, k, v, causal=True)
     y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(cdtype(cfg))
-    return y, (k, v)
+    return (y if sp is None else sp.own(y)), (k, v)
 
 
 def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -736,7 +780,9 @@ def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if tp is not None:
         # the rank's heads; kv_k, kv_v are init_cross_kv's for them
         hs = _tp_heads(p, cfg, tp, kv=False)
-        q = _tp_q(hs, cfg, tp.copy(x), None)
+        x = tp.enter(x)
+        b, s, _ = x.shape
+        q = _tp_q(hs, cfg, x, None)
         out = sdpa(cfg, q, kv_k, kv_v, causal=False)
         return _tp_out(hs, cfg, p, out.reshape(b, s, -1), tp)
     q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.hd)

@@ -36,7 +36,12 @@ dispatch runs over the ``"model"`` group with the rank's experts
 gathered over the FSDP axes (as JAX all-gathers them over ``"data"``):
 every ``"model"`` rank sends its copy of its tokens, and, as JAX's
 ``shard_map`` transpose does, the copies' gradients are averaged.  The
-shared expert is tensor-parallel as an MLP.
+shared expert is tensor-parallel as an MLP.  With the sequence split
+over ``"model"`` (sequence parallelism) the router runs on the rank's
+slice, f_e and p_e summed over the slices, and the routes and tokens are
+gathered, so the capacity groups are the global batch's as before; the
+layer leaves to the slice (a reduce-scatter of the rank's experts'
+parts; the shuffle dispatch keeps its slice of every token's output).
 
 Router: softmax and top-k with renormalisation, and the load-balancing
 auxiliary loss.  Top-k breaks ties explicitly, lower expert id first, as
@@ -55,6 +60,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core import distributed as D
 from ..core.distributed import (all_reduce, all_to_all, scale_grad,
                                 shuffle_alltoall)
 from . import sharding
@@ -99,16 +105,23 @@ def _one_hot(ids: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
 
 
+def _route(p: Params, cfg: ArchConfig, x: torch.Tensor):
+    """x (..., d) -> (top-k ids int32, renormalised weights in the compute
+    dtype, the router's float32 probabilities)."""
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = _top_k(probs, cfg.top_k)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return ids, w.to(cdtype(cfg)), probs
+
+
 def _router(p: Params, cfg: ArchConfig, x: torch.Tensor, batch=None,
             n_total: int = 0):
     """x (..., d) -> (top-k ids int32, renormalised weights in the compute
     dtype, the load-balancing loss E sum_e f_e p_e / k).  With ``batch``
     (a mesh step's batch ranks) f_e and p_e are the means over the
     ``n_total`` tokens of every batch rank."""
-    logits = x.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    w, ids = _top_k(probs, cfg.top_k)
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    ids, w, probs = _route(p, cfg, x)
     e, k = cfg.n_experts, cfg.top_k
     if batch is None:
         f_e = _one_hot(ids, e, torch.float32).reshape(-1, k, e).mean(0).sum(0)
@@ -118,7 +131,35 @@ def _router(p: Params, cfg: ArchConfig, x: torch.Tensor, batch=None,
             -1, k, e).sum(0)).sum(0) / n_total
         p_e = batch.sum(probs.reshape(-1, e).sum(0)) / n_total
     aux = e * torch.sum(f_e * p_e) / k
-    return ids, w.to(cdtype(cfg)), aux
+    return ids, w, aux
+
+
+def _route_slice(p: Params, cfg: ArchConfig, x: torch.Tensor, seq, batch,
+                 n_total: int, pad: int):
+    """The router on the rank's slice of a split sequence x (b, s / m,
+    d): (every token's ids and weights (b s [+ pad], k), gathered over
+    ``seq``, the ``"model"`` axis, in the rank's token order, the zero
+    tokens of ``pad`` after them; the load-balancing loss over the
+    ``n_total`` tokens of every rank).  f_e and p_e are summed over the
+    slices (each rank's probabilities get the gradient of its own
+    tokens) and the batch ranks; the ``pad`` zero tokens (the einsum
+    path's padding, on the last batch rank) enter them once."""
+    e, k = cfg.n_experts, cfg.top_k
+    ids, w, probs = _route(p, cfg, x)
+    f = seq.sum(_one_hot(ids, e, torch.float32).reshape(-1, k, e).sum(0))
+    pe = seq.sum(probs.reshape(-1, e).sum(0))
+    if batch is not None:
+        f, pe = batch.sum(f), batch.sum(pe)
+    ids = D.enter_sequence(ids, seq.group).reshape(-1, k)
+    w = seq.enter(w).reshape(-1, k)
+    if pad:
+        zi, zw, zp = _route(p, cfg, x.new_zeros((pad, x.shape[-1])))
+        f = f + _one_hot(zi, e, torch.float32).sum(0)
+        pe = pe + zp.sum(0)
+        if batch is None or batch.index == batch.size - 1:
+            ids, w = torch.cat([ids, zi]), torch.cat([w, zw])
+    aux = e * torch.sum(f.sum(0) / n_total * (pe / n_total)) / k
+    return ids, w, aux
 
 
 def _mesh_batch():
@@ -142,16 +183,17 @@ def _expert_ffn(p: Params, cfg: ArchConfig, xe: torch.Tensor,
 def _add_shared(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 y: torch.Tensor) -> torch.Tensor:
     """``y`` plus the shared expert's output: over a ``"model"`` axis on
-    the rank's d_ff columns, summed over the axis."""
+    the rank's d_ff columns, summed over the axis (with the sequence
+    split, ``x`` and ``y`` the rank's slice)."""
     if not cfg.shared_expert:
         return y
     dt, sp = cdtype(cfg), p["shared"]
     tp = sharding.tp_split(sp["w_down"], 0)
     if tp is not None:
-        x = tp.copy(x)
+        x = tp.enter(x)
     h = F.silu(x @ sp["w_gate"].to(dt)) * (x @ sp["w_up"].to(dt))
     out = h @ sp["w_down"].to(dt)
-    return y + (out if tp is None else tp.sum(out))
+    return y + (out if tp is None else tp.leave(out))
 
 
 # ----------------------------------------------------------- einsum path
@@ -171,15 +213,18 @@ class Routes(NamedTuple):
 
 
 def _route_tokens(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                  group: int = 512, batch=None) -> Routes:
+                  group: int = 512, batch=None, seq=None) -> Routes:
     """Routes of x's tokens in groups of ``min(group, tokens)``, the last
     one zero-padded.  With ``batch`` (a mesh step's batch ranks) the
     tokens are every batch rank's in row order (the padding on the last
     rank), and each choice's position adds the lower ranks' counts of its
-    group and expert to the rank's own exclusive prefix sum."""
+    group and expert to the rank's own exclusive prefix sum.  With
+    ``seq`` (the ``"model"`` axis of a split sequence) x is the rank's
+    slice, routed there (:func:`_route_slice`), and the routes are its
+    rows' whole sequences' (the tokens gathered)."""
     d = x.shape[-1]
     e, k = cfg.n_experts, cfg.top_k
-    tokens = x.reshape(-1, d)
+    tokens = (x if seq is None else seq.enter(x)).reshape(-1, d)
     n, r = (1, 0) if batch is None else (batch.size, batch.index)
     t_l = tokens.shape[0]
     t_total = t_l * n
@@ -188,12 +233,18 @@ def _route_tokens(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if pad and r == n - 1:
         tokens = F.pad(tokens, (0, 0, 0, pad))
     cap = max(1, math.ceil(group * k / e * cfg.capacity_factor))
+    if seq is not None:
+        ids, w, aux = _route_slice(p, cfg, x, seq, batch, t_total + pad, pad)
     if batch is None:
         xg = tokens.reshape(-1, group, d)
-        ids, w, aux = _router(p, cfg, xg)
+        if seq is None:
+            ids, w, aux = _router(p, cfg, xg)
+        else:
+            ids, w = ids.reshape(-1, group, k), w.reshape(-1, group, k)
         lead = 0
     else:
-        ids, w, aux = _router(p, cfg, tokens, batch, t_total + pad)
+        if seq is None:
+            ids, w, aux = _router(p, cfg, tokens, batch, t_total + pad)
         start = r * t_l
         lead, tail = start % group, -(start + tokens.shape[0]) % group
         fill = lambda t, v: torch.cat([t.new_full((lead, t.shape[1]), v), t,
@@ -238,9 +289,12 @@ def _moe_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """x (b, s, d): tokens in groups of ``group``, capacity a (group,
     expert) ``ceil(group k / E cf)``; on a mesh over the global batch, and
     over ``"model"`` on the rank's experts, summed over the axis."""
+    seq = sharding.seq_split()
     b, s, d = x.shape
     dt = cdtype(cfg)
-    r = _route_tokens(p, cfg, x, group, batch=_mesh_batch())
+    r = _route_tokens(p, cfg, x, group, batch=_mesh_batch(), seq=seq)
+    if seq is not None:
+        s = s * seq.size                     # the rows' whole sequences
     onehot = _one_hot(r.ids, cfg.n_experts, dt)                  # (g,t,k,e)
     pos_oh = _one_hot(torch.where(r.keep, r.pos, r.cap), r.cap, dt)
     xg, w = r.xg.to(dt), torch.where(r.keep, r.w, 0).to(dt)
@@ -258,9 +312,13 @@ def _moe_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
     oh_w = onehot * w[..., None]
     comb = torch.einsum("gtke,gtkc->gtec", oh_w, pos_oh)
     y = torch.einsum("gecd,gtec->gtd", ye, comb)
-    if tp is not None:
+    if tp is not None and seq is None:
         y = tp.sum(y)
     y = y.reshape(-1, d)[r.lead:r.lead + b * s].reshape(b, s, d)
+    if seq is not None:
+        # the rank's experts' parts summed over the slices, or every
+        # expert's output cut to the slice
+        y = seq.leave(y) if tp is not None else seq.own(y)
     return MoEOut(y=_add_shared(p, cfg, x, y), aux_loss=r.aux,
                   dropped_frac=r.dropped)
 
@@ -295,11 +353,20 @@ def _moe_shuffle(p: Params, cfg: ArchConfig, x: torch.Tensor) -> MoEOut:
     dt = cdtype(cfg)
     dev = x.device
     batch = _mesh_batch()
-    ids, w, aux = _router(p, cfg, x, batch, b * s * (batch.size if batch
-                                                      else 1))
-    tp = sharding.tp()
+    seq = sharding.seq_split()
     x_in = x
-    if tp is not None:
+    if seq is not None:
+        # routed on the slice; every "model" rank sends its rows' whole
+        # sequences and keeps the output of its slice
+        s = s * seq.size
+        ids, w, aux = _route_slice(p, cfg, x, seq, batch, b * s * (
+            batch.size if batch else 1), 0)
+        x_in = seq.enter(x)
+    else:
+        ids, w, aux = _router(p, cfg, x, batch, b * s * (batch.size if batch
+                                                          else 1))
+    tp = sharding.tp()
+    if tp is not None and seq is None:
         # every "model" rank sends its copy of the tokens
         x_in, w = tp.copy(x), tp.copy(w)
 
@@ -343,7 +410,9 @@ def _moe_shuffle(p: Params, cfg: ArchConfig, x: torch.Tensor) -> MoEOut:
     slots = back.new_zeros((n_items + 1, d))
     slots[torch.where(back_ok, back_slot.long(), n_items)] = contrib
     y = slots[:-1].reshape(t_l, k, d).sum(1).reshape(b, s, d)
-    if tp is not None:
+    if seq is not None:
+        y = seq.own(y)
+    elif tp is not None:
         # the copies' gradients averaged (JAX's shard_map transpose)
         y = scale_grad(y, 1.0 / n_ep)
     kept = all_reduce(back_ok.sum(dtype=torch.int32), group=group)

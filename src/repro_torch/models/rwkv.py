@@ -21,7 +21,11 @@ regions.  Time mixing runs on the rank's heads where the column split of
 them), else on every head with those four gathered; ``output`` is
 row-parallel, then an all-reduce.  Channel mixing: ``wk`` column- and
 ``wv`` row-parallel with an all-reduce; ``wr`` column-parallel gates the
-rank's columns, which are then gathered.
+rank's columns, which are then gathered.  With the sequence split over
+``"model"`` (sequence parallelism) both mixes gather the sequence before
+the token shift, so a slice's first position reads the previous rank's
+last; they leave by a reduce-scatter to the rank's slice, and the
+channel mix's gate runs on the slice with every column of ``wr``.
 """
 from __future__ import annotations
 
@@ -111,15 +115,19 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
     returns (S after the last token (b, h, dk, dv) float32, x_last (b, d)
     float32) for prefill -> decode."""
     dt_c = cdtype(cfg)
-    b, s, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
     tp = sharding.tp_split(p["output"], -2)
+    sp = sharding.seq_split()
     rows = p["output"].shape[-2]
+    d = x.shape[-1]
     width = d                       # the channels computed here
     if tp is not None:
         p, width = _time_region(p, d, tp)
-        x = tp.copy(x)
+        x = tp.enter(x)
         n_heads = width // hd
+    elif sp is not None:
+        x = sp.enter(x)             # every head, over the whole sequence
+    b, s, _ = x.shape
     xx = _shift(x, x.new_zeros((b, d)))
     xr, xk, xv, xw, xg = _mixes(x, xx, p["mu"].to(dt_c))
     r = (xr @ p["receptance"].to(dt_c)).reshape(b, s, n_heads, hd)
@@ -182,9 +190,9 @@ def apply_rwkv_time(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if tp is not None:
         if width == d:
             y = tp.block(y, -1, rows)
-        out = tp.sum(y @ p["output"].to(dt_c))
+        out = tp.leave(y @ p["output"].to(dt_c))
     else:
-        out = y @ p["output"].to(dt_c)
+        out = (y if sp is None else sp.own(y)) @ p["output"].to(dt_c)
     if not return_state:
         return out
     S_last = h_all[:, -1].reshape(b, n_heads, hd, hd)
@@ -220,11 +228,17 @@ def _time_region(p: Params, d: int, tp):
 def apply_rwkv_channel(p: Params, cfg: ArchConfig, x: torch.Tensor,
                        prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     dt_c = cdtype(cfg)
-    b, s, d = x.shape
     tp = sharding.tp_split(p["wv"], -2)
     if tp is not None:
         return _channel_region(p, cfg, x, prev, tp)
-    xx = _shift(x, x.new_zeros((b, d)) if prev is None else prev)
+    sp = sharding.seq_split()
+    if sp is not None:
+        # the shift reads the previous rank's last position
+        xl = sp.enter(x)
+        xx = sp.own(_shift(xl, xl.new_zeros((xl.shape[0], xl.shape[-1]))))
+    else:
+        xx = _shift(x, x.new_zeros((x.shape[0], x.shape[-1])) if prev is None
+                    else prev)
     xk, xr = _mixes(x, xx, p["mu"].to(dt_c))
     k = torch.square(F.relu(xk @ p["wk"].to(dt_c)))
     kv = k @ p["wv"].to(dt_c)
@@ -241,11 +255,17 @@ def _channel_region(p: Params, cfg: ArchConfig, x, prev, tp):
     shift = lambda t: _shift(t, t.new_zeros((b, d)) if prev is None
                              else prev)
     mu = p["mu"].to(dt_c)
-    xl = tp.copy(x)
+    xl = tp.enter(x)
     xk, xr = _mixes(xl, shift(xl), tp.copy(mu))
     k = torch.square(F.relu(xk @ p["wk"].to(dt_c)))
-    kv = tp.sum(k @ p["wv"].to(dt_c))
+    kv = tp.leave(k @ p["wv"].to(dt_c))
     n = p["wr"].shape[-1]
+    if tp.seq:
+        # the gate of the rank's slice, from the gathered mixes (whose
+        # shift reads the previous rank's last position) and every column
+        # of wr
+        wr = tp.whole(p["wr"], -1, d)
+        return torch.sigmoid(tp.own(xr) @ wr.to(dt_c)) * kv
     if n == d:
         _, xr = _mixes(x, shift(x), mu)
         return torch.sigmoid(xr @ p["wr"].to(dt_c)) * kv

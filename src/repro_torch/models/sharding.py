@@ -44,6 +44,15 @@ columns, vocabulary slice or experts (:func:`tp` gives the axis), and
 gather over ``"model"`` only a weight whose split cuts a unit
 (:func:`unit_split`: a head of ``wq``/``wk``/``wv``, ``in_proj``'s packed
 [z, x, B, C, dt] block, an RWKV head).
+
+Megatron sequence parallelism (the config's ``seq_shard_activations``,
+the JAX package's ``residual_shard``): inside a :func:`sequence` block
+whose length the ``"model"`` axis divides, the residual stream between
+the regions is the rank's slice of the sequence
+(:class:`TensorParallel`'s ``enter`` / ``leave``), and the step sums over
+``"model"`` the gradients of the whole leaves a layer took there
+(``ShardRun.seq_leaves``).  A length the axis does not divide stays
+whole, as JAX's ``shard`` drops such an axis.
 """
 from __future__ import annotations
 
@@ -68,6 +77,9 @@ _EXPERT_GROUP: contextvars.ContextVar[Optional[Any]] = contextvars.ContextVar(
     "repro_torch_expert_group", default=None)
 _SHARD_RUN: contextvars.ContextVar[Optional["ShardRun"]] = \
     contextvars.ContextVar("repro_torch_shard_run", default=None)
+#: whether the residual stream is split over "model" (:func:`sequence`)
+_SEQ: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_seq_split", default=False)
 
 
 class PartitionSpec(tuple):
@@ -464,18 +476,62 @@ class MeshGroups:
 class TensorParallel:
     """The ``"model"`` axis of a mesh step, seen from this rank: the
     Megatron pair and the gathers a layer's tensor-parallel region uses
-    (:mod:`repro_torch.core.distributed`)."""
+    (:mod:`repro_torch.core.distributed`).
+
+    Inside :func:`sequence` blocks that split the sequence (``seq``,
+    Megatron sequence parallelism) the residual stream between the
+    regions is the rank's slice of the sequence: :meth:`enter` gathers
+    it, :meth:`leave` reduce-scatters the region's output back to the
+    slice, and every value a rank computes from its slice is its part of
+    the objective's, so :meth:`copy` is the identity there (the mesh
+    step sums the gradients of the leaves used so over ``"model"``)."""
 
     def __init__(self, group, size: int, rank: int):
         self.group, self.size, self.rank = group, size, rank
 
+    @property
+    def seq(self) -> bool:
+        """Whether the residual stream is split over the axis here."""
+        return _SEQ.get()
+
     def copy(self, x):
-        """Enter the region: ``x`` (replicated) as the rank's own."""
-        return D.copy_to_region(x, self.group)
+        """``x`` (replicated) as the rank's own; with the sequence split
+        ``x`` already is."""
+        return x if self.seq else D.copy_to_region(x, self.group)
 
     def sum(self, x):
-        """Leave the region: the ranks' parts summed, replicated."""
+        """The ranks' parts summed, replicated."""
         return D.reduce_from_region(x, self.group)
+
+    def enter(self, x):
+        """Enter the region with the residual stream ``x`` (b, s, ...):
+        :meth:`copy`, or with the sequence split the ranks' slices
+        gathered (reduce-scattered in the backward)."""
+        if self.seq:
+            return D.enter_sequence(x, self.group)
+        return self.copy(x)
+
+    def leave(self, x):
+        """Leave the region: the ranks' parts summed (:meth:`sum`), or
+        with the sequence split summed and cut to the rank's slice
+        (all-gathered in the backward)."""
+        if self.seq:
+            return D.leave_sequence(x, self.group)
+        return self.sum(x)
+
+    def enter_whole(self, x):
+        """``x``, whole on every rank with the whole gradient there (made
+        where the sequence is not split), entered into a region of a
+        split sequence: the ranks' parts of its gradient summed."""
+        return D.copy_to_region(x, self.group)
+
+    def own(self, x):
+        """With the sequence split, the rank's slice of ``x`` (b, s, ...)
+        that every rank computed whole; else ``x``."""
+        if not self.seq:
+            return x
+        n = x.shape[1] // self.size
+        return x.narrow(1, self.rank * n, n)
 
     def gather_out(self, x, dim: int):
         """Leave the region: the ranks' blocks along ``dim``, replicated."""
@@ -534,12 +590,13 @@ class LeafRef:
         self.layer, self.dtype = layer, dtype
 
 
-def _tagged(t: torch.Tensor, lay: TensorLayout) -> torch.Tensor:
+def _tagged(t: torch.Tensor, lay: TensorLayout, leaf: int) -> torch.Tensor:
     """``t``, a tensor a layer computes with, marked with the dimension
     its leaf's layout splits over more than one ``"model"`` rank (None:
-    whole): what :func:`tp_split` reads."""
+    whole), what :func:`tp_split` reads, and with its leaf index."""
     md = lay.model_dim
     t.tp_dim = md if md is not None and lay.parts[md] > 1 else None
+    t.leaf_index = leaf
     return t
 
 
@@ -552,21 +609,39 @@ class ShardRun:
     over the step's gathers), and on a serving mesh the decode state's
     layouts (``state_layouts``: field name -> the :class:`TensorLayout` of
     the whole stacked leaf) and ``init_state()``, the rank's part of a
-    zeroed state (both None in training)."""
+    zeroed state (both None in training).
+
+    ``seq_shard`` (the config's ``seq_shard_activations``): Megatron
+    sequence parallelism, the residual stream of a sequence whose length
+    the ``"model"`` axis divides split over it (:func:`sequence`);
+    ``seq_leaves`` collects the indices of the leaves a layer took
+    (:func:`materialize`) while it was split, whose gradients are then
+    the rank's parts."""
 
     def __init__(self, groups: MeshGroups, layouts,
-                 batch_axes=("pod", "data")):
+                 batch_axes=("pod", "data"), seq_shard: bool = False):
         self.groups = groups
         self.layouts = list(layouts)
         m = groups.sizes.get("model", 1)
         self.tp = (TensorParallel(groups.group("model"), m,
                                   groups.coord["model"]) if m > 1 else None)
+        self.seq_shard = seq_shard
+        self.seq_leaves: set = set()
         self.expert_group = (groups.group("model")
                              if "model" in groups.names else None)
         self.batch = BatchAxes(groups, batch_axes)
         self.regions: Dict[int, torch.Tensor] = {}
         self.state_layouts: Optional[Dict[str, TensorLayout]] = None
         self.init_state: Optional[Callable[[], Any]] = None
+
+    def splits(self, length: int) -> bool:
+        """Whether a sequence of ``length`` positions is split over
+        ``"model"``: sequence parallelism on, more than one ``"model"``
+        rank, and a length the axis divides (the JAX package's rule,
+        ``repro.models.sharding.shard``: an axis that does not divide
+        its dimension is dropped)."""
+        return (self.seq_shard and self.tp is not None
+                and length % self.tp.size == 0)
 
     def refs(self, leaves, dtypes):
         """The flat trainable ``leaves`` as a layer takes them, each to be
@@ -578,7 +653,7 @@ class ShardRun:
             if lay.fsdp_axes():
                 out.append(LeafRef(p, lay, i, None, dt))
             else:
-                out.append(_tagged(p if dt is None else p.to(dt), lay))
+                out.append(_tagged(p if dt is None else p.to(dt), lay, i))
         return out
 
     def layer_refs(self, ref: LeafRef):
@@ -591,7 +666,7 @@ class ShardRun:
         """Per-layer views of flat leaf ``i`` (not a :class:`LeafRef`),
         stacked on axis 0."""
         lay = self.layouts[i].inner()
-        return [_tagged(t, lay) for t in leaf.unbind(0)]
+        return [_tagged(t, lay, i) for t in leaf.unbind(0)]
 
     def state_layout(self, name: str) -> Optional[TensorLayout]:
         """The layout of one layer's entry of the decode state's stacked
@@ -611,6 +686,8 @@ class ShardRun:
         return add
 
     def materialize(self, ref: LeafRef) -> torch.Tensor:
+        if _SEQ.get():
+            self.seq_leaves.add(ref.leaf)
         x = ref.tensor
         axes = ref.layout.fsdp_axes()
         if axes:
@@ -619,7 +696,7 @@ class ShardRun:
                               axes.index("data") if "data" in axes else None,
                               self._sink(ref))
         return _tagged(x if ref.dtype is None else x.to(ref.dtype),
-                       ref.layout)
+                       ref.layout, ref.leaf)
 
 
 def shard_run() -> Optional[ShardRun]:
@@ -662,9 +739,36 @@ def use_shard_run(run: Optional[ShardRun]):
 def materialize(tree):
     """``tree`` with each :class:`LeafRef` made the tensor its layer
     computes with (gathered over the FSDP axes, cast); other leaves as
-    they are."""
+    they are.  Inside a :func:`sequence` block that splits the sequence
+    every leaf's index goes into the run's ``seq_leaves``."""
     run = _SHARD_RUN.get()
     if run is None:
         return tree
-    return tree_map(lambda x: run.materialize(x) if isinstance(x, LeafRef)
-                    else x, tree)
+
+    def use(x):
+        if isinstance(x, LeafRef):
+            return run.materialize(x)
+        if _SEQ.get() and hasattr(x, "leaf_index"):
+            run.seq_leaves.add(x.leaf_index)
+        return x
+    return tree_map(use, tree)
+
+
+@contextlib.contextmanager
+def sequence(length: int):
+    """Inside the block the residual stream of a sequence of ``length``
+    positions is split over ``"model"`` where the active mesh step's
+    :meth:`ShardRun.splits` it (Megatron sequence parallelism), else
+    whole."""
+    run = _SHARD_RUN.get()
+    token = _SEQ.set(run is not None and run.splits(length))
+    try:
+        yield
+    finally:
+        _SEQ.reset(token)
+
+
+def seq_split() -> Optional[TensorParallel]:
+    """The ``"model"`` axis where the residual stream is split over it
+    (inside a :func:`sequence` block that splits), else None."""
+    return tp() if _SEQ.get() else None

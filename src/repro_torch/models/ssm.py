@@ -15,6 +15,11 @@ dt] into one column block, which a ``"model"`` split always cuts, so it
 is gathered over the axis, and every rank runs the whole block (and
 ``ssm_scan``) on all of its channels; ``out_proj``'s rows are gathered
 too, so the block is one device's, with no all-reduce of its output.
+With the sequence split over ``"model"`` (sequence parallelism) the
+block gathers the sequence, scans all of it, and keeps the output of the
+rank's slice; each rank then back-propagates its slice only, so the
+gathered projections' gradients are the ranks' parts, reduce-scattered
+over the axis.
 
 Decode is the single-step recurrent update, O(1) in context length.
 Initialisers draw from an explicit ``torch.Generator``, as
@@ -107,15 +112,21 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """Prefill forward.  x: (b, s, d).  With ``return_state`` also returns
     the :class:`MambaState` after the last token (for prefill -> decode)."""
     dt_c = cdtype(cfg)
+    sp = sharding.seq_split()
+    if sp is not None:
+        x = sp.enter(x)                 # the scan runs over every position
     b, s, _ = x.shape
     d_in, n_heads, d_state = ssm_dims(cfg)
     q = cfg.ssm_chunk
     for k, dim in (("in_proj", -1), ("out_proj", -2)):
         # over "model": the whole block on every rank, from the weights
-        # gathered
+        # gathered (with the sequence split each rank back-propagates its
+        # slice only, so their gradients are parts, summed over the axis)
         tp = sharding.tp_split(p[k], dim)
         if tp is not None:
-            p = dict(p, **{k: tp.gather_out(p[k], dim)})
+            full = p[k].shape[dim] * tp.size
+            p = dict(p, **{k: tp.whole(p[k], dim, full) if sp is not None
+                           else tp.gather_out(p[k], dim)})
     proj = x @ p["in_proj"].to(dt_c)
     z, xs, b_mat, c_mat, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xs, b_mat, c_mat], -1)
@@ -179,6 +190,8 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     y = y + p["D"][:, None] * xs.reshape(b, s_pad, n_heads, SSM_HEAD)[:, :s]
     y = y.reshape(b, s, d_in).to(dt_c)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
+    if sp is not None:
+        y = sp.own(y)                   # the output of the rank's slice
     out = y @ p["out_proj"].to(dt_c)
     if not return_state:
         return out

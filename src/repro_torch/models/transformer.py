@@ -82,7 +82,8 @@ from ..configs.base import ArchConfig
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
-from .sharding import LeafRef, materialize, shard_run, tp
+from .sharding import (LeafRef, materialize, seq_split, sequence, shard_run,
+                       tp)
 from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      apply_mlp, apply_norm, attention_decode,
                      attention_prefill, cdtype, cross_entropy,
@@ -288,6 +289,16 @@ class _LM(ParamNest):
             return checkpoint(ctx.run, fn, *args, use_reentrant=False)
         return run
 
+    @staticmethod
+    def _tail(x: torch.Tensor, n: int):
+        """(the stream ``x`` for the LM head, the positions the head keeps):
+        the last ``n`` positions cut here, or with the sequence split over
+        ``"model"`` cut by the head once gathered
+        (:func:`.layers.apply_lm_head`)."""
+        if seq_split() is None:
+            return x[:, -n:], None
+        return x, n
+
     def _batch_tensor(self, batch, key: str) -> Optional[torch.Tensor]:
         v = batch.get(key)
         return None if v is None else torch.as_tensor(v, device=self.device)
@@ -405,27 +416,34 @@ class DecoderLM(_LM):
             v=torch.zeros(shape, dtype=dt, device=dev),
             pos=self._pos(batch_size, 0))
 
-    def _head(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, P: Params, x: torch.Tensor,
+              tail: Optional[int] = None) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x)
-        return apply_lm_head(P.get("lm_head"), self.cfg, x, embed=P["embed"])
+        return apply_lm_head(P.get("lm_head"), self.cfg, x, embed=P["embed"],
+                             tail=tail)
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
-        return whole_vocab(self._head(P, x))[:, 0]
+        """The last position's logits (B, V) of the stream ``x``."""
+        return whole_vocab(self._head(P, *self._tail(x, 1)))[:, 0]
 
     def _embed_inputs(self, P: Params, tokens: torch.Tensor,
                       patch_embeds) -> torch.Tensor:
         """The token embeddings, after the projected patch embeddings for
         the VLM."""
         cfg = self.cfg
-        x = apply_embed(P["embed"], cfg, tokens)
         if cfg.family != "vlm":
-            return x
+            return apply_embed(P["embed"], cfg, tokens)
         if patch_embeds is None:
             raise ValueError(f"{cfg.name}: the VLM needs patch_embeds "
                              f"(B, n_patches, d)")
         dt = cdtype(cfg)
         pe = torch.as_tensor(patch_embeds, device=self.device).to(dt)
-        return torch.cat([pe @ P["vision_proj"]["w"].to(dt), x], dim=1)
+        return apply_embed(P["embed"], cfg, tokens,
+                           prefix=pe @ P["vision_proj"]["w"].to(dt))
+
+    @staticmethod
+    def _prefix_len(patch_embeds) -> int:
+        return 0 if patch_embeds is None else patch_embeds.shape[1]
 
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(ce + 0.01 aux, {"ce", "aux"}) of the JAX decoder ``loss_fn`` on
@@ -436,18 +454,20 @@ class DecoderLM(_LM):
         experts."""
         cfg = self.cfg
         P, layers = self.train_params()
-        P = self._use({k: v for k, v in P.items() if k != "layers"})
         tokens = self._batch_tensor(batch, "tokens")
-        s = tokens.shape[1]
-        x = self._embed_inputs(P, tokens, batch.get("patch_embeds"))
-        b, t_all = x.shape[:2]
-        positions = torch.arange(t_all, device=self.device).expand(b, t_all)
-        aux = torch.zeros((), device=self.device)
-        for lp in layers:
-            x, a = self._remat(lambda h, lp=lp: _block_train(
-                self._use(lp), cfg, positions, h))(x)
-            aux = aux + a
-        loss = self._ce(self._head(P, x[:, -s:]), batch)
+        b, s = tokens.shape
+        t_all = self._prefix_len(batch.get("patch_embeds")) + s
+        with sequence(t_all):
+            P = self._use({k: v for k, v in P.items() if k != "layers"})
+            x = self._embed_inputs(P, tokens, batch.get("patch_embeds"))
+            positions = torch.arange(t_all,
+                                     device=self.device).expand(b, t_all)
+            aux = torch.zeros((), device=self.device)
+            for lp in layers:
+                x, a = self._remat(lambda h, lp=lp: _block_train(
+                    self._use(lp), cfg, positions, h))(x)
+                aux = aux + a
+            loss = self._ce(self._head(P, *self._tail(x, s)), batch)
         return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
     @torch.no_grad()
@@ -460,19 +480,20 @@ class DecoderLM(_LM):
         first n_patches slots and the prompt the S after them."""
         cfg = self.cfg
         P, layers = self.serve_params()
-        P = self._use({k: v for k, v in P.items() if k != "layers"})
-        n_pre = 0 if patch_embeds is None else patch_embeds.shape[1]
+        n_pre = self._prefix_len(patch_embeds)
         tokens, max_len = self._prompt(tokens, max_len, n_pre)
-        x = self._embed_inputs(P, tokens, patch_embeds)
-        b, s = x.shape[:2]
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        state = self._new_state(b, max_len)
-        lay = self._state_layout("k")
-        for i, lp in enumerate(layers):
-            x, (k, v) = _block_prefill(self._use(lp), cfg, x, positions)
-            write_prompt(state.k[i], k, lay)
-            write_prompt(state.v[i], v, lay)
-        logits = self._logits(P, x[:, -1:])
+        b, s = tokens.shape[0], n_pre + tokens.shape[1]
+        with sequence(s):
+            P = self._use({k: v for k, v in P.items() if k != "layers"})
+            x = self._embed_inputs(P, tokens, patch_embeds)
+            positions = torch.arange(s, device=self.device).expand(b, s)
+            state = self._new_state(b, max_len)
+            lay = self._state_layout("k")
+            for i, lp in enumerate(layers):
+                x, (k, v) = _block_prefill(self._use(lp), cfg, x, positions)
+                write_prompt(state.k[i], k, lay)
+                write_prompt(state.v[i], v, lay)
+            logits = self._logits(P, x)
         return logits, state._replace(pos=self._pos(b, s))
 
     @torch.no_grad()
@@ -556,12 +577,14 @@ class HybridLM(_LM):
             shared_v=torch.zeros(kv, dtype=cdtype(cfg), device=dev),
             pos=self._pos(batch_size, 0))
 
-    def _head(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, P: Params, x: torch.Tensor,
+              tail: Optional[int] = None) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x)
-        return apply_lm_head(P["lm_head"], self.cfg, x)
+        return apply_lm_head(P["lm_head"], self.cfg, x, tail=tail)
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
-        return whole_vocab(self._head(P, x))[:, 0]
+        """The last position's logits (B, V) of the stream ``x``."""
+        return whole_vocab(self._head(P, *self._tail(x, 1)))[:, 0]
 
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"ce": loss}) of the JAX hybrid ``loss_fn``: each layer,
@@ -571,28 +594,29 @@ class HybridLM(_LM):
         cfg = self.cfg
         P, layers = self.train_params()
         shared_refs, shared_at = P["shared"], _shared_positions(cfg)
-        P = self._use({k: v for k, v in P.items()
-                       if k not in ("layers", "shared")})
         tokens = self._batch_tensor(batch, "tokens")
         b, s = tokens.shape
-        x = apply_embed(P["embed"], cfg, tokens)
-        positions = torch.arange(s, device=self.device).expand(b, s)
+        with sequence(s):
+            P = self._use({k: v for k, v in P.items()
+                           if k not in ("layers", "shared")})
+            x = apply_embed(P["embed"], cfg, tokens)
+            positions = torch.arange(s, device=self.device).expand(b, s)
 
-        def body(lp, shared, h):
-            lp = self._use(lp)
-            if shared:
-                sp = self._use(shared_refs)
-                a = apply_attention(sp["attn"], cfg,
-                                    apply_norm(sp["attn_norm"], cfg, h),
-                                    positions, causal=True)
-                h = _shared_block_tail(sp, cfg, h, a)
-            return h + ssm_mod.apply_mamba(lp["mamba"], cfg,
-                                           apply_norm(lp["norm"], cfg, h))
+            def body(lp, shared, h):
+                lp = self._use(lp)
+                if shared:
+                    sp = self._use(shared_refs)
+                    a = apply_attention(sp["attn"], cfg,
+                                        apply_norm(sp["attn_norm"], cfg, h),
+                                        positions, causal=True)
+                    h = _shared_block_tail(sp, cfg, h, a)
+                return h + ssm_mod.apply_mamba(lp["mamba"], cfg,
+                                               apply_norm(lp["norm"], cfg, h))
 
-        for i, lp in enumerate(layers):
-            x = self._remat(lambda h, lp=lp, sh=i in shared_at:
-                            body(lp, sh, h))(x)
-        loss = self._ce(self._head(P, x), batch)
+            for i, lp in enumerate(layers):
+                x = self._remat(lambda h, lp=lp, sh=i in shared_at:
+                                body(lp, sh, h))(x)
+            loss = self._ce(self._head(P, x), batch)
         return loss, {"ce": loss}
 
     @torch.no_grad()
@@ -601,36 +625,38 @@ class HybridLM(_LM):
         """tokens (B, S) -> (logits of the last position (B, V), the decode
         state: each layer's Mamba2 state after the prompt, and each shared
         invocation's K/V in slots 0..S-1 of ``max_len``)."""
-        cfg = self.cfg
-        P, layers = self.serve_params()
-        shared_refs, shared_at = P["shared"], _shared_positions(cfg)
-        P = self._use({k: v for k, v in P.items()
-                       if k not in ("layers", "shared")})
         tokens, max_len = self._prompt(tokens, max_len)
-        b, s = tokens.shape
-        x = apply_embed(P["embed"], cfg, tokens)
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        state = self._new_state(b, max_len)
-        lay_kv, lay_h = (self._state_layout(n)
-                         for n in ("shared_k", "mamba_h"))
-        inv = 0
-        for i, lp in enumerate(layers):
-            lp = self._use(lp)
-            if i in shared_at:
-                sp = self._use(shared_refs)
-                z = apply_norm(sp["attn_norm"], cfg, x)
-                h, (k, v) = attention_prefill(sp["attn"], cfg, z, positions)
-                write_prompt(state.shared_k[inv], k, lay_kv)
-                write_prompt(state.shared_v[inv], v, lay_kv)
-                inv += 1
-                x = _shared_block_tail(sp, cfg, x, h)
-            y, ms = ssm_mod.apply_mamba(lp["mamba"], cfg,
-                                        apply_norm(lp["norm"], cfg, x),
-                                        return_state=True)
-            x = x + y
-            state.mamba_h[i] = model_part(ms.h, lay_h)
-            state.mamba_conv[i] = ms.conv
-        return self._logits(P, x[:, -1:]), state._replace(pos=self._pos(b, s))
+        cfg = self.cfg
+        with sequence(tokens.shape[1]):
+            P, layers = self.serve_params()
+            shared_refs, shared_at = P["shared"], _shared_positions(cfg)
+            P = self._use({k: v for k, v in P.items()
+                           if k not in ("layers", "shared")})
+            b, s = tokens.shape
+            x = apply_embed(P["embed"], cfg, tokens)
+            positions = torch.arange(s, device=self.device).expand(b, s)
+            state = self._new_state(b, max_len)
+            lay_kv, lay_h = (self._state_layout(n)
+                             for n in ("shared_k", "mamba_h"))
+            inv = 0
+            for i, lp in enumerate(layers):
+                lp = self._use(lp)
+                if i in shared_at:
+                    sp = self._use(shared_refs)
+                    z = apply_norm(sp["attn_norm"], cfg, x)
+                    h, (k, v) = attention_prefill(sp["attn"], cfg, z,
+                                                  positions)
+                    write_prompt(state.shared_k[inv], k, lay_kv)
+                    write_prompt(state.shared_v[inv], v, lay_kv)
+                    inv += 1
+                    x = _shared_block_tail(sp, cfg, x, h)
+                y, ms = ssm_mod.apply_mamba(lp["mamba"], cfg,
+                                            apply_norm(lp["norm"], cfg, x),
+                                            return_state=True)
+                x = x + y
+                state.mamba_h[i] = model_part(ms.h, lay_h)
+                state.mamba_conv[i] = ms.conv
+            return self._logits(P, x), state._replace(pos=self._pos(b, s))
 
     @torch.no_grad()
     def decode_step(self, tok: torch.Tensor, state: HybridDecodeState
@@ -713,67 +739,74 @@ class RWKVLM(_LM):
             x_chan=torch.zeros((L, batch_size, d), device=dev),
             pos=self._pos(batch_size, 0))
 
-    def _head(self, P: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, P: Params, x: torch.Tensor,
+              tail: Optional[int] = None) -> torch.Tensor:
         x = apply_norm(P["final_norm"], self.cfg, x, kind="layernorm")
-        return apply_lm_head(P["lm_head"], self.cfg, x)
+        return apply_lm_head(P["lm_head"], self.cfg, x, tail=tail)
 
     def _logits(self, P: Params, x: torch.Tensor) -> torch.Tensor:
-        return whole_vocab(self._head(P, x))[:, 0]
+        """The last position's logits (B, V) of the stream ``x``."""
+        return whole_vocab(self._head(P, *self._tail(x, 1)))[:, 0]
 
     def loss_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"ce": loss}) of the JAX RWKV6 ``loss_fn``: time mixing
         with chunks of ``min(ssm_chunk, 64)``, then channel mixing, each
         layer under ``cfg.remat`` when ``cfg.scan_layers`` (the JAX package
         applies ``_remat`` to its ``lax.scan`` body only)."""
+        tokens = self._batch_tensor(batch, "tokens")
         cfg = self.cfg
-        P, layers = self.train_params()
-        P = self._use({k: v for k, v in P.items() if k != "layers"})
-        x = apply_embed(P["embed"], cfg, self._batch_tensor(batch, "tokens"))
-        chunk = min(cfg.ssm_chunk, 64)
+        with sequence(tokens.shape[1]):
+            P, layers = self.train_params()
+            P = self._use({k: v for k, v in P.items() if k != "layers"})
+            x = apply_embed(P["embed"], cfg, tokens)
+            chunk = min(cfg.ssm_chunk, 64)
 
-        def layer(lp, h):
-            lp = self._use(lp)
-            h = h + rwkv_mod.apply_rwkv_time(
-                lp["time"], cfg, apply_norm(lp["ln1"], cfg, h,
-                                            kind="layernorm"), chunk=chunk)
-            return h + rwkv_mod.apply_rwkv_channel(
-                lp["chan"], cfg, apply_norm(lp["ln2"], cfg, h,
-                                            kind="layernorm"))
+            def layer(lp, h):
+                lp = self._use(lp)
+                z = apply_norm(lp["ln1"], cfg, h, kind="layernorm")
+                h = h + rwkv_mod.apply_rwkv_time(lp["time"], cfg, z,
+                                                 chunk=chunk)
+                return h + rwkv_mod.apply_rwkv_channel(
+                    lp["chan"], cfg, apply_norm(lp["ln2"], cfg, h,
+                                                kind="layernorm"))
 
-        for lp in layers:
-            step = lambda h, lp=lp: layer(lp, h)
-            x = (self._remat(step) if cfg.scan_layers else step)(x)
-        loss = self._ce(self._head(P, x), batch)
-        return loss, {"ce": loss}
+            for lp in layers:
+                step = lambda h, lp=lp: layer(lp, h)
+                x = (self._remat(step) if cfg.scan_layers else step)(x)
+            loss = self._ce(self._head(P, x), batch)
+            return loss, {"ce": loss}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, RWKVDecodeState]:
         """tokens (B, S) -> (logits of the last position (B, V), the decode
         state after the prompt).  ``max_len`` is checked, not used."""
-        cfg = self.cfg
-        P, layers = self.serve_params()
-        P = self._use({k: v for k, v in P.items() if k != "layers"})
         tokens, _ = self._prompt(tokens, max_len)
-        b, s = tokens.shape
-        x = apply_embed(P["embed"], cfg, tokens)
-        state = self._new_state(b, max_len)
-        lay = self._state_layout("S")
-        chunk = min(cfg.ssm_chunk, 64)
-        for i, lp in enumerate(layers):
-            lp = self._use(lp)
-            z = apply_norm(lp["ln1"], cfg, x, kind="layernorm")
-            y, (S, x_last) = rwkv_mod.apply_rwkv_time(
-                lp["time"], cfg, z, chunk=chunk, return_state=True)
-            x = x + y
-            z2 = apply_norm(lp["ln2"], cfg, x, kind="layernorm")
-            x = x + rwkv_mod.apply_rwkv_channel(lp["chan"], cfg, z2)
-            if S.shape[1] < cfg.d_model // rwkv_mod.RWKV_HEAD:
-                S = tp().gather_out(S, 1)       # the rank's heads: all
-            state.S[i] = model_part(S, lay)
-            state.x_time[i] = x_last
-            state.x_chan[i] = z2[:, -1]
-        return self._logits(P, x[:, -1:]), state._replace(pos=self._pos(b, s))
+        cfg = self.cfg
+        with sequence(tokens.shape[1]):
+            P, layers = self.serve_params()
+            P = self._use({k: v for k, v in P.items() if k != "layers"})
+            b, s = tokens.shape
+            x = apply_embed(P["embed"], cfg, tokens)
+            sp = seq_split()
+            state = self._new_state(b, max_len)
+            lay = self._state_layout("S")
+            chunk = min(cfg.ssm_chunk, 64)
+            for i, lp in enumerate(layers):
+                lp = self._use(lp)
+                z = apply_norm(lp["ln1"], cfg, x, kind="layernorm")
+                y, (S, x_last) = rwkv_mod.apply_rwkv_time(
+                    lp["time"], cfg, z, chunk=chunk, return_state=True)
+                x = x + y
+                z2 = apply_norm(lp["ln2"], cfg, x, kind="layernorm")
+                x = x + rwkv_mod.apply_rwkv_channel(lp["chan"], cfg, z2)
+                if S.shape[1] < cfg.d_model // rwkv_mod.RWKV_HEAD:
+                    S = tp().gather_out(S, 1)       # the rank's heads: all
+                state.S[i] = model_part(S, lay)
+                state.x_time[i] = x_last
+                # the last position: on the last rank of a split sequence
+                state.x_chan[i] = (z2 if sp is None else sp.enter(z2))[:, -1]
+            return self._logits(P, x), state._replace(pos=self._pos(b, s))
 
     @torch.no_grad()
     def decode_step(self, tok: torch.Tensor, state: RWKVDecodeState

@@ -46,7 +46,8 @@ class MeshServe:
         mp = MeshParams(model, mesh)
         self.g, self.coord, self.layouts = mp.g, mp.coord, mp.layouts
         self.batch_axes = S.batch_spec(mesh, batch) or ()
-        self.run = shmod.ShardRun(self.g, self.layouts, self.batch_axes)
+        self.run = shmod.ShardRun(self.g, self.layouts, self.batch_axes,
+                                  seq_shard=cfg.seq_shard_activations)
         whole = build_model(cfg, device="meta").init_decode_state(batch,
                                                                   max_len)
         self.state_type = type(whole)

@@ -25,7 +25,15 @@ step on every rank of the mesh:
                 gradient over ``"data"``: data rank j keeps its *region*
                 of the leaf (the part whose index along the ``"data"``
                 axis of its spec is j); a leaf no FSDP axis splits is
-                all-reduced over ``"data"``.  Then the ``"pod"`` hop on the
+                all-reduced over ``"data"``.  A leaf that ``"model"``
+                does not split and that a layer took while the sequence
+                was split over ``"model"`` (Megatron sequence
+                parallelism, ``cfg.seq_shard_activations``: norms, biases
+                added after a region, the small SSM and RWKV leaves) has
+                on each ``"model"`` rank the part of its slice of the
+                sequence, so its region is also summed over ``"model"``
+                (without it those ranks hold the same whole gradient).
+                Then the ``"pod"`` hop on the
                 region, an exact SUM (``"auto"``) or the error-feedback
                 int8 mean of :func:`repro_torch.optim.compress.
                 compressed_allreduce` (``"compressed"``, per-pod residuals
@@ -46,9 +54,14 @@ the data half of (c) run once a microbatch, their regions and losses
 summed in the parameter dtype, then divided by ``accum``, and the pod hop,
 the update and the loss's mean run once a step.
 
+With sequence parallelism the residual stream between the layers' regions
+is the rank's slice of the sequence (:class:`~repro_torch.models.sharding.
+TensorParallel`): a region enters by an all-gather of the sequence and
+leaves by a reduce-scatter where it would all-reduce, and a checkpointed
+layer saves its slice.
+
 Collectives over a group of one rank are the identity and are skipped; at
 one rank the step runs the one-device step's operations.
-Megatron sequence parallelism (``seq_shard_activations``) is not ported.
 """
 from __future__ import annotations
 
@@ -112,7 +125,9 @@ class MeshStep:
         self.state_specs = state_shardings(opt, self.specs, params, mesh)
         self.state_layouts = self._state_layouts(params)
         self.n_ranks = self.g.size(self.g.names)
-        self.run = shmod.ShardRun(self.g, self.layouts)
+        self.run = shmod.ShardRun(
+            self.g, self.layouts,
+            seq_shard=model.cfg.seq_shard_activations)
         mp.keep_shards(params)
 
     # -- state ---------------------------------------------------------
@@ -262,8 +277,10 @@ class MeshStep:
 
     def _grads(self, rows):
         """(the loss, each leaf's region of the gradient summed over
-        ``"data"``): over ``accum`` microbatches of ``rows``, their sum
-        in the parameter dtype over ``accum``."""
+        ``"data"``, and over ``"model"`` where :meth:`_model_summed`):
+        over ``accum`` microbatches of ``rows``, their sum in the
+        parameter dtype over ``accum``."""
+        self.run.seq_leaves = set()
         if self.accum == 1:
             loss, parts = self._backward(rows)
         else:
@@ -293,10 +310,19 @@ class MeshStep:
                 parts = [g / a for g in sums]
             del sums
             loss = lsum / a
-        for r, lay in zip(parts, self.layouts):
-            if not lay.fsdp_axes():
-                self.g.all_reduce(r, ("data",))
+        for i, (r, lay) in enumerate(zip(parts, self.layouts)):
+            axes = () if lay.fsdp_axes() else ("data",)
+            if self._model_summed(i, lay):
+                axes += ("model",)
+            self.g.all_reduce(r, axes)
         return loss, parts
+
+    def _model_summed(self, i: int, lay: TensorLayout) -> bool:
+        """Whether leaf ``i``'s gradient is the ``"model"`` ranks' parts:
+        a layer took it while the sequence was split over ``"model"``,
+        which does not split the leaf."""
+        return i in self.run.seq_leaves and (
+            lay.model_dim is None or lay.parts[lay.model_dim] == 1)
 
     def step_local(self, params, opt_state, ef_state, rows):
         """One superstep on this rank's ``rows`` of the batch

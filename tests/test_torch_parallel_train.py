@@ -39,6 +39,15 @@ the port's state, bit for bit.  The MoE (einsum and, in an expert group of
 one gloo rank, shuffle), VLM and enc-dec reduced configs train as the JAX
 ``Trainer(mesh=None)`` does, step for step.  ``torchrun ...
 repro_torch.launch.train --mesh host`` prints one JSON line.
+
+Sequence parallelism (``--cases train-sp`` on the same 4-rank spawn): with
+``seq_shard_activations`` every family trains on (1, 1, 4) and (1, 2, 2)
+with the residual stream's sequence split over "model", held to the JAX
+Trainer as above, to the same layout without the flag and, on rank 0, to
+one device; kimi-k2's MoE aux and drops equal the run without the flag;
+two planted faults miss one device; ``MeshServe``'s prefill with the
+prompt split equals the JAX model; a two-microbatch SP step's counts on
+gloo equal the per-rank dry run's.
 """
 import json
 import os
@@ -144,8 +153,8 @@ def _started(tmp_path_factory):
     np.savez(root / "keys.npz", **keys)
     procs = {}
     for world in WORLDS:
-        cases = ("train,elastic-train,mesh-serve,mesh-count" if world == 4
-                 else "train")
+        cases = ("train,elastic-train,mesh-serve,mesh-count,train-sp"
+                 if world == 4 else "train")
         procs[world] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.dist_check", "--world",
              str(world), "--out", str(root / f"w{world}"), "--cases", cases,
@@ -605,10 +614,102 @@ def test_rank_counts_equal_the_per_rank_dry_run(case, ranks):
     from repro_torch.launch import dryrun
     arch, over, shape, mesh = case
     cfg = get_config(arch, reduced=True, **over)
-    tag = f"count-{arch}-{shape[3]}"
+    tag = f"count-{arch}-{shape[0]}"
     for r, res in enumerate(ranks[4][1]):
         got = json.loads(str(res[f"{tag}/per-rank/#record"]))
         want = dryrun.mesh_dry_run(cfg, ShapeConfig(*shape), mesh, rank=r)
         for key in ("cost", "kernels", "collectives"):
             assert got[key] == want[key], (r, key)
         assert want["collectives"]["raw_total"] > 0
+
+
+# ------------------------------------------- Megatron sequence parallelism
+SP_LAYOUTS = [(a, s) for a in DC.SP_ARCHS for s in DC.SP_MESHES]
+
+
+def _sp_tag(arch, shape):
+    return f"train-sp-{arch}-{'x'.join(map(str, shape))}"
+
+
+@pytest.mark.parametrize("arch,shape", SP_LAYOUTS, ids=[
+    f"{a}-{'x'.join(map(str, s))}" for a, s in SP_LAYOUTS])
+def test_sequence_parallel_trainer_matches_jax(arch, shape, ranks,
+                                               jax_runs):
+    """With ``seq_shard_activations`` the residual stream's sequence is
+    split over "model" (at (1, 1, 4) and (1, 2, 2) the 16 positions a row
+    into 4 or 2 slices): every rank's losses and final params equal the
+    one-device JAX Trainer's (whose flag without a mesh changes nothing,
+    ``test_jax_seq_shard_flag_needs_a_mesh``) within 1e-5, rwkv6 without
+    the per-leaf rule; dist_check held each run to the same layout
+    without the flag and, on rank 0, to one device (losses, the whole
+    tree, each leaf's first-step gradient within 2e-4 of its max)."""
+    _, want_losses, want_params, _ = jax_runs[arch]
+    for r, res in enumerate(ranks[4][1]):
+        losses, params = _run(res, _sp_tag(arch, shape), "mesh")
+        assert len(losses) == STEPS
+        DC._held(losses, params, want_losses, want_params, DC.TRAIN_TOL,
+                 f"{arch} {shape} sp rank {r}",
+                 per_leaf=arch not in DC.GRAD_HELD)
+        plain = res[f"{_sp_tag(arch, shape)}/plain/0"]
+        np.testing.assert_allclose(losses, plain, rtol=DC.TRAIN_TOL, atol=0)
+
+
+def test_sequence_parallel_moe_aux_and_drops(ranks):
+    """kimi-k2 routes on each rank's slice and gathers the routes: each
+    MoE layer's first-step aux loss and dropped fraction equal the run
+    without the flag (the global batch's: the capacity groups span the
+    slices and the batch ranks), which drops choices; dist_check held
+    llama4-scout's shuffle dispatch so too."""
+    arch = "kimi-k2-1t-a32b"
+    for shape in DC.SP_MESHES:
+        for res in ranks[4][1]:
+            got = res[f"{_sp_tag(arch, shape)}/moe/0"]
+            want = res[f"{_tag(arch, shape)}/moe/0"]
+            np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-5,
+                                       atol=0)
+            np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    assert want[:, 1].max() > 0
+
+
+@pytest.mark.parametrize("mutant", list(DC.SP_MUTANTS))
+def test_sequence_parallel_mutants_fail_the_hold(mutant, ranks):
+    """The planted faults (``dist_check.SP_MUTANTS``): without the "model"
+    sum of the gradients of the leaves used on the slice (qwen's norm
+    scales and biases), or with RWKV's channel mix shifting the rank's
+    slice (which misses the previous rank's last position) rather than
+    the gathered sequence, the run is not held to one device."""
+    res = ranks[4][1][0]
+    assert not bool(res[f"train-sp-mutant-{mutant}/per-rank/#held"])
+
+
+@pytest.mark.parametrize("arch,shape,batch", DC.SP_SERVE_CASES)
+def test_sequence_parallel_prefill_matches_jax(arch, shape, batch, ranks,
+                                               jax_serve):
+    """``MeshServe`` prefill with the prompt's 8 positions split over the
+    4 "model" ranks (the decode step's one position stays whole): every
+    rank's logits and tokens, and the next decode step's logits, equal
+    the one-device JAX model's within 2e-4."""
+    want_prefill, want_step = jax_serve[arch]
+    tag = f"serve-sp-{arch}-{'x'.join(map(str, shape))}"
+    for res in ranks[4][1]:
+        logits, step = res[f"{tag}/per-rank/0"], res[f"{tag}/per-rank/1"]
+        np.testing.assert_allclose(logits, want_prefill, rtol=SERVE_TOL,
+                                   atol=SERVE_TOL)
+        np.testing.assert_array_equal(np.argmax(logits, -1),
+                                      np.argmax(want_prefill, -1))
+        np.testing.assert_allclose(step, want_step, rtol=SERVE_TOL,
+                                   atol=SERVE_TOL)
+
+
+def test_jax_seq_shard_flag_needs_a_mesh():
+    """The JAX package's ``residual_shard``, through which every layer
+    the flag touches returns, is a sharding constraint: without a mesh
+    it hands back its input with the flag set, so the one-device JAX
+    Trainer the sequence-parallel runs are held to is the one the plain
+    mesh runs are held to."""
+    from repro.models.layers import residual_shard
+    cfg = jax_get_config("qwen1.5-0.5b", reduced=True,
+                         seq_shard_activations=True)
+    x = jnp.arange(2 * 16 * cfg.d_model, dtype=jnp.float32).reshape(
+        2, 16, cfg.d_model)
+    assert residual_shard(cfg, x) is x
