@@ -218,7 +218,9 @@ exits non-zero:
               CostAccum equal the fault-free run bit for bit, the launches
               of each run (the replay included), the bytes of each
               checkpoint, host ms of the fault-free and recovered sorts;
-25. obs     — the same two queries under a recording ``Tracer`` on the
+25. obs     — the same two queries and the main search, inclusive
+              physical prefix and bsp queries (14, 15, 17) under a
+              recording ``Tracer`` on the
               kernel engine: the measured schedule equals the declared
               one, outputs and CostAccum equal the untraced query, the
               trace round-trips through JSON-lines and the Chrome trace;
@@ -235,6 +237,20 @@ exits non-zero:
               each result equal to the sequential one, its launches
               counted (one shuffle a round for each batched dispatch); the
               service's queries/s beside sequential calls' for both;
+26a. examples — the six walkthroughs of ``repro_torch.examples`` on the
+              card, each through its ``main`` (quickstart, mr_algorithms,
+              serve_queries, serve_batch, obs_demo, and train_lm at its
+              full ~100M width as zamba2-1.2b: 60 steps with a checkpoint
+              at 50, then a run that resumes at 50 to step 60 with the
+              same final loss within 1e-4): every ``correct=``,
+              ``sorted=``, ``ok`` and other flag they print true,
+              ``dropped=0``, rounds within the printed bounds; the
+              kernels each one launched (``monotone_chain`` in the 2-D
+              hulls of mr_algorithms and obs_demo, ``ssm_scan`` and its
+              backward in train_lm) and its seconds;
+              ``repro_torch.tools.trace_summary`` on obs_demo's trace
+              (exit 0, and no drift against itself) and
+              ``repro_torch.tools.check_api_surface`` (exit 0);
 26b. sharded — the sort of 2^24 keys, the 2-D hull of 2^24 points and
               the multisearch of 14 on ``ShardedEngine(shuffle_impl=
               "kernel")`` over a one-rank NCCL group this phase starts and
@@ -388,7 +404,8 @@ route's time beside that route's bound and SDPA's float32 time, and the
 ``bincount_tiles`` and ``bitonic_sort`` rows their launches by path (the
 sort, the batch-* runs, search, prefix, funnel, crcw, bsp, hull2d, hull3d
 and lp runs, the recovery, obs and query-service runs, and the sharded
-engine's sort, hull2d and multisearch; ``monotone_chain``'s row too).
+engine's sort, hull2d and multisearch; ``monotone_chain``'s row too, with
+the examples' launches).
 ``monotone_chain``'s row sums the kernel, its plain version (one call on
 host copies: the slot loop takes seconds) and the bound over the checked
 main-path inputs (16 of merge-0's runs, the finalize's run), with their
@@ -396,8 +413,9 @@ serial floor (``serial_floor_ms``), and gives the kernel's time at the
 query's own two calls as ``main_path_ms`` (``main_path_b2b_ms``) and at
 2^20 extreme points as ``worst_case_ms``.  The
 ``ssm_scan`` row's launches add the training paths' forward launches
-(phases train and train-mesh) to the serving prefills'
-(``launches_by_path``), and ``ssm_scan.bwd`` is the backward kernel's
+(phases train, train-mesh and examples' train_lm) to the serving
+prefills' (``launches_by_path``), and ``ssm_scan.bwd`` is the backward
+kernel's
 row: its launches on the main path, phase train-mesh's auto run (phase
 train's beside them), its times and bound
 summed over the two training shapes.  A kernel's times and
@@ -414,6 +432,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2327,15 +2346,42 @@ def n_plan_shuffles(plan) -> int:
     return sum(s.rounds for s in plan.stages if s.shuffles)
 
 
+def bsp_bucket_sort(torch, dev):
+    """BSP's main query (Theorem 3.1): a two-superstep bucket sort of
+    (P, n / P) uniform keys on P = BSP[0] processors at M = BSP[1].
+    Returns the plan and ``concat(result)``, the keys it leaves sorted."""
+    from repro_torch.core import BSPProgram, bsp_plan
+    Pp, M, _ = BSP
+    inf = torch.tensor(float("inf"), device=dev)
+
+    def superstep(t, ids, st, inbox, ok):
+        if t == 0:      # each key to processor floor(key * P)
+            dests = (st["keys"] * Pp).to(torch.int32).clamp_max(Pp - 1)
+            return st, dests, st["keys"]
+        # sort the inbox locally, send nothing
+        local = torch.sort(torch.where(ok, inbox, inf), dim=1).values
+        return ({"keys": local, "count": ok.sum(1)},
+                torch.full((Pp, 1), -1, dtype=torch.int32, device=dev),
+                torch.zeros((Pp, 1), device=dev))
+
+    def concat(r):
+        st = r.proc_state
+        slot = torch.arange(M, device=dev)[None, :]
+        return st["keys"][slot < st["count"][:, None]]
+
+    return bsp_plan(BSPProgram(superstep), 2, M, Pp, torch.tensor(0.0)), \
+        concat
+
+
 def search_phases(torch, dev, ops, engine, dense):
     """Phases search, prefix, funnel, crcw, bsp and queues: the paper's
     searching and simulation algorithms at full size on the kernel engine
     and the dense one, with the same draw.  Returns the queries to time,
     and the launches of the CRCW path (not timed)."""
-    from repro_torch.core import (BSPProgram, PRAMProgram, bsp_plan,
-                                  dequeue, enqueue, funnel_write_plan,
-                                  make_queues, multisearch_plan, prefix_plan,
-                                  run_queued, simulate_crcw)
+    from repro_torch.core import (PRAMProgram, dequeue, enqueue,
+                                  funnel_write_plan, make_queues,
+                                  multisearch_plan, prefix_plan, run_queued,
+                                  simulate_crcw)
     from repro_torch.core import funnel
     from repro_torch.core.mrmodel import fifo_rank
     gen = torch.Generator(device=dev)
@@ -2480,22 +2526,7 @@ def search_phases(torch, dev, ops, engine, dense):
     # -- bsp: Theorem 3.1, a two-superstep bucket sort -------------------
     Pp, M, n = BSP
     keys = torch.rand(Pp, n // Pp, device=dev, generator=gen)
-    inf = torch.tensor(float("inf"), device=dev)
-
-    def superstep(t, ids, st, inbox, ok):
-        if t == 0:      # each key to processor floor(key * P)
-            dests = (st["keys"] * Pp).to(torch.int32).clamp_max(Pp - 1)
-            return st, dests, st["keys"]
-        # sort the inbox locally, send nothing
-        local = torch.sort(torch.where(ok, inbox, inf), dim=1).values
-        return ({"keys": local, "count": ok.sum(1)},
-                torch.full((Pp, 1), -1, dtype=torch.int32, device=dev),
-                torch.zeros((Pp, 1), device=dev))
-
-    def concat(r):
-        st = r.proc_state
-        slot = torch.arange(M, device=dev)[None, :]
-        return st["keys"][slot < st["count"][:, None]]
+    bplan, concat = bsp_bucket_sort(torch, dev)
 
     def bsp_outputs(r, d, w):
         check(r.dropped_per_step.tolist() == [0, 0],
@@ -2504,9 +2535,7 @@ def search_phases(torch, dev, ops, engine, dense):
               "bsp: counts kernel vs dense")
         return [("keys", concat(r), concat(d), w)]
 
-    plan_query("bsp", bsp_plan(BSPProgram(superstep), 2, M, Pp,
-                               torch.tensor(0.0)),
-               ({"keys": keys},), None,
+    plan_query("bsp", bplan, ({"keys": keys},), None,
                lambda: torch.sort(keys.reshape(-1)).values, bsp_outputs,
                processors=Pp, M=M, keys=n, answer="torch.sort")
 
@@ -3354,17 +3383,18 @@ def recovery_phase(torch, dev, ops, engine, dense, tmp):
 
 
 def obs_phase(torch, dev, ops, engine, sort_query_ms, tmp):
-    """Phase obs: the main-path sort and 2-D hull queries with a recording
-    Tracer on the kernel engine: the schedule measured from the trace
-    equals the declared one, outputs and CostAccum equal the untraced
-    query, the trace round-trips through JSON-lines and the Chrome trace;
-    host ms per stage (median of 5 traced queries; each stage span ends in
-    the host read of its measured rounds, so it holds its device work) and
-    traced against untraced query ms.  The untraced query stays within the
-    noise of phase sort-timings."""
+    """Phase obs: the main-path sort, 2-D hull, search, inclusive prefix
+    and BSP queries with a recording Tracer on the kernel engine: the
+    schedule measured from the trace equals the declared one, outputs and
+    CostAccum equal the untraced query, the trace round-trips through
+    JSON-lines and the Chrome trace; host ms per stage (median of 5 traced
+    queries; each stage span ends in the host read of its measured rounds,
+    so it holds its device work) and traced against untraced query ms.
+    The untraced sort stays within the noise of phase sort-timings."""
     import numpy as np
     from repro_torch._tree import tree_leaves
-    from repro_torch.core import get_engine, hull2d_plan, sort_plan
+    from repro_torch.core import (get_engine, hull2d_plan, multisearch_plan,
+                                  prefix_plan, sort_plan)
     from repro_torch.obs import (Tracer, read_jsonl, summarize,
                                  write_chrome_trace, write_jsonl)
     sort_seed, hull_seed = SERVICE_SEEDS
@@ -3373,20 +3403,32 @@ def obs_phase(torch, dev, ops, engine, sort_query_ms, tmp):
     x = torch.randn(N_MAIN, device=dev, generator=gen)
     pts = torch.from_numpy(np.random.default_rng(hull_seed).standard_normal(
         (HULL2D[0], 2), dtype=np.float32)).to(dev)
+    nq, m, M = SEARCH
+    q = torch.randn(nq, device=dev, generator=gen)
+    piv = torch.randn(m, device=dev, generator=gen)
+    n_prefix, M_prefix = PREFIX
+    v = torch.randint(-100, 100, (n_prefix,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    Pp, _, n_bsp = BSP
+    keys = torch.rand(Pp, n_bsp // Pp, device=dev, generator=gen)
     out, launches = {}, {}
-    for name, plan, data, key in (("sort", sort_plan(N_MAIN, M_MAIN), x,
-                                   sort_seed),
-                                  ("hull2d", hull2d_plan(*HULL2D), pts,
-                                   hull_seed)):
+    for name, plan, data, key in (
+            ("sort", sort_plan(N_MAIN, M_MAIN), (x,), sort_seed),
+            ("hull2d", hull2d_plan(*HULL2D), (pts,), hull_seed),
+            ("search", multisearch_plan(nq, m, M), (q, piv), 5),
+            ("prefix", prefix_plan(n_prefix, M_prefix, physical=True),
+             (v,), None),
+            ("bsp", bsp_bucket_sort(torch, dev)[0], ({"keys": keys},),
+             None)):
         chain = sum(st.name.startswith(("merge-", "finalize"))
                     for st in plan.stages)
         tr = Tracer()
         traced_engine = get_engine("kernel", device=dev, tracer=tr)
         traced_exe = traced_engine.compile(plan)
         exe = engine.compile(plan)
-        want = exe(data, key=key)
+        want = exe(*data, key=key)
         got, launches[name] = kernel_query(
-            torch, ops, traced_engine, lambda e: traced_exe(data, key=key),
+            torch, ops, traced_engine, lambda e: traced_exe(*data, key=key),
             n_plan_shuffles(plan), f"obs {name}",
             others={"monotone_chain": chain} if chain else None)
         for g, w in zip(tree_leaves(got), tree_leaves(want)):
@@ -3399,16 +3441,17 @@ def obs_phase(torch, dev, ops, engine, sort_query_ms, tmp):
         check(n == len(back) == len(tr)
               and [e.signature() for e in back] == tr.signatures(),
               f"obs {name}: JSON-lines round trip")
-        m = write_chrome_trace(tr, tmp / f"{name}.perfetto.json")
+        m_events = write_chrome_trace(tr, tmp / f"{name}.perfetto.json")
         doc = json.loads((tmp / f"{name}.perfetto.json").read_text())
-        check(m == len(tr) == sum(r["ph"] != "M" for r in doc["traceEvents"]),
+        check(m_events == len(tr)
+              == sum(r["ph"] != "M" for r in doc["traceEvents"]),
               f"obs {name}: Chrome trace")
         # per-stage host ms, median over 5 traced queries after the one
         # above
         stage_ms = {r["stage"]: [] for r in s["stages"]}
         for _ in range(5):
             tr.clear()
-            traced_exe(data, key=key)
+            traced_exe(*data, key=key)
             torch.cuda.synchronize()
             for r in summarize(tr)["stages"]:
                 stage_ms[r["stage"]].append(r["wall_s"] * 1e3)
@@ -3419,15 +3462,16 @@ def obs_phase(torch, dev, ops, engine, sort_query_ms, tmp):
                         "items_sent": r["items_sent"],
                         "host_ms": statistics.median(stage_ms[r["stage"]])}
                        for r in s["stages"]],
-            "events": len(back), "chrome_trace_events": m,
-            "traced_ms": host_ms(lambda: traced_exe(data, key=key), torch),
-            "untraced_ms": host_ms(lambda: exe(data, key=key), torch)}
+            "events": len(back), "chrome_trace_events": m_events,
+            "traced_ms": host_ms(lambda: traced_exe(*data, key=key), torch),
+            "untraced_ms": host_ms(lambda: exe(*data, key=key), torch)}
+        del want, got
     untraced = out["sort"]["untraced_ms"]
     check(abs(untraced - sort_query_ms) <= max(3.0, 0.25 * sort_query_ms),
           f"obs: untraced sort {untraced:.3f} ms against sort-timings "
           f"{sort_query_ms:.3f} ms")
     emit(phase="obs", sort_timings_ms=sort_query_ms, launches=launches,
-         **out)
+         nvidia_smi=nvidia_smi_line(), **out)
     return launches
 
 
@@ -3561,8 +3605,123 @@ def service_phases(torch, dev, ops, engine, dense, sort_query_ms):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"recovery-sort": rec["sort"], "recovery-hull2d": rec["hull2d"],
-            "obs-sort": obs["sort"], "obs-hull2d": obs["hull2d"],
+            **{f"obs-{name}": n for name, n in obs.items()},
             "query-service": served}
+
+
+#: phase examples: train_lm's cut (the full ~100M width, zamba2's family
+#: so that ssm_scan and its backward run): the steps of both runs, and the
+#: checkpoint the second run resumes from
+EXAMPLE_TRAIN = ("zamba2-1.2b", 60, 50)
+#: what the examples print: flags, drop counts and rounds beside a bound
+EXAMPLE_FLAG = re.compile(r"([A-Za-z][\w -]*?)(?:=|: )(True|False)\b")
+EXAMPLE_DROPPED = re.compile(r"dropped=(\d+)")
+EXAMPLE_ROUNDS = re.compile(
+    r"rounds=(\d+),? \((?:O\([^)]*\) )?(?:bound |= )(\d+)\)")
+
+
+def examples_phase(torch, dev, ops) -> dict:
+    """Phase examples: each of ``repro_torch.examples`` through its
+    ``main`` on the card (train_lm as EXAMPLE_TRAIN, then again to resume),
+    its output read back: every flag it prints true, no drops, every
+    round count within the bound printed beside it; the kernels each
+    launched (launch counts set to 0 just before and read just after) and
+    its seconds; then the two tools on obs_demo's trace.  Returns the
+    launches by example."""
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.examples import (mr_algorithms, obs_demo, quickstart,
+                                      serve_batch, serve_queries, train_lm)
+    from repro_torch.tools import check_api_surface, trace_summary
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    arch, steps, resume_at = EXAMPLE_TRAIN
+    train = ["--arch", arch, "--ckpt-dir", str(tmp / "train_lm")]
+    runs = (("quickstart", quickstart, []),
+            ("mr_algorithms", mr_algorithms, []),
+            ("serve_queries", serve_queries, []),
+            ("serve_batch", serve_batch, []),
+            ("obs_demo", obs_demo, ["--out", str(tmp / "obs")]),
+            ("train_lm", train_lm, train + ["--steps", str(steps)]),
+            ("train_lm-resume", train_lm, train + ["--steps", str(steps)]))
+    rec, launches = {}, {}
+    try:
+        for name, mod, argv in runs:
+            buf = io.StringIO()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = mod.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name] = {k: v for k, v in ops.launches().items() if v}
+            text = buf.getvalue()
+            flags = EXAMPLE_FLAG.findall(text)
+            bounds = [(int(a), int(b)) for a, b in
+                      EXAMPLE_ROUNDS.findall(text)]
+            dropped = [int(d) for d in EXAMPLE_DROPPED.findall(text)]
+            check(all(v == "True" for _, v in flags),
+                  f"examples {name}: {[f for f in flags if f[1] != 'True']}")
+            check(not any(dropped), f"examples {name}: dropped {dropped}")
+            check(all(a <= b for a, b in bounds),
+                  f"examples {name}: rounds over their bound {bounds}")
+            rec[name] = {"seconds": seconds, "launches": launches[name],
+                         "flags": len(flags), "rounds_checked": len(bounds),
+                         "drops_checked": len(dropped),
+                         "output": text.splitlines()[-12:]}
+            if name.startswith("train_lm"):
+                rec[name].update(final_loss=result["final_loss"],
+                                 resumed_at=result["resumed_at"],
+                                 params=result["params"])
+        check(rec["quickstart"]["rounds_checked"] >= 3
+              and rec["mr_algorithms"]["rounds_checked"] >= 6
+              and rec["mr_algorithms"]["flags"] >= 12,
+              f"examples: too few checks read {rec}")
+        for name in ("mr_algorithms", "obs_demo"):
+            check(launches[name].get("monotone_chain", 0) > 0,
+                  f"examples {name}: monotone_chain not launched")
+        for name in ("train_lm", "train_lm-resume"):
+            check(launches[name].get("ssm_scan", 0) > 0
+                  and launches[name].get("ssm_scan.bwd", 0) > 0,
+                  f"examples {name}: ssm_scan launches {launches[name]}")
+        first, again = rec["train_lm"], rec["train_lm-resume"]
+        check(first["resumed_at"] is None and again["resumed_at"] == resume_at
+              and f"resumed at step {resume_at}" in "\n".join(
+                  again["output"]),
+              f"examples train_lm: resumed at {again['resumed_at']}")
+        # both runs end at the same step, the second from the first's
+        # checkpoint: the same loss
+        rec["resume_loss_rel_diff"] = abs(
+            again["final_loss"] - first["final_loss"]) / abs(
+                first["final_loss"])
+        check(math.isfinite(first["final_loss"])
+              and rec["resume_loss_rel_diff"] <= 1e-4,
+              f"examples train_lm: final losses {first['final_loss']} and "
+              f"{again['final_loss']} after resuming")
+        # the tools, on obs_demo's trace
+        trace = str(tmp / "obs" / "trace.jsonl")
+        tools = {}
+        for label, fn in (("trace_summary", lambda: trace_summary.main(
+                              [trace])),
+                          ("trace_summary --diff", lambda: trace_summary.main(
+                              [trace, "--diff", trace])),
+                          ("check_api_surface", check_api_surface.main)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = fn()
+            tools[label] = {"rc": rc, "output": buf.getvalue().splitlines()}
+            check(rc == 0, f"examples {label}: exit {rc}\n{buf.getvalue()}")
+        check("0 drifted" in tools["trace_summary --diff"]["output"][-1],
+              f"examples: trace drifts against itself "
+              f"{tools['trace_summary --diff']['output'][-1:]}")
+        rec["tools"] = {k: {"rc": v["rc"], "output": v["output"][-3:]}
+                        for k, v in tools.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="examples", train_lm_cut={"arch": arch, "steps": steps,
+                                         "checkpoint": resume_at},
+         **rec)
+    return launches
 
 
 #: the sharded-gloo phase: CPU ranks over gloo at the tests' small sizes
@@ -5645,6 +5804,16 @@ def main() -> int:
         "hull2d": chain_row["launches"],
         **{path: n["monotone_chain"] for path, n in served.items()
            if "monotone_chain" in n}}
+    # -- 26a. the examples and the tools ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples = examples_phase(torch, dev, ops)
+    emit(phase="examples-summary", seconds=time.perf_counter() - t0,
+         launches_by_example=examples)
+    chain_row["launches_by_path"].update({
+        f"examples-{name}": n["monotone_chain"]
+        for name, n in examples.items() if "monotone_chain" in n})
     # -- 26b. the sharded round machine -----------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -5697,7 +5866,10 @@ def main() -> int:
         "launches": meshed["launches"]["ssm_scan.bwd"],
         "launches_by_path": {"train": trained["launches"]["ssm_scan.bwd"],
                              "train-mesh": meshed["launches"][
-                                 "ssm_scan.bwd"]},
+                                 "ssm_scan.bwd"],
+                             "examples-train_lm": sum(
+                                 examples[n]["ssm_scan.bwd"] for n in
+                                 ("train_lm", "train_lm-resume"))},
         "max_abs_err": bwd["max_abs_err"], "ms": t["ms"],
         "b2b_ms": t["b2b_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": bound_ms(t["ops"], t["bytes"]),
@@ -5710,12 +5882,16 @@ def main() -> int:
     for row in summary:
         if row["name"] == "ssm_scan":
             # the forward kernel's launches on the training path as well
+            examples_train = sum(examples[n]["ssm_scan"]
+                                 for n in ("train_lm", "train_lm-resume"))
             row["launches_by_path"] = {
                 "serving": row["launches"],
                 "train": trained["launches"]["ssm_scan"],
-                "train-mesh": meshed["launches"]["ssm_scan"]}
+                "train-mesh": meshed["launches"]["ssm_scan"],
+                "examples-train_lm": examples_train}
             row["launches"] += (trained["launches"]["ssm_scan"]
-                                + meshed["launches"]["ssm_scan"])
+                                + meshed["launches"]["ssm_scan"]
+                                + examples_train)
     for row in summary[:2]:
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in by_path.items()}

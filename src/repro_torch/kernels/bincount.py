@@ -193,3 +193,22 @@ def _bincount(ids, n_buckets: int, device_type: str) -> torch.Tensor:
     _build.check(err, "bincount")
     launches["bincount"] += 1
     return out
+
+
+# The JAX module's public names.  Each is the device dispatch of
+# :mod:`repro_torch.kernels.ops` (imported at the call: ``ops`` imports this
+# module), so a launch is counted once, on the one path.
+def bincount(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """(n_buckets,) int32 histogram of (n,) int32 ids, ids outside
+    [0, n_buckets) ignored: :func:`repro_torch.kernels.ops.bincount`.  The
+    JAX function's ``block_t`` tiling keyword changes no result and is
+    left out."""
+    from . import ops
+    return ops.bincount(ids, n_buckets)
+
+
+def bincount_tiles(tiles: torch.Tensor, n_buckets: int) -> Tables:
+    """(counts, tile_prefix, bucket_offsets) of (T, tile_n) or (B, T,
+    tile_n) int32 ids: :func:`repro_torch.kernels.ops.bincount_tiles`."""
+    from . import ops
+    return ops.bincount_tiles(tiles, n_buckets)

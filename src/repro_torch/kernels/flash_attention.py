@@ -151,3 +151,15 @@ def _flash(q, k, v, causal: bool, device_type: str) -> torch.Tensor:
         route = lib.repro_flash_attention_route(d_pad, _DTYPES[q.dtype])
         route_launches["wgmma" if route else "cuda_core"] += 1
     return out if d_pad == d else out[..., :d].contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """The JAX module's public name, as the JAX ``ops.flash_attention``
+    takes it: q (b, hq, s, d), k and v (b, hkv, s, d), the device dispatch
+    of :func:`repro_torch.kernels.ops.flash_attention` (imported at the
+    call: ``ops`` imports this module), so a launch is counted once.  The
+    JAX kernel's own (b h, s, d) layout and its ``block_q`` / ``block_k``
+    tiling keywords, which change no result, are left out."""
+    from . import ops
+    return ops.flash_attention(q, k, v, causal=causal)

@@ -100,3 +100,13 @@ def _scan(x, exclusive: bool, device_type: str) -> torch.Tensor:
     _build.check(err, "prefix_scan")
     launches += 1
     return out
+
+
+def prefix_scan(x: torch.Tensor, *, exclusive: bool = False) -> torch.Tensor:
+    """The JAX module's public name: the device dispatch of
+    :func:`repro_torch.kernels.ops.prefix_scan` (imported at the call:
+    ``ops`` imports this module), so a launch is counted once.  The JAX
+    function's ``block_n`` tiling keyword changes no result and is left
+    out."""
+    from . import ops
+    return ops.prefix_scan(x, exclusive=exclusive)

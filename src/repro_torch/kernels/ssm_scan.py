@@ -200,3 +200,13 @@ class SsmScan(torch.autograd.Function):
         with counted("ssm_scan.bwd", lambda: ssm_scan_bwd_work(
                 *h.shape, a.dtype, h.dtype)):
             return bwd(a, h, dh)
+
+
+def ssm_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The JAX module's public name: h_t = a_t h_{t-1} + x_t, differentiable
+    through :class:`SsmScan`, by way of
+    :func:`repro_torch.kernels.ops.ssm_scan` (imported at the call: ``ops``
+    imports this module), so a launch is counted once.  The JAX function's
+    ``block_t`` tiling keyword changes no result and is left out."""
+    from . import ops
+    return ops.ssm_scan(a, x)

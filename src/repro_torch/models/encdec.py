@@ -37,7 +37,7 @@ from .layers import (Params, apply_attention, apply_embed, apply_lm_head,
                      init_lm_head, init_mlp, init_norm, model_part,
                      write_prompt)
 from .sharding import seq_split, sequence
-from .transformer import _LM, whole_vocab
+from .transformer import _LM, build, whole_vocab
 
 LN = "layernorm"
 
@@ -274,3 +274,9 @@ class EncDecLM(_LM):
             x = x + apply_mlp(lp["mlp"], cfg, _ln(lp["mlp_norm"], cfg, x))
         return (whole_vocab(self._logits(P, x))[:, 0],
                 state._replace(pos=state.pos + 1))
+
+
+def build_encdec(cfg: ArchConfig, device="cuda", seed: int = 0) -> EncDecLM:
+    """The encoder-decoder family's model
+    (:func:`repro_torch.models.transformer.build`)."""
+    return build(EncDecLM, cfg, device, seed)

@@ -171,11 +171,7 @@ class _LM(ParamNest):
     STACKED = True
 
     def __init__(self, cfg: ArchConfig, params: Params):
-        if cfg.family not in self.FAMILIES:
-            raise ValueError(
-                f"{type(self).__name__} serves family "
-                f"{' or '.join(map(repr, self.FAMILIES))}, not "
-                f"{cfg.family!r}")
+        self.check_family(cfg)
         want = self.param_names(cfg)
         if set(params) != want:
             raise ValueError(f"{cfg.name}: params nest has {sorted(params)}, "
@@ -184,6 +180,15 @@ class _LM(ParamNest):
         self.cfg = cfg
         self._compute: Optional[Tuple[Params, List[Params]]] = None
         self._compute_key: Optional[Tuple] = None
+
+    @classmethod
+    def check_family(cls, cfg: ArchConfig) -> None:
+        """Raise ``ValueError`` unless the class serves ``cfg.family``."""
+        if cfg.family not in cls.FAMILIES:
+            raise ValueError(
+                f"{cls.__name__} serves family "
+                f"{' or '.join(map(repr, cls.FAMILIES))}, not "
+                f"{cfg.family!r}")
 
     @property
     def device(self) -> torch.device:
@@ -859,16 +864,49 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     return model_class(cfg).init(cfg, gen)
 
 
-def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> _LM:
-    """The family's model for ``cfg``, with params drawn from a generator
-    seeded with ``seed``, on ``device``.  On ``"meta"`` nothing is drawn:
-    the model has the drawn one's parameter names, shapes and dtypes and
-    holds no memory (the counterpart of ``jax.eval_shape(model.init)``),
-    for a dry run."""
-    cls = model_class(cfg)
+def build(cls, cfg: ArchConfig, device="cuda", seed: int = 0) -> _LM:
+    """``cls``'s model for ``cfg``, with params drawn from a generator
+    seeded with ``seed``, on ``device``; ``ValueError`` when ``cls`` does
+    not serve ``cfg.family``.  On ``"meta"`` nothing is drawn: the model
+    has the drawn one's parameter names, shapes and dtypes and holds no
+    memory (the counterpart of ``jax.eval_shape(model.init)``), for a dry
+    run."""
+    cls.check_family(cfg)
     dev = as_device(device, "model")
     if dev.type == "meta":
         return cls(cfg, cls.init(cfg, MetaSource()))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return cls(cfg, cls.init(cfg, gen))
+
+
+# The JAX package's family builders return a ``Model`` of pure functions
+# (init, loss_fn, prefill, decode_step, init_decode_state); the port's
+# return the family's ``nn.Module``, which holds its params and has those
+# methods.
+def build_decoder_lm(cfg: ArchConfig, device="cuda", seed: int = 0
+                     ) -> "DecoderLM":
+    """The dense, MoE and VLM families' model (:func:`build`)."""
+    return build(DecoderLM, cfg, device, seed)
+
+
+def build_hybrid_lm(cfg: ArchConfig, device="cuda", seed: int = 0
+                    ) -> "HybridLM":
+    """The hybrid (Mamba2 + shared attention) family's model
+    (:func:`build`)."""
+    return build(HybridLM, cfg, device, seed)
+
+
+def build_rwkv_lm(cfg: ArchConfig, device="cuda", seed: int = 0
+                  ) -> "RWKVLM":
+    """The RWKV6 (``"ssm"``) family's model (:func:`build`)."""
+    return build(RWKVLM, cfg, device, seed)
+
+
+def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> _LM:
+    """The family's model for ``cfg`` (:func:`build`), through the family's
+    builder."""
+    from .encdec import EncDecLM, build_encdec
+    return {DecoderLM: build_decoder_lm, HybridLM: build_hybrid_lm,
+            RWKVLM: build_rwkv_lm, EncDecLM: build_encdec}[
+                model_class(cfg)](cfg, device, seed)

@@ -6,7 +6,7 @@ seeded numpy frames and prompts go through both.  Tolerance 2e-4 (rtol and
 atol) in float32, as tests/test_torch_lm.py; ``pos`` exactly; the port's
 prefill against its own token-by-token decode within 2e-3, the property
 tests/test_arch_smoke.py holds the JAX package to.  The JAX model runs
-eagerly (no ``jax.jit``).
+under ``jax.jit`` (eager, it compiles op by op: several times slower).
 """
 import jax
 import jax.numpy as jnp
@@ -119,8 +119,8 @@ def test_encode_matches_jax(tree):
     enc = model.encode(_t(frames))
     assert enc.shape == frames.shape
     prompt = RNG.integers(0, tcfg.vocab_size, (2, 3)).astype(np.int32)
-    _, jst = jmodel.prefill(_jnp(tree), {"tokens": jnp.asarray(prompt),
-                                         "frames": jnp.asarray(frames)})
+    _, jst = jax.jit(jmodel.prefill)(_jnp(tree), {
+        "tokens": jnp.asarray(prompt), "frames": jnp.asarray(frames)})
     P = model.compute_params()[0]
     for i, lp in enumerate(P["dec"]):
         k, v = tl.init_cross_kv(lp["xattn"], tcfg, enc)
@@ -137,18 +137,19 @@ def test_prefill_and_decode_match_jax(impl, tree):
     B, S, max_len = 2, 6, 10
     prompt = RNG.integers(0, tcfg.vocab_size, (B, S)).astype(np.int32)
     frames = _frames(tcfg, B)
-    jlog, jst = jmodel.prefill(jparams, {
-        "tokens": jnp.asarray(prompt), "frames": jnp.asarray(frames),
-        "max_len": max_len})
+    jlog, jst = jax.jit(lambda p, b: jmodel.prefill(
+        p, {**b, "max_len": max_len}))(jparams, {
+            "tokens": jnp.asarray(prompt), "frames": jnp.asarray(frames)})
     tlog, tst = model.prefill(_t(prompt), _t(frames), max_len)
     assert isinstance(tst, EncDecState)
     _close(tlog, jlog, what="prefill logits")
     for name in ("self_k", "self_v", "cross_k", "cross_v"):
         _close(getattr(tst, name), getattr(jst, name), what=name)
     np.testing.assert_array_equal(tst.pos.numpy(), np.asarray(jst.pos))
+    decode = jax.jit(jmodel.decode_step)
     for step in range(3):
         tok = RNG.integers(0, tcfg.vocab_size, B).astype(np.int32)
-        jlog, jst = jmodel.decode_step(jparams, jnp.asarray(tok), jst)
+        jlog, jst = decode(jparams, jnp.asarray(tok), jst)
         tlog, tst = model.decode_step(_t(tok), tst)
         _close(tlog, jlog, what=f"decode {step} logits")
         _close(tst.self_k, jst.self_k, what=f"decode {step} self_k")
@@ -161,7 +162,8 @@ def test_loss_fn_matches_jax(tree):
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
              "frames": _frames(tcfg, 2),
              "loss_mask": (RNG.random((2, 6)) > 0.3).astype(np.float32)}
-    jloss, jmet = jax_build_model(jcfg).loss_fn(_jnp(tree), _jnp(batch))
+    jloss, jmet = jax.jit(jax_build_model(jcfg).loss_fn)(_jnp(tree),
+                                                         _jnp(batch))
     model = lm_params_from_numpy(tree, tcfg, device="cpu")
     loss, met = model.loss_fn(batch)
     assert set(met) == {"ce"}

@@ -320,7 +320,9 @@ def test_hull3d_plan_matches_jax(kind, n, M):
 ])
 def test_dense_hull3d_matches_jax(kind, n, M):
     pts = _cloud(kind, n)
-    want = jax_hull3d._hull3d_dense(jnp.asarray(pts), M, 1e-4)
+    # jitted (the stats are functional); eager, it compiles op by op
+    want = jax.jit(jax_hull3d._hull3d_dense, static_argnums=(1, 2))(
+        jnp.asarray(pts), M, 1e-4)
     got = hull3d._hull3d_dense(torch.from_numpy(pts), M, 1e-4)
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     assert_same_accum(want.stats, got.stats)
@@ -404,7 +406,9 @@ def test_dense_lp_matches_jax(case):
         c, A, b = INFEASIBLE
     else:
         c, A, b = _lp_inputs(*case)
-    want = jax_lp._lp_dense(c, A, b, 16, 1e-5)
+    # jitted (the stats are functional); eager, it compiles op by op
+    want = jax.jit(jax_lp._lp_dense, static_argnums=(3, 4))(
+        *(jnp.asarray(v) for v in (c, A, b)), 16, 1e-5)
     got = lp._lp_dense(*(torch.from_numpy(v) for v in (c, A, b)), 16, 1e-5)
     _close_lp(got.x, got.objective, want.x, want.objective, str(case))
     assert_same_accum(want.stats, got.stats, ctx=str(case))

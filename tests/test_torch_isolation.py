@@ -242,6 +242,22 @@ def test_entry_points_default_to_the_card():
                                       .param_tree()), cfg)
 
 
+@pytest.mark.parametrize("name", ["quickstart", "mr_algorithms",
+                                  "serve_queries", "serve_batch",
+                                  "obs_demo", "train_lm"])
+def test_examples_default_to_the_card(name):
+    """Without ``--device`` an example asks for the card; where there is
+    no CUDA its ``main`` raises rather than running on the CPU."""
+    import importlib
+    from repro_torch.examples._common import parser
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    if torch.cuda.is_available():
+        assert parser(mod.__doc__).parse_args([]).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+
+
 @pytest.mark.parametrize("arch,module,init", [
     ("zamba2-1.2b", "ssm", "init_mamba_state"),
     ("rwkv6-1.6b", "rwkv", "init_rwkv_state"),

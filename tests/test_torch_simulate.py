@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 import repro.core as J
 from repro_torch.core import (BSPProgram, LocalEngine, MRCost, PRAMProgram,
@@ -120,9 +121,12 @@ def test_dense_funnel_write_matches_jax(P, N, M, op):
     jop, top, dtype, identity = OPS[op]
     addrs, vals, memory = _writes(P, P, N, dtype)
     jcost, cost = J.MRCost(), MRCost()
-    want = J.funnel_write(jnp.asarray(addrs), jnp.asarray(vals),
-                          jnp.asarray(memory), jop, M, cost=jcost,
-                          identity=identity)
+    # jitted: the stats are functional (what ``cost=`` absorbs), and the
+    # eager dense funnel compiles op by op, ~10 s a case
+    want = jax.jit(lambda a, v, m: J.funnel_write(a, v, m, jop, M,
+                                                  identity=identity))(
+        jnp.asarray(addrs), jnp.asarray(vals), jnp.asarray(memory))
+    jcost.absorb(want.stats)
     got = funnel_write(torch.from_numpy(addrs), torch.from_numpy(vals),
                        torch.from_numpy(memory), top, M, cost=cost,
                        identity=identity)
@@ -245,10 +249,18 @@ def test_simulate_crcw_matches_jax(program, engine):
     jcost, cost = J.MRCost(), MRCost()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        _, jmem, jacc = J.simulate_crcw(jprog, jnp.asarray(state),
-                                        jnp.asarray(memory), steps, M, jop,
-                                        cost=jcost, identity=identity,
-                                        engine=jeng, with_accum=True)
+        if jeng is None:
+            # the dense path jitted: its accounting is functional (what
+            # ``cost=`` absorbs); eager, it compiles op by op
+            _, jmem, jacc = jax.jit(lambda s, m: J.simulate_crcw(
+                jprog, s, m, steps, M, jop, identity=identity,
+                with_accum=True))(jnp.asarray(state), jnp.asarray(memory))
+            jcost.absorb(jacc)
+        else:
+            _, jmem, jacc = J.simulate_crcw(
+                jprog, jnp.asarray(state), jnp.asarray(memory), steps, M,
+                jop, cost=jcost, identity=identity, engine=jeng,
+                with_accum=True)
         _, mem, acc = simulate_crcw(prog, torch.from_numpy(state),
                                     torch.from_numpy(memory), steps, M, top,
                                     cost=cost, identity=identity,

@@ -232,8 +232,9 @@ def test_apply_mamba_matches_jax(s):
     assert tssm.ssm_dims(tcfg)[1] > 1 and tcfg.ssm_chunk == 8
     p = _mamba_params(tcfg)
     x = _normal(2, s, tcfg.d_model)
-    jy, jst = jssm.apply_mamba(_jax(p), jcfg, jnp.asarray(x),
-                               return_state=True)
+    # jitted: eager, the chunked scan compiles op by op
+    jy, jst = jax.jit(lambda p_, x_: jssm.apply_mamba(
+        p_, jcfg, x_, return_state=True))(_jax(p), jnp.asarray(x))
     ty, tst = tssm.apply_mamba(tree_from_numpy(p), tcfg, _t(x),
                                return_state=True)
     _close(ty, jy, what="y")
@@ -327,8 +328,10 @@ def test_apply_rwkv_time_matches_jax(s, chunk):
     assert trwkv.rwkv_dims(tcfg)[0] > 1
     p = _rwkv_time_params(tcfg)
     x = _normal(2, s, tcfg.d_model)
-    jy, (jS, jx) = jrwkv.apply_rwkv_time(_jax(p), jcfg, jnp.asarray(x),
-                                         chunk=chunk, return_state=True)
+    # jitted: eager, the chunk loop compiles op by op
+    jy, (jS, jx) = jax.jit(lambda p_, x_: jrwkv.apply_rwkv_time(
+        p_, jcfg, x_, chunk=chunk, return_state=True))(_jax(p),
+                                                       jnp.asarray(x))
     ty, (tS, tx) = trwkv.apply_rwkv_time(tree_from_numpy(p), tcfg, _t(x),
                                          chunk=chunk, return_state=True)
     _close(ty, jy, what="y")

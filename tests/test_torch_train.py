@@ -148,9 +148,12 @@ def test_mamba_backward_stays_finite_where_the_decay_overflows():
     x = np.random.default_rng(8).normal(
         size=(2, 128, tcfg.d_model)).astype(np.float32)
     jp = jax.tree_util.tree_map(jnp.asarray, p)
-    want_y = jax_ssm.apply_mamba(jp, jcfg, jnp.asarray(x))
-    want_g = jax.grad(lambda p_: jnp.sum(jax_ssm.apply_mamba(
-        p_, jcfg, jnp.asarray(x))))(jp)
+    # jitted, as the other gradient tests here: eager, the chunk-128 scan
+    # compiles op by op
+    want_y = jax.jit(lambda p_: jax_ssm.apply_mamba(p_, jcfg,
+                                                    jnp.asarray(x)))(jp)
+    want_g = jax.jit(jax.grad(lambda p_: jnp.sum(jax_ssm.apply_mamba(
+        p_, jcfg, jnp.asarray(x)))))(jp)
     assert any(np.isnan(np.asarray(g)).any()
                for g in jax.tree_util.tree_leaves(want_g))
     tp = tree_map(lambda a: _t(a).requires_grad_(), p)
